@@ -1,0 +1,16 @@
+"""gubernator_tpu_torch: the PyTorch/CUDA port of gubernator_tpu.
+
+The engine (runtime/backend.TorchBackend) answers exact token- and
+leaky-bucket checks against a device-resident W-way set-associative slot
+table, applying every round of a check() with one launch of a hand-written
+CUDA kernel (csrc/serve_kernel.cu) on the card, or its plain PyTorch
+version (ops/ring.py) when the caller asks for the CPU.  Needs torch and
+numpy; imports nothing of JAX or of gubernator_tpu.
+"""
+from gubernator_tpu_torch.core.types import (  # noqa: F401
+    Algorithm,
+    Behavior,
+    RateLimitReq,
+    RateLimitResp,
+    Status,
+)
