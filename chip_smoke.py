@@ -4,21 +4,39 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. build the serve kernel (csrc/serve_kernel.cu) with nvcc;
-  2. run the kernel and its plain PyTorch version (ops/ring.ring_step) on
-     seeded random tables and rounds that reach every branch of the
-     decision step, and require them bit-exact;
-  3. warm a 2^24-slot table to 10M live keys through the kernel;
+  1. build both kernels (csrc/serve_kernel.cu, csrc/cms_kernel.cu) with
+     nvcc, in parallel, and print ptxas' registers and spills;
+  2. run K1, the serve kernel, and its plain PyTorch version
+     (ops/ring.ring_step) on seeded random tables and rounds that reach
+     every branch of the decision step, and require them bit-exact;
+  3. warm a 2^24-slot table to 10M live keys through K1;
   4. serve 8 check() batches of 32768 string-keyed requests (token and
-     leaky, with duplicates) through TorchBackend, require one kernel launch
+     leaky, with duplicates) through TorchBackend, require one K1 launch
      per check(), hold every launch's responses (all lanes), every
      check() response and the final table bit-exact against the plain
      version run on a copy of the table, and require the claim words
      restored;
-  5. time the kernel and the plain version with CUDA events (L2 flushed
-     before each call), split check()'s host time, trace one check() with
-     torch.profiler for the device's busy time, and print the kernel line,
-     the card, and the result line.
+  5. time K1 and the plain version with CUDA events (L2 flushed before
+     each call), split check()'s host time, trace one check() with
+     torch.profiler for the device's busy time;
+  6. run K2, the sketch merge kernel, and its plain version
+     (ops/sketch.multi_step) on seeded sketches and merges from
+     gubernator_tpu_torch/testing.py (W from 2^10 to 2^20, k = 1 and 32,
+     B = 1024 and more lanes than the grid has threads) in every window
+     case, and require packed outputs and both tables bit-exact;
+  7. set up the sketch tier at the repo's 100M-key deployment (D = 4,
+     W = 2^20, 60 s window, batch 1024) on the card and warm its window
+     through K2 with 48M hits over a 100M-key space (~46 counts a cell);
+  8. serve 16 check() calls of 32768 string-keyed requests (1% of lanes on
+     64 hot keys with limit 100) while a frozen clock steps through
+     in-window, sliding, one-behind and far-behind rotations; require one
+     K2 launch per check(), and hold every launch's packed outputs, every
+     RateLimitResp and the final sketch bit-exact against the plain
+     version run on a copy;
+  9. time K2 and its plain version (L2 flushed) at the main path's shape
+     and at k = 1, split the sketch check()'s host time, trace one
+     check(), and print the kernel line (K1 and K2), the card, and the
+     result line.
 
 Needs torch with CUDA and nvcc; imports no JAX.
 """
@@ -134,17 +152,25 @@ def profile_check(be, reqs):
 
 
 def phase_build():
-    from gubernator_tpu_torch.ops.kernels import serve_kernel
+    """Both kernels' nvcc builds, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
     from gubernator_tpu_torch.ops.kernels.build import build
 
     t0 = time.perf_counter()
-    built = build("serve_kernel")
+    names = ("serve_kernel", "cms_kernel")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
     serve_kernel.library()
-    log(f"phase 1: built {built.path.name} in {built.seconds:.3f} s of nvcc "
-        f"({time.perf_counter() - t0:.3f} s with loading)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    cms_kernel.library()
+    for b in built:
+        log(f"phase 1: built {b.path.name} in {b.seconds:.3f} s of nvcc")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"phase 1: both builds and loading took "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 def phase_random(dev) -> float:
@@ -286,13 +312,10 @@ def resp_tuple(r):
     return (int(r.status), r.limit, r.remaining, r.reset_time, r.error)
 
 
-def main() -> int:
+def k1_path(dev, name: str, smi: str) -> dict:
+    """Phases 2-5: K1 against its plain version, on the exact engine's main
+    path, timed.  Returns K1's entry of the kernel line."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; "
-              "this script needs a CUDA card", file=sys.stderr)
-        return 2
 
     from gubernator_tpu_torch.core.clock import Clock
     from gubernator_tpu_torch.core.config import DeviceConfig
@@ -307,17 +330,6 @@ def main() -> int:
         unmarshal_responses,
     )
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(f"card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
-
-    phase_build()
     err = phase_random(dev)
 
     clock = Clock()
@@ -452,7 +464,7 @@ def main() -> int:
         log(f"phase 5: K1 k={k} B={qs.shape[2]}: {ms:.4f} ms/launch "
             f"({ms / k:.4f} ms/round), plain {p_ms:.4f} ms, bound "
             f"{bound:.4f} ms")
-    kernels = {"kernels": [{
+    return {
         "name": "serve_kernel",
         "route": "cuda",
         "source": "gubernator_tpu_torch/csrc/serve_kernel.cu",
@@ -464,8 +476,427 @@ def main() -> int:
         "bound_ms": main_bound,
         "bound_by": "bytes",
         "library_ms": None,
-    }]}
-    log(json.dumps(kernels))
+    }
+
+
+SKETCH_DEPTH = 4
+SKETCH_WIDTH = 1 << 20
+SKETCH_WINDOW_MS = 60_000
+SKETCH_BATCH = 1024          # lanes per chunk (SketchTierConfig.batch_size)
+SKETCH_KEYS = 100_000_000    # key space of the deployment
+SKETCH_WARM_HITS = 48_000_000
+SKETCH_WARM_SHAPE = (32, 32768)  # chunks x lanes per warm-up launch
+SKETCH_REQS = 32768          # requests per check()
+SKETCH_HOT_KEYS = 64
+# Phase 6's (W, k, B): crowded to full width, one chunk and a full merge,
+# and more lanes than the grid has threads.
+SKETCH_RANDOM_CASES = [(1 << 10, 1, 1024), (1 << 10, 32, 1024),
+                       (1 << 16, 4, 4096), (1 << 20, 1, 1024),
+                       (1 << 20, 32, 1024), (1 << 20, 1, 1 << 19)]
+# Where each check() of phase 8 lands, in ms after the warmed window's
+# start: 13 calls in the warmed window, then one behind (the window rolls:
+# cur becomes prev), sliding inside that window, and far behind (both
+# tables clear).
+SKETCH_CALL_MS = [2_000 + 4_000 * j for j in range(13)] + [
+    61_000, 100_000, 300_000]
+
+
+def sketch_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def sketch_err(a, b) -> float:
+    return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def fingerprints(ids):
+    """Well-mixed nonzero int64 fingerprints of int64 key ids (the
+    splitmix64 finalizer, wrapping, with logical shifts)."""
+    def srl(x, n):
+        return (x >> n) & ((1 << (64 - n)) - 1)
+
+    def i64(u):
+        return u - (1 << 64) if u >= 1 << 63 else u
+
+    z = (ids + 1) * i64(0x9E3779B97F4A7C15)
+    z = (z ^ srl(z, 30)) * i64(0xBF58476D1CE4E5B9)
+    z = (z ^ srl(z, 27)) * i64(0x94D049BB133111EB)
+    z = z ^ srl(z, 31)
+    return z.masked_fill(z == 0, 1)
+
+
+def phase_sketch_random(dev) -> float:
+    """K2 vs plain on seeded branch-covering sketches and merges, in every
+    window case of the rotation."""
+    import torch
+
+    from gubernator_tpu_torch.ops.kernels.cms_kernel import cms_multi_step
+    from gubernator_tpu_torch.ops.sketch import (
+        SketchState,
+        clone_sketch,
+        multi_step,
+    )
+    from gubernator_tpu_torch.testing import (
+        I32_MAX,
+        WINDOW_CASES,
+        random_sketch,
+        random_sketch_lanes,
+        window_now,
+    )
+
+    ws0 = (T0_NS // 10**6) // SKETCH_WINDOW_MS * SKETCH_WINDOW_MS
+    err = 0.0
+    for n, (W, k, B) in enumerate(SKETCH_RANDOM_CASES):
+        rng = np.random.default_rng(SEED + 200 + n)
+        big = rng.integers(-(2**63), 2**63 - 1, 16, dtype=np.int64)
+        host = random_sketch(rng, SKETCH_DEPTH, W, ws0, SKETCH_WINDOW_MS, big)
+        lanes = [torch.from_numpy(a).to(dev)
+                 for a in random_sketch_lanes(rng, k, B, big)]
+        base = SketchState(
+            torch.from_numpy(host["cur"]).to(dev),
+            torch.from_numpy(host["prev"]).to(dev),
+            torch.tensor(ws0, dtype=torch.int64, device=dev),
+            torch.tensor(SKETCH_WINDOW_MS, dtype=torch.int64, device=dev))
+        seen = []
+        for case in WINDOW_CASES:
+            now = window_now(case, ws0, SKETCH_WINDOW_MS)
+            ks, kp = cms_multi_step(clone_sketch(base), *lanes, now)
+            ps, pp = multi_step(base, *lanes, now)
+            torch.cuda.synchronize()
+            if not torch.equal(kp, pp):
+                bad = (kp != pp).nonzero()[:5].tolist()
+                raise AssertionError(f"K2 case {n} {case}: packed differs "
+                                     f"at {bad}")
+            if not sketch_equal(ks, ps):
+                raise AssertionError(f"K2 case {n} {case}: sketch differs")
+            case_err = max(max_abs_err(kp, pp), sketch_err(ks, ps))
+            err = max(err, case_err)
+            seen.append(f"{case} over={int(kp[:, 0].sum())} "
+                        f"sat={int((kp[:, 1] == I32_MAX).sum())} "
+                        f"max_abs_err={case_err}")
+        act = int((lanes[0] != 0).sum())
+        log(f"phase 6: K2 case {n} W={W} k={k} B={B} ({act} active lanes): "
+            f"bit-exact in every window case; " + "; ".join(seen))
+    return err
+
+
+def sketch_requests(rng, hot_ids):
+    """One check()'s requests, as bench_e2e.py's cms_sketch_100m_space
+    sets them up: keys uniform in a 100M space, hits 1, limit 1M, 60 s;
+    ~1% of lanes go to the hot keys, whose limit is 100."""
+    from gubernator_tpu_torch.core.types import RateLimitReq
+
+    ids = rng.integers(0, SKETCH_KEYS, SKETCH_REQS)
+    hot = rng.random(SKETCH_REQS) < 0.01
+    ids[hot] = rng.choice(hot_ids, int(hot.sum()))
+    return [RateLimitReq(name="cms", unique_key=f"s{k}", hits=1,
+                         limit=100 if h else 1_000_000, duration=60_000)
+            for k, h in zip(ids.tolist(), hot.tolist())]
+
+
+def sketch_useful_bytes(depth: int, width: int, kh, rolled: bool) -> int:
+    """Bytes a merge must move for these inputs, each read or written
+    once: 24 B a lane (fingerprint, hits, limit, packed out), 12 B a
+    distinct touched (row, column) cell (read cur and prev, write cur), and
+    on a merge that rolls the window 12 B a cell of the tables (read cur,
+    write prev and cur)."""
+    import torch
+
+    from gubernator_tpu_torch.ops.sketch import row_columns
+
+    k, B = kh.shape
+    act = kh.reshape(-1)[kh.reshape(-1) != 0]
+    rows = torch.arange(depth, device=kh.device)[:, None] * width
+    cells = (row_columns(act, depth, width).to(torch.int64) + rows).unique()
+    return (24 * k * B + 12 * int(cells.numel())
+            + (12 * depth * width if rolled else 0))
+
+
+def k2_path(dev, name: str, smi: str) -> dict:
+    """Phases 6-9: K2 against its plain version, on the sketch tier's main
+    path at the 100M-key deployment, timed.  Returns K2's entry of the
+    kernel line."""
+    import torch
+
+    from gubernator_tpu_torch.core.clock import Clock
+    from gubernator_tpu_torch.core.config import SketchTierConfig
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.core.types import RateLimitResp, Status
+    from gubernator_tpu_torch.ops.kernels import cms_kernel
+    from gubernator_tpu_torch.ops.sketch import (
+        SketchState,
+        clone_sketch,
+        multi_step,
+    )
+    from gubernator_tpu_torch.runtime.sketch_backend import SketchBackend
+
+    err = phase_sketch_random(dev)
+
+    # -- phase 7: the tier at the 100M-key deployment, warmed -------------
+    cfg = SketchTierConfig(names=["cms"], depth=SKETCH_DEPTH,
+                           width=SKETCH_WIDTH, window_ms=SKETCH_WINDOW_MS,
+                           batch_size=SKETCH_BATCH)
+    t0_ms = T0_NS // 10**6
+    ws = t0_ms - t0_ms % SKETCH_WINDOW_MS
+    clock = Clock()
+    clock.freeze((ws + 1_000) * 10**6)
+    be = SketchBackend(cfg, clock=clock, device=dev)
+    t0 = time.perf_counter()
+    be.warmup()
+    log(f"phase 7: SketchBackend on {be.device}: warmup() (K2 library and "
+        f"one launch) took {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    kw, bw = SKETCH_WARM_SHAPE
+    hits = torch.ones((kw, bw), dtype=torch.int32, device=dev)
+    lim = torch.full((kw, bw), 1_000_000, dtype=torch.int32, device=dev)
+    fed, t0 = 0, time.perf_counter()
+    while fed < SKETCH_WARM_HITS:
+        ids = torch.randint(0, SKETCH_KEYS, (kw, bw), generator=gen,
+                            device=dev)
+        now = clock.millisecond_now()
+        be._advance_window(now)  # the host mirror, as check() keeps it
+        be.state, _ = cms_kernel.cms_multi_step(
+            be.state, fingerprints(ids), hits, lim, now)
+        fed += kw * bw
+    torch.cuda.synchronize()
+    cells = be.state.cur.to(torch.float64)
+    log(f"phase 7: warmed the window with {fed} hits over a "
+        f"{SKETCH_KEYS}-key space in {time.perf_counter() - t0:.3f} s: "
+        f"mean {float(cells.mean()):.3f} counts a cell, max "
+        f"{int(be.state.cur.max())}; window_start {int(be.state.window_start)}"
+        f" (host mirror {be._win_start})")
+    if int(be.state.window_start) != be._win_start:
+        raise AssertionError("host window mirror differs from the device's")
+
+    # -- phase 8: the main path --------------------------------------------
+    rng = np.random.default_rng(SEED + 300)
+    hot_ids = rng.integers(0, SKETCH_KEYS, SKETCH_HOT_KEYS)
+    batches = [sketch_requests(rng, hot_ids) for _ in SKETCH_CALL_MS]
+    start_state = clone_sketch(be.state)
+    plain = SketchBackend(cfg, clock=clock, device=dev)
+    plain.state = clone_sketch(be.state)
+    plain._win_start = be._win_start
+
+    # Keep each main-path launch's inputs and packed outputs (references
+    # only: nothing is copied inside check()).
+    main = []
+    dispatch = be._dispatch
+
+    def recording_dispatch(kh, hc, lc, now):
+        packed = dispatch(kh, hc, lc, now)
+        main.append((kh, hc, lc, now, packed))
+        return packed
+
+    plain_packed = []
+
+    def plain_dispatch(kh, hc, lc, now):
+        def d(a):
+            return torch.from_numpy(a).to(dev)
+
+        plain.state, packed = multi_step(plain.state, d(kh), d(hc), d(lc),
+                                         now)
+        plain_packed.append(packed)
+        return packed
+
+    be._dispatch = recording_dispatch
+    plain._dispatch = plain_dispatch
+    torch.cuda.synchronize()
+    got, check_s = [], 0.0
+    cms_kernel.launches = 0
+    for off, reqs in zip(SKETCH_CALL_MS, batches):
+        clock.freeze((ws + off) * 10**6)
+        t0 = time.perf_counter()
+        got.append(be.check(reqs))
+        check_s += time.perf_counter() - t0
+    launches = cms_kernel.launches
+    del be._dispatch
+    if launches != len(batches):
+        raise AssertionError(
+            f"{launches} K2 launches for {len(batches)} check() calls")
+    for j, (off, reqs) in enumerate(zip(SKETCH_CALL_MS, batches)):
+        clock.freeze((ws + off) * 10**6)
+        want = plain.check(reqs)
+        packed, pp = main[j][4], plain_packed[j]
+        if not torch.equal(packed, pp):
+            bad = (packed != pp).nonzero()[:5].tolist()
+            raise AssertionError(f"sketch check() {j}: K2's packed output "
+                                 f"differs from the plain version's at {bad}")
+        err = max(err, max_abs_err(packed, pp))
+        if [resp_tuple(r) + (r.metadata,) for r in got[j]] != \
+                [resp_tuple(r) + (r.metadata,) for r in want]:
+            raise AssertionError(f"sketch check() {j}: responses differ "
+                                 "from the plain version's")
+    if cms_kernel.launches != launches:
+        raise AssertionError("the plain replay launched K2")
+    torch.cuda.synchronize()
+    if not sketch_equal(be.state, plain.state):
+        raise AssertionError("sketch after check() differs from the plain "
+                             "version's")
+    over = sum(int(r.status == Status.OVER_LIMIT) for b in got for r in b)
+    hot_over = sum(int(r.status == Status.OVER_LIMIT and r.limit == 100)
+                   for b in got for r in b)
+    per_call = [sum(int(r.status) for r in b) for b in got]
+    n_reqs = sum(len(b) for b in batches)
+    log(f"phase 8: {len(batches)} sketch check() x {SKETCH_REQS} requests "
+        f"(k={main[0][0].shape[0]} chunks of {SKETCH_BATCH}): {launches} K2 "
+        f"launches; packed outputs (all lanes), responses and final sketch "
+        f"bit-exact vs plain; over_limit={over} ({hot_over} on hot keys), "
+        f"per call {per_call}; {n_reqs / check_s:.1f} check() decisions/s "
+        f"(host clock, hashing and responses included)")
+    if over == 0:
+        raise AssertionError("no OVER_LIMIT answer on the sketch main path")
+    if not isinstance(got[0][0], RateLimitResp) or \
+            got[0][0].metadata != {"tier": "sketch"}:
+        raise AssertionError("sketch responses lack metadata tier=sketch")
+
+    # -- phase 9: timing -----------------------------------------------------
+    l2_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = l2_buf.zero_
+    kh0, hc0, lc0, now0, _ = main[0]
+    lanes0 = [torch.from_numpy(a).to(dev) for a in (kh0, hc0, lc0)]
+    bound0 = (sketch_useful_bytes(SKETCH_DEPTH, SKETCH_WIDTH, lanes0[0],
+                                  False) / hbm_bytes_per_s(name) * 1e3)
+
+    def timed(lanes, now, iters_k, iters_p, roll_from=None):
+        """K2 and plain ms on repeats of one merge, each on a copy of the
+        warmed sketch; `roll_from` resets window_start before each run (in
+        the flush, outside the timed span) so every run rolls."""
+        ks, ps = clone_sketch(start_state), clone_sketch(start_state)
+
+        def prep():
+            flush()
+            if roll_from is not None:
+                ks.window_start.fill_(roll_from)
+
+        def kern():
+            cms_kernel.cms_multi_step(ks, *lanes, now)
+
+        def pl():
+            if roll_from is not None:
+                pl_state = SketchState(ps.cur, ps.prev,
+                                       torch.tensor(roll_from, device=dev),
+                                       ps.window_ms)
+            else:
+                pl_state = ps
+            multi_step(pl_state, *lanes, now)
+
+        kern()
+        ms = cuda_ms(kern, iters_k, prep)
+        pl()
+        p_ms = cuda_ms(pl, iters_p, prep)
+        return ms, p_ms
+
+    main_ms, main_plain = timed(lanes0, now0, 20, 3)
+    log(f"phase 9 ({smi}): K2 at the main path's shape (k={kh0.shape[0]}, "
+        f"B={kh0.shape[1]}, D={SKETCH_DEPTH}, W={SKETCH_WIDTH}): "
+        f"{main_ms:.4f} ms/launch, plain {main_plain:.4f} ms, bound "
+        f"{bound0:.6f} ms (call 0's own merge: "
+        f"{int((lanes0[0] != 0).sum())} active lanes)")
+    one = [t[:1].contiguous() for t in lanes0]
+    b1 = (sketch_useful_bytes(SKETCH_DEPTH, SKETCH_WIDTH, one[0], False)
+          / hbm_bytes_per_s(name) * 1e3)
+    ms1, p1 = timed(one, now0, 20, 3)
+    log(f"phase 9: K2 k=1 B={SKETCH_BATCH}: {ms1:.4f} ms/launch, plain "
+        f"{p1:.4f} ms, bound {b1:.6f} ms")
+    roll_now = ws + SKETCH_WINDOW_MS + 1_000
+    br = (sketch_useful_bytes(SKETCH_DEPTH, SKETCH_WIDTH, lanes0[0], True)
+          / hbm_bytes_per_s(name) * 1e3)
+    msr, pr = timed(lanes0, roll_now, 20, 3, roll_from=ws)
+    log(f"phase 9: K2 k={kh0.shape[0]} on a merge that rolls the window "
+        f"(one behind): {msr:.4f} ms/launch, plain {pr:.4f} ms, bound "
+        f"{br:.6f} ms")
+
+    # check()'s host time, by stage, on replays of the main path's calls.
+    stage = {"hash": 0.0, "pad+copy+launch": 0.0, "launch": 0.0,
+             "fetch": 0.0, "responses": 0.0}
+    dispatch = be._dispatch
+
+    def timed_dispatch(kh, hc, lc, now):
+        t = time.perf_counter()
+        packed = dispatch(kh, hc, lc, now)
+        stage["launch"] += time.perf_counter() - t
+        return packed
+
+    be._dispatch = timed_dispatch
+    for off, reqs in zip(SKETCH_CALL_MS, batches):
+        clock.freeze((ws + off) * 10**6)
+        t0 = time.perf_counter()
+        kh = bulk_key_hash64([r.hash_key() for r in reqs])
+        hits_a = np.array([r.hits for r in reqs], dtype=np.int64)
+        lim_a = np.array([r.limit for r in reqs], dtype=np.int64)
+        t1 = time.perf_counter()
+        fetch = be.check_cols_begin(kh, hits_a, lim_a)
+        t2 = time.perf_counter()
+        status, remaining, reset = fetch()
+        t3 = time.perf_counter()
+        _ = [RateLimitResp(
+            status=Status.OVER_LIMIT if status[j] else Status.UNDER_LIMIT,
+            limit=int(lim_a[j]), remaining=int(remaining[j]),
+            reset_time=int(reset[j]), metadata={"tier": "sketch"})
+            for j in range(len(reqs))]
+        t4 = time.perf_counter()
+        stage["hash"] += t1 - t0
+        stage["pad+copy+launch"] += t2 - t1
+        stage["fetch"] += t3 - t2
+        stage["responses"] += t4 - t3
+    del be._dispatch
+    per = 1e3 / len(batches)
+    log(f"phase 9: sketch check() of {SKETCH_REQS} requests, mean ms: total "
+        f"{check_s * per:.3f} (main path); replayed by stage: hash_key + "
+        f"XXH64 + arrays {stage['hash'] * per:.3f}; pad, clamp, H2D copies "
+        f"and launch {stage['pad+copy+launch'] * per:.3f} (of which the "
+        f"K2 wrapper call {stage['launch'] * per:.3f}); fetch (event wait, "
+        f"remaining) {stage['fetch'] * per:.3f}; RateLimitResp objects "
+        f"{stage['responses'] * per:.3f}")
+    clock.freeze((ws + SKETCH_CALL_MS[-1] + 500) * 10**6)
+    wall_ms, busy_ms, by_name = profile_check(be, batches[0])
+    if busy_ms > 0:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"phase 9: torch.profiler, one sketch check(): {wall_ms:.3f} ms "
+            f"wall, device busy {busy_ms:.4f} ms ({busy_ms / wall_ms:.4%}); "
+            + "; ".join(f"{n} {t:.4f} ms" for n, t in top))
+    else:
+        log("phase 9: torch.profiler recorded no device time: device busy "
+            "share not measured")
+    return {
+        "name": "cms_kernel",
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/cms_kernel.cu",
+        "replaces": "gubernator_tpu/ops/pallas/cms_kernel.py:44",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": main_ms,
+        "plain_ms": main_plain,
+        "bound_ms": bound0,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; "
+              "this script needs a CUDA card", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    phase_build()
+    k1 = k1_path(dev, name, smi)
+    k2 = k2_path(dev, name, smi)
+    log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,8 +4,11 @@ The engine (runtime/backend.TorchBackend) answers exact token- and
 leaky-bucket checks against a device-resident W-way set-associative slot
 table, applying every round of a check() with one launch of a hand-written
 CUDA kernel (csrc/serve_kernel.cu) on the card, or its plain PyTorch
-version (ops/ring.py) when the caller asks for the CPU.  Needs torch and
-numpy; imports nothing of JAX or of gubernator_tpu.
+version (ops/ring.py) when the caller asks for the CPU.  The approximate
+tier (runtime/sketch_backend.SketchBackend) answers its limit names from a
+sliding-window count-min sketch, one launch of a second hand-written kernel
+(csrc/cms_kernel.cu) per merge, or its plain version (ops/sketch.py) on the
+CPU.  Needs torch and numpy; imports nothing of JAX or of gubernator_tpu.
 """
 from gubernator_tpu_torch.core.types import (  # noqa: F401
     Algorithm,

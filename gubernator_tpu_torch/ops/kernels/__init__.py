@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels: their ctypes wrappers, launch counts and the
+nvcc build (build.py)."""
+from __future__ import annotations
+
+import torch
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device` (what a kernel's raw pointer needs)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from gubernator_tpu_torch.ops.kernels import check_tensor
 from gubernator_tpu_torch.ops.ring import ring_step
 from gubernator_tpu_torch.ops.state import COLUMN_DTYPES, SlotTable
 
@@ -57,17 +58,6 @@ def new_claim_buffer(num_slots: int, device) -> torch.Tensor:
     )
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
 def persistent_serve_step(
     table: SlotTable,
     qs: torch.Tensor,
@@ -84,9 +74,9 @@ def persistent_serve_step(
         raise ValueError(f"qs: shape {tuple(qs.shape)}, expected [k, 12, B]")
     k, _, B = qs.shape
     for f, dt in COLUMN_DTYPES.items():
-        _check(f"table.{f}", getattr(table, f), dt, (S,), dev)
-    _check("qs", qs, torch.int64, (k, 12, B), dev)
-    _check("nows", nows, torch.int64, (k,), dev)
+        check_tensor(f"table.{f}", getattr(table, f), dt, (S,), dev)
+    check_tensor("qs", qs, torch.int64, (k, 12, B), dev)
+    check_tensor("nows", nows, torch.int64, (k,), dev)
     if seq.dtype != torch.int64 or seq.numel() != 1 or seq.device != dev:
         raise ValueError("seq: expected one int64 on the table's device")
     if S % ways or (S // ways) & (S // ways - 1):
@@ -100,7 +90,7 @@ def persistent_serve_step(
     if claim is None:
         raise ValueError("claim: a launch on the card needs the caller's "
                          "int32[num_slots] claim-word buffer")
-    _check("claim", claim, torch.int32, (S,), dev)
+    check_tensor("claim", claim, torch.int32, (S,), dev)
 
     resps = torch.empty((k, 9, B), dtype=torch.int64, device=dev)
     seq_out = torch.empty_like(seq)

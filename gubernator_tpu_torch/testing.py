@@ -6,15 +6,24 @@ lanes transient, expired rows, tied touch stamps (lowest way wins), inactive
 lanes holding garbage, an algorithm id that is neither bucket, and a few
 lanes and rows at the int64 extremes (saturation, wrap, truncation).
 
+The sketch tier has its own makers (`random_sketch`, `random_sketch_lanes`,
+`window_now`): sketches with cells near both int32 bounds and above 2^24,
+and merges with inactive lanes, duplicate-key groups, fingerprints at the
+int64 bounds and with the top bit set, zero and negative hits, and every
+window case of the rotation.
+
 Everything is numpy from a `np.random.Generator`, so the same inputs can be
 handed to this package and to the JAX package.  Tables use the snapshot
 dict format (ops/state.table_from_host); rounds are int64[k, 12, B].
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from gubernator_tpu_torch.ops.sketch import row_columns
 
 I64_MAX = 2**63 - 1
 I64_MIN = -(2**63)
@@ -120,3 +129,81 @@ def random_rounds(rng: np.random.Generator, ks: KeySpace,
             q[:, ~active], 7)
         q[10, ~active] = 0
     return qs
+
+
+# -- the sketch tier -------------------------------------------------------
+
+I32_MAX = 2**31 - 1
+I32_MIN = -(2**31)
+
+WINDOW_CASES = ("in_window", "sliding", "one_behind", "far_behind",
+                "before_start")
+
+
+def random_sketch(rng: np.random.Generator, depth: int, width: int,
+                  window_start: int, window_ms: int,
+                  big_keys: np.ndarray) -> Dict[str, object]:
+    """cur / prev int32[D, W] with small counts (negative ones too), a few
+    cells above 2^24 and near INT32_MIN, and every cell of each `big_keys`
+    fingerprint near INT32_MAX (so its estimate saturates and its adds
+    wrap).  Returns the state as a dict of numpy arrays and ints."""
+    cur = rng.integers(-20, 200, (depth, width)).astype(np.int32)
+    prev = rng.integers(-20, 200, (depth, width)).astype(np.int32)
+    for t in (cur, prev):
+        n = max(1, t.size // 64)
+        flat = t.reshape(-1)
+        flat[rng.integers(0, t.size, n)] = rng.integers(2**24, 2**31 - 1, n)
+        flat[rng.integers(0, t.size, n)] = I32_MIN + rng.integers(0, 50, n)
+    cols = row_columns(torch.from_numpy(big_keys), depth, width).numpy()
+    for d in range(depth):
+        cur[d, cols[d]] = I32_MAX - rng.integers(0, 3, len(big_keys))
+        prev[d, cols[d]] = rng.choice([I32_MAX, 2**30, 2**24 + 1],
+                                      len(big_keys))
+    return dict(cur=cur, prev=prev, window_start=int(window_start),
+                window_ms=int(window_ms))
+
+
+def random_sketch_lanes(
+    rng: np.random.Generator, k: int, B: int, big_keys: np.ndarray,
+    huge_hits: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(kh int64[k, B], hits int32[k, B], lim int32[k, B]) for one merge:
+    ~10% inactive lanes (fingerprint 0, garbage hits and limits), groups
+    of duplicate keys inside a chunk and across chunks, the big keys, and
+    fingerprints at the int64 bounds.  With `huge_hits`, ~1% of lanes
+    carry hits at the int32 bounds or beyond 2^24, where the JAX package's
+    float32 one-hot and Pallas forms part from its int32 scatter form."""
+    n = k * B
+    kh = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64, endpoint=True)
+    pick = rng.random(n)
+    group = rng.integers(I64_MIN, I64_MAX, 8, dtype=np.int64, endpoint=True)
+    dup = pick < 0.15
+    kh[dup] = rng.choice(group, int(dup.sum()))
+    big = (pick >= 0.15) & (pick < 0.17)
+    kh[big] = rng.choice(big_keys, int(big.sum()))
+    edge = (pick >= 0.17) & (pick < 0.18)
+    kh[edge] = rng.choice(
+        np.array([I64_MIN, I64_MAX, -1, 1, I64_MIN + 1], dtype=np.int64),
+        int(edge.sum()))
+    kh[kh == 0] = 1
+    kh[pick >= 0.9] = 0  # inactive
+    hits = rng.choice([0, 1, 1, 1, 2, 5, -1, -3, 100], n)
+    rare = (rng.random(n) < 0.01) & huge_hits
+    hits[rare] = rng.choice([I32_MAX, I32_MIN, 2**24 + 1, -(2**24)],
+                            int(rare.sum()))
+    lim = rng.choice([0, 1, 5, 20, 100, 1000, -1, I32_MAX], n)
+    return (kh.reshape(k, B), hits.astype(np.int32).reshape(k, B),
+            lim.astype(np.int32).reshape(k, B))
+
+
+def window_now(case: str, window_start: int, window_ms: int) -> int:
+    """A `now` that puts a sketch whose window starts at `window_start` in
+    the named case of the rotation."""
+    w = window_ms
+    return window_start + {
+        "in_window": 0,                 # overlap exactly 1
+        "sliding": (3 * w) // 5,        # overlap strictly inside (0, 1)
+        "one_behind": w + w // 3,       # cur becomes prev
+        "far_behind": 3 * w + 7,        # both tables clear
+        "before_start": -5,             # elapsed < 0: stays, overlap 1
+    }[case]

@@ -1,7 +1,8 @@
 """gubernator_tpu_torch stands alone: in a fresh interpreter where `jax` and
 the JAX package cannot be imported, the port imports and answers a check()
-on the CPU, and no module named jax, gubernator_tpu or gubernator_tpu.* is
-ever loaded (gubernator_tpu_torch itself must pass the prefix test)."""
+on the CPU from both the exact engine and the sketch tier, and no module
+named jax, gubernator_tpu or gubernator_tpu.* is ever loaded
+(gubernator_tpu_torch itself must pass the prefix test)."""
 from __future__ import annotations
 
 import os
@@ -38,9 +39,24 @@ SCRIPT = textwrap.dedent("""
     r = be.check([RateLimitReq(name="iso", unique_key="k", hits=1, limit=5,
                                duration=60_000)])[0]
     assert (r.error, r.remaining) == ("", 4), r
+
+    from gubernator_tpu_torch.core.config import SketchTierConfig
+    from gubernator_tpu_torch.ops import sketch
+    from gubernator_tpu_torch.ops.kernels import cms_kernel
+    from gubernator_tpu_torch.runtime.sketch_backend import SketchBackend
+
+    sb = SketchBackend(SketchTierConfig(names=["iso"], width=1024,
+                                        batch_size=16), device="cpu")
+    reqs = [RateLimitReq(name="iso", unique_key="k", hits=2, limit=3,
+                         duration=1000)] * 2
+    assert [x.remaining for x in sb.check(reqs)] == [1, 1]
+    s = sb.check(reqs[:1])[0]
+    assert (int(s.status), s.metadata) == (1, {"tier": "sketch"}), s
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
-    assert "gubernator_tpu_torch.runtime.backend" in sys.modules
+    for m in ("runtime.backend", "runtime.sketch_backend", "ops.sketch",
+              "ops.kernels.cms_kernel"):
+        assert "gubernator_tpu_torch." + m in sys.modules, m
     print("ISOLATED-OK")
 """)
 
