@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
      nvcc, in parallel, and print ptxas' registers and spills;
   2. run K1, the serve kernel, and its plain PyTorch version
      (ops/ring.ring_step) on seeded random tables and rounds that reach
-     every branch of the decision step, and require them bit-exact;
+     every branch of the decision step, and require them bit-exact: more
+     owner blocks than buckets, a round whose every lane lands in one
+     owner's buckets, and more lanes than the card has threads;
   3. warm a 2^24-slot table to 10M live keys through K1;
   4. serve 8 check() batches of 32768 string-keyed requests (token and
      leaky, with duplicates) through TorchBackend, require one K1 launch
@@ -22,8 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
   6. run K2, the sketch merge kernel, and its plain version
      (ops/sketch.multi_step) on seeded sketches and merges from
      gubernator_tpu_torch/testing.py (W from 2^10 to 2^20, k = 1 and 32,
-     B = 1024 and more lanes than the grid has threads) in every window
-     case, and require packed outputs and both tables bit-exact;
+     B = 1024, 1025 and more lanes than the grid has threads) in every
+     window case, and one key across 32 chunks of a 2^4 sketch, and
+     require packed outputs and both tables bit-exact;
   7. set up the sketch tier at the repo's 100M-key deployment (D = 4,
      W = 2^20, 60 s window, batch 1024) on the card and warm its window
      through K2 with 48M hits over a 100M-key space (~46 counts a cell);
@@ -33,8 +36,9 @@ Phases (any failure exits non-zero and prints no result line):
      K2 launch per check(), and hold every launch's packed outputs, every
      RateLimitResp and the final sketch bit-exact against the plain
      version run on a copy;
-  9. time K2 and its plain version (L2 flushed) at the main path's shape
-     and at k = 1, split the sketch check()'s host time, trace one
+  9. time K2 and its plain version (L2 flushed) at the main path's shape,
+     at k = 1, on a merge that rolls and at the warm-up's shape, split the
+     sketch check()'s host time, trace one
      check(), and print the kernel line (K1 and K2), the card, and the
      result line.
 
@@ -180,28 +184,42 @@ def phase_random(dev) -> float:
     from gubernator_tpu_torch.ops.kernels.serve_kernel import (
         INT32_MAX,
         new_claim_buffer,
+        owners,
         persistent_serve_step,
     )
-    from gubernator_tpu_torch.ops.ring import ring_step
+    from gubernator_tpu_torch.ops.ring import owner_partition, ring_step
     from gubernator_tpu_torch.ops.state import clone_table, table_from_host
     from gubernator_tpu_torch.testing import (
         KeySpace,
+        owner_crowded_rounds,
         random_rounds,
         random_table,
     )
 
     now = T0_NS // 1_000_000
     err = 0.0
-    # (num_slots, B, k, hot buckets): small and crowded, the main path's
-    # lane count, and more lanes than the grid has threads.
-    cases = [(256, 64, 4, 4), (1 << 16, 4096, 4, 64),
-             (1 << 20, BATCH, 3, 512), (1 << 20, 1 << 18, 2, 1024)]
-    for n, (S, B, k, hot) in enumerate(cases):
+    G = owners(dev)
+    log(f"phase 2: K1 bins lanes over G={G} owner blocks")
+    # (num_slots, B, k, hot buckets, crowd one owner): small and crowded
+    # (more owners than buckets), the main path's lane count, every lane
+    # of each round in one owner's buckets, and more lanes than the card
+    # has threads.
+    cases = [(256, 64, 4, 4, False), (1 << 16, 4096, 4, 64, False),
+             (1 << 20, BATCH, 3, 512, False), (1 << 20, BATCH, 2, 64, True),
+             (1 << 20, 1 << 18, 2, 1024, False)]
+    for n, (S, B, k, hot, crowd) in enumerate(cases):
         rng = np.random.default_rng(SEED + n)
         ks = KeySpace(rng, S, WAYS, hot_buckets=hot)
         host = random_table(rng, ks, now)
-        qs = torch.from_numpy(
-            random_rounds(rng, ks, host["key"], k, B, now)).to(dev)
+        if crowd:
+            qs = torch.from_numpy(owner_crowded_rounds(
+                rng, ks, host["key"], k, B, now, G)).to(dev)
+            own, _ = owner_partition(qs, S // WAYS, G)
+            if not bool((own[qs[:, 10] != 0] == 0).all()):
+                raise AssertionError(f"case {n}: lanes outside owner 0")
+        else:
+            qs = torch.from_numpy(
+                random_rounds(rng, ks, host["key"], k, B, now)).to(dev)
         nows = torch.tensor([now + 7 * b for b in range(k)],
                             dtype=torch.int64, device=dev)
         seq = torch.tensor(5, dtype=torch.int64, device=dev)
@@ -221,7 +239,8 @@ def phase_random(dev) -> float:
         if not bool((claim == INT32_MAX).all()):
             raise AssertionError(f"case {n}: claim words not restored")
         act = qs[:, 10] != 0
-        log(f"phase 2: case {n} S={S} B={B} k={k}: bit-exact; lanes "
+        log(f"phase 2: case {n} S={S} B={B} k={k}"
+            f"{' (one owner)' if crowd else ''}: bit-exact; lanes "
             f"active={int(act.sum())} found={int(pr[:, 5].sum())} "
             f"transient={int((act & (pr[:, 4] == 0)).sum())} "
             f"cached={int(pr[:, 7].sum())} over={int((pr[:, 0] == 1).sum())}")
@@ -489,10 +508,12 @@ SKETCH_WARM_SHAPE = (32, 32768)  # chunks x lanes per warm-up launch
 SKETCH_REQS = 32768          # requests per check()
 SKETCH_HOT_KEYS = 64
 # Phase 6's (W, k, B): crowded to full width, one chunk and a full merge,
-# and more lanes than the grid has threads.
+# one lane more than a block walks, and more lanes than the grid has
+# threads.
 SKETCH_RANDOM_CASES = [(1 << 10, 1, 1024), (1 << 10, 32, 1024),
-                       (1 << 16, 4, 4096), (1 << 20, 1, 1024),
-                       (1 << 20, 32, 1024), (1 << 20, 1, 1 << 19)]
+                       (1 << 10, 4, 1025), (1 << 16, 4, 4096),
+                       (1 << 20, 1, 1024), (1 << 20, 32, 1024),
+                       (1 << 20, 1, 1 << 19)]
 # Where each check() of phase 8 lands, in ms after the warmed window's
 # start: 13 calls in the warmed window, then one behind (the window rolls:
 # cur becomes prev), sliding inside that window, and far behind (both
@@ -532,7 +553,10 @@ def phase_sketch_random(dev) -> float:
     window case of the rotation."""
     import torch
 
-    from gubernator_tpu_torch.ops.kernels.cms_kernel import cms_multi_step
+    from gubernator_tpu_torch.ops.kernels.cms_kernel import (
+        cluster_blocks,
+        cms_multi_step,
+    )
     from gubernator_tpu_torch.ops.sketch import (
         SketchState,
         clone_sketch,
@@ -541,6 +565,7 @@ def phase_sketch_random(dev) -> float:
     from gubernator_tpu_torch.testing import (
         I32_MAX,
         WINDOW_CASES,
+        cross_chunk_lanes,
         random_sketch,
         random_sketch_lanes,
         window_now,
@@ -548,6 +573,8 @@ def phase_sketch_random(dev) -> float:
 
     ws0 = (T0_NS // 10**6) // SKETCH_WINDOW_MS * SKETCH_WINDOW_MS
     err = 0.0
+    log(f"phase 6: K2 walks chunks of <= 1024 lanes with a cluster of "
+        f"{cluster_blocks(dev)} blocks")
     for n, (W, k, B) in enumerate(SKETCH_RANDOM_CASES):
         rng = np.random.default_rng(SEED + 200 + n)
         big = rng.integers(-(2**63), 2**63 - 1, 16, dtype=np.int64)
@@ -579,6 +606,35 @@ def phase_sketch_random(dev) -> float:
         act = int((lanes[0] != 0).sum())
         log(f"phase 6: K2 case {n} W={W} k={k} B={B} ({act} active lanes): "
             f"bit-exact in every window case; " + "; ".join(seen))
+
+    # One key across 32 chunks of an empty 2^4 sketch: chunk c must read
+    # the adds of chunks 0..c-1, so the key estimates c there and goes over
+    # from chunk 15 on.  Its cells repeat in every chunk, which is what
+    # catches a stale read of cur.
+    rng = np.random.default_rng(SEED + 299)
+    kh, hits, lim, lane = cross_chunk_lanes(rng, 32, SKETCH_BATCH, 15)
+    lanes = [torch.from_numpy(a).to(dev) for a in (kh, hits, lim)]
+    empty = torch.zeros((SKETCH_DEPTH, 16), dtype=torch.int32, device=dev)
+    base = SketchState(empty, empty.clone(),
+                       torch.tensor(ws0, dtype=torch.int64, device=dev),
+                       torch.tensor(SKETCH_WINDOW_MS, dtype=torch.int64,
+                                    device=dev))
+    ks, kp = cms_multi_step(clone_sketch(base), *lanes, ws0)
+    ps, pp = multi_step(base, *lanes, ws0)
+    torch.cuda.synchronize()
+    if not torch.equal(kp, pp) or not sketch_equal(ks, ps):
+        raise AssertionError("K2 cross-chunk case differs from the plain "
+                             "version")
+    rows = torch.arange(32, device=dev)
+    est = kp[rows, 1, torch.from_numpy(lane).to(dev)].tolist()
+    if est != list(range(32)):
+        raise AssertionError(f"K2 cross-chunk estimates {est}")
+    first = int(kp[:, 0].any(dim=1).nonzero()[0])
+    err = max(err, max_abs_err(kp, pp), sketch_err(ks, ps))
+    log(f"phase 6: K2 one key across 32 chunks of B={SKETCH_BATCH}, W=16: "
+        f"bit-exact; estimates 0..31 by chunk, first over in chunk {first}")
+    if first != 15:
+        raise AssertionError(f"first over chunk {first}, expected 15")
     return err
 
 
@@ -808,6 +864,19 @@ def k2_path(dev, name: str, smi: str) -> dict:
     log(f"phase 9: K2 k={kh0.shape[0]} on a merge that rolls the window "
         f"(one behind): {msr:.4f} ms/launch, plain {pr:.4f} ms, bound "
         f"{br:.6f} ms")
+    # The warm-up's shape: chunks wider than a block take the grid walk.
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(SEED + 1)
+    wk, wb = SKETCH_WARM_SHAPE
+    wlanes = [fingerprints(torch.randint(0, SKETCH_KEYS, (wk, wb),
+                                         generator=wgen, device=dev)),
+              torch.ones((wk, wb), dtype=torch.int32, device=dev),
+              torch.full((wk, wb), 1_000_000, dtype=torch.int32, device=dev)]
+    bw = (sketch_useful_bytes(SKETCH_DEPTH, SKETCH_WIDTH, wlanes[0], False)
+          / hbm_bytes_per_s(name) * 1e3)
+    msw, pw = timed(wlanes, now0, 10, 1)
+    log(f"phase 9: K2 at the warm-up's shape (k={wk}, B={wb}, grid walk): "
+        f"{msw:.4f} ms/launch, plain {pw:.4f} ms, bound {bw:.6f} ms")
 
     # check()'s host time, by stage, on replays of the main path's calls.
     stage = {"hash": 0.0, "pad+copy+launch": 0.0, "launch": 0.0,

@@ -2,7 +2,7 @@
 
 The engine (runtime/backend.TorchBackend) answers exact token- and
 leaky-bucket checks against a device-resident W-way set-associative slot
-table, applying every round of a check() with one launch of a hand-written
+table, applying every round of a check() with one dispatch of a hand-written
 CUDA kernel (csrc/serve_kernel.cu) on the card, or its plain PyTorch
 version (ops/ring.py) when the caller asks for the CPU.  The approximate
 tier (runtime/sketch_backend.SketchBackend) answers its limit names from a

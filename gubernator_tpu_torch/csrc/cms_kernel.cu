@@ -1,7 +1,7 @@
 // K2: the count-min-sketch merge kernel for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_cms_kernel` / `cms_step_pallas_impl`
-// (gubernator_tpu/ops/pallas/cms_kernel.py:44-166).  One launch applies a
+// (gubernator_tpu/ops/pallas/cms_kernel.py:44-166).  One dispatch applies a
 // whole merge of k chunks of B lanes to the sliding-window sketch, in order:
 //
 //     cur, prev, window_start (in place), packed[k, 2, B] (over, estimate)
@@ -11,37 +11,62 @@
 // gubernator_tpu_torch/ops/sketch.py `multi_step` (the JAX package's
 // `make_multi_step(cms_step_scatter_impl)`); the two agree bit for bit.
 //
-// What bounds it: bytes, and few of them.  A lane reads its fingerprint,
-// hits and limit (16 B) and writes over and estimate (8 B); each distinct
-// (row, column) cell it touches is read in cur and prev and written in cur
+// What bounds it.  Bytes are few: a lane reads its fingerprint, hits and
+// limit (16 B) and writes over and estimate (8 B); each distinct (row,
+// column) cell it touches is read in cur and prev and written in cur
 // (12 B).  A merge that rolls the window also reads cur and writes both
 // tables (12 B a cell, 48 MB at D = 4, W = 2^20).  There is almost no
-// arithmetic.  At the tier's shapes (B = 1024, D = 4) the gathers are
-// random 4-byte reads, so latency and the phase barriers, not bandwidth,
-// set the time.
+// arithmetic.  What sets the time is the chain of chunks: each must read
+// its cells after the previous chunk's adds, so a merge is k steps in
+// sequence, and each step is 3D scattered requests a lane (D reads of cur,
+// D of prev, D atomic adds: 12K for 1024 lanes at D = 4).  Walked by one
+// block, a chunk took about 7 us on the H100, as long as the first
+// design's chunk with its two grid-wide barriers: about what one SM
+// issuing one such request a cycle would take.  So the step is spread over
+// several SMs and ordered by a barrier cheaper than the grid's.
 //
 // Design.  The TPU ran the batch as a sequential grid of one-hot MXU
 // matmuls over a VMEM-resident sketch.  Here it is a gather, a min and a
-// scatter-add, as in `cms_step_scatter_impl`: one COOPERATIVE launch (grid
-// no larger than the co-resident limit) walks lanes with a grid-stride loop,
-// and grid-wide barriers order the phases:
+// scatter-add, as in `cms_step_scatter_impl`, in two launches on one
+// stream:
 //
-//   [roll] | read/decide chunk 0 | add chunk 0 | read/decide chunk 1 | ...
+// - roll_kernel: every chunk shares `now`, so only the first can roll the
+//   window (ops/sketch.py _rotate_cond).  Every block reads the two window
+//   words; only a merge that rolls sweeps the tables, with the whole grid.
+//   The stream order to the next launch is the merge's one device-wide
+//   barrier; a merge that does not roll sweeps nothing.  It leaves
+//   window_start as it found it.
+// - walk_kernel, for chunks of at most 1024 lanes (the tier's chunks,
+//   SketchTierConfig.batch_size = 1024): ONE thread block cluster of 16
+//   blocks (8 where the card refuses clusters that large), 1024 threads in
+//   all, walks the chunks, a thread per lane.  Two cluster barriers a chunk
+//   order the steps: one between the chunk's reads and its adds, one
+//   between its adds and the next chunk's reads.  They are hardware
+//   barriers among the cluster's SMs, not the grid's, and the first is
+//   relaxed: it orders reads that have already returned their values, so
+//   it waits for no memory operation.  While a chunk's barriers and adds
+//   run, each thread loads its next lane's prev values (prev does not
+//   change during the walk), brings its next cur cells into L2, and loads
+//   the lane after that: only the read of cur, at L2, stays on the chain.
+// - grid_walk_kernel, for wider chunks (a warm-up's 32768): a cooperative
+//   grid walks each chunk with a grid-stride loop and grid barriers in the
+//   same two places.
+// Either walk takes the roll decision again from the unchanged window
+// words and writes the new window_start at its end.
 //
-// - roll: every k chunk shares `now`, so only chunk 0 can roll the window
-//   (ops/sketch.py _rotate_cond).  Every thread reads the same two window
-//   words and takes the same branch; only a merge that rolls rewrites the
-//   tables and pays its barrier.
-// - read/decide: per active lane, the D columns (a wrapping 64-bit multiply
-//   and a logical shift, in unsigned long long), eff = f32(cur) +
-//   f32(prev) * overlap with explicit _rn intrinsics (and -fmad=false, so
-//   nothing is contracted), the min over rows, over = hits > 0 &&
-//   est + f32(hits) > f32(limit) on the float estimate, and the estimate
-//   converted toward zero with saturation (__float2int_rz), as XLA does.
-// - add: atomicAdd of each active lane's hits (negative ones too) into its
-//   D cells.  Integer adds commute and wrap, so duplicate keys sum to the
-//   same bits as the scatter form, in any order.  A barrier separates every
-//   read of a chunk from its adds, and the adds from the next chunk's reads.
+// Each lane: the D columns (a wrapping 64-bit multiply and a logical shift,
+// in unsigned long long), eff = f32(cur) + f32(prev) * overlap with explicit
+// _rn intrinsics (and -fmad=false, so nothing is contracted), the min over
+// rows, over = hits > 0 && est + f32(hits) > f32(limit) on the float
+// estimate, and the estimate converted toward zero with saturation
+// (__float2int_rz), as XLA does.  Then atomicAdd of its hits (negative ones
+// too) into its D cells: integer adds commute and wrap, so duplicate keys
+// sum to the same bits as the scatter form, in any order.
+//
+// The adds are atomics performed at L2, by other SMs of the cluster too,
+// so cur is read with __ldcg (at L2): a load through the SM's L1 could be
+// served a line that an earlier chunk's add has made stale.  prev changes
+// only in the roll, a launch before, so it takes the read-only path.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +75,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kLanes = 1024;        // lanes a walk pass covers (the cluster's threads)
+constexpr int kSweepThreads = 1024;
+constexpr int kGridThreads = 256;
 constexpr int kMaxDepth = 8;
 
 // ops/sketch.py _ROW_MULTIPLIERS.
@@ -76,6 +103,13 @@ struct Args {
   int B;
 };
 
+// One lane's request.
+struct Lane {
+  int64_t h;
+  int32_t hits;
+  int32_t lim;
+};
+
 __device__ __forceinline__ int64_t wsub(int64_t a, int64_t b) {
   return (int64_t)((uint64_t)a - (uint64_t)b);
 }
@@ -92,98 +126,205 @@ __device__ __forceinline__ int64_t cell_of(uint64_t u, int d, int log2w) {
   return ((int64_t)d << log2w) + col;
 }
 
-__global__ void __launch_bounds__(kThreads) cms_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  const int stride = gridDim.x * blockDim.x;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ Lane load_lane(const Args& a, int c, int i) {
+  const int64_t off = (int64_t)c * a.B + i;
+  return Lane{__ldg(a.kh + off), __ldg(a.hits + off), __ldg(a.lim + off)};
+}
 
-  // Roll (ops/sketch.py _rotate_cond).  Every thread reads the window words
-  // before the barrier; the new start is written only after it.
-  const int64_t w = a.window_ms[0];
-  const int64_t elapsed = wsub(a.now, a.window_start[0]);
-  int64_t start = a.window_start[0];
-  if (!(elapsed < w)) {
-    const bool one_behind = elapsed < (int64_t)((uint64_t)w * 2);
-    const int64_t cells = (int64_t)a.depth << a.log2w;
-    for (int64_t i = tid; i < cells; i += stride) {
-      a.prev[i] = one_behind ? a.cur[i] : 0;
-      a.cur[i] = 0;
-    }
-    start = wsub(a.now, floor_mod(elapsed, w));
-    grid.sync();
-    if (tid == 0) a.window_start[0] = start;
-  }
-  // clip(1 - f32(now - start) / f32(w), 0, 1) in float32.
-  const float frac = __fsub_rn(
-      1.0f, __fdiv_rn(__ll2float_rn(wsub(a.now, start)), __ll2float_rn(w)));
-  const float overlap = fminf(fmaxf(frac, 0.0f), 1.0f);
-
-  for (int c = 0; c < a.k; ++c) {
-    const int64_t* kh = a.kh + (int64_t)c * a.B;
-    const int32_t* hits = a.hits + (int64_t)c * a.B;
-    const int32_t* lim = a.lim + (int64_t)c * a.B;
-    int32_t* out = a.packed + (int64_t)c * 2 * a.B;
-    if (c > 0) grid.sync();  // chunk c reads after chunk c-1's adds
-
-    // Read/decide against the sketch as it stands before this chunk.
-    for (int i = tid; i < a.B; i += stride) {
-      const int64_t h = __ldg(kh + i);
-      int32_t over = 0, est_i = 0;
-      if (h != 0) {
-        float est = 0.0f;
-        for (int d = 0; d < a.depth; ++d) {
-          const int64_t cell = cell_of((uint64_t)h, d, a.log2w);
-          const float eff = __fadd_rn(__int2float_rn(a.cur[cell]),
-                                      __fmul_rn(__int2float_rn(a.prev[cell]), overlap));
-          est = d == 0 ? eff : fminf(est, eff);
-        }
-        const int32_t hv = __ldg(hits + i);
-        over = (hv > 0 && __fadd_rn(est, __int2float_rn(hv)) >
-                              __int2float_rn(__ldg(lim + i))) ? 1 : 0;
-        est_i = __float2int_rz(est);
-      }
-      out[i] = over;
-      out[a.B + i] = est_i;
-    }
-    grid.sync();  // every read of this chunk precedes its adds
-
-    for (int i = tid; i < a.B; i += stride) {
-      const int64_t h = __ldg(kh + i);
-      const int32_t hv = __ldg(hits + i);
-      if (h == 0 || hv == 0) continue;  // adding 0 changes no cell
-      for (int d = 0; d < a.depth; ++d) {
-        atomicAdd(a.cur + cell_of((uint64_t)h, d, a.log2w), hv);
-      }
-    }
+// prev at lane l's D cells.  prev does not change during a walk (the roll
+// rewrote it in the launch before), so it may be read early.
+__device__ __forceinline__ void load_prev(const Args& a, const Lane& l,
+                                          int32_t (&pv)[kMaxDepth]) {
+#pragma unroll
+  for (int d = 0; d < kMaxDepth; ++d) {
+    if (d < a.depth && l.h != 0) pv[d] = __ldg(a.prev + cell_of((uint64_t)l.h, d, a.log2w));
   }
 }
 
-// Grid of the cooperative launch: a thread per lane, and at least one block
-// per SM (a roll sweeps the whole tables), capped at the co-resident limit.
-// Returns a cudaError_t.
-int cms_grid(int device, int B, int* grid_out) {
-  static int cap_of[64] = {0};  // co-resident block limit per device
-  static int sms_of[64] = {0};
+// Bring lane l's cells of cur into L2 ahead of their read.
+__device__ __forceinline__ void prefetch_cur(const Args& a, const Lane& l) {
+  if (l.h == 0) return;
+  for (int d = 0; d < a.depth; ++d) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(a.cur + cell_of((uint64_t)l.h, d, a.log2w)));
+  }
+}
+
+// Decide lane i of chunk c against the sketch as it stands (prev at its
+// cells in pv), and write its packed outputs.
+__device__ __forceinline__ void decide(const Args& a, int c, int i, const Lane& l,
+                                       const int32_t (&pv)[kMaxDepth], float overlap) {
+  int32_t over = 0, est_i = 0;
+  if (l.h != 0) {
+    int32_t cv[kMaxDepth];
+#pragma unroll
+    for (int d = 0; d < kMaxDepth; ++d) {
+      if (d < a.depth) cv[d] = __ldcg(a.cur + cell_of((uint64_t)l.h, d, a.log2w));
+    }
+    float est = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kMaxDepth; ++d) {
+      if (d < a.depth) {
+        const float eff = __fadd_rn(__int2float_rn(cv[d]),
+                                    __fmul_rn(__int2float_rn(pv[d]), overlap));
+        est = d == 0 ? eff : fminf(est, eff);
+      }
+    }
+    over = (l.hits > 0 && __fadd_rn(est, __int2float_rn(l.hits)) >
+                              __int2float_rn(l.lim)) ? 1 : 0;
+    est_i = __float2int_rz(est);
+  }
+  int32_t* out = a.packed + (int64_t)c * 2 * a.B;
+  out[i] = over;
+  out[a.B + i] = est_i;
+}
+
+__device__ __forceinline__ void add(const Args& a, const Lane& l) {
+  if (l.h == 0 || l.hits == 0) return;  // adding 0 changes no cell
+  for (int d = 0; d < a.depth; ++d) {
+    atomicAdd(a.cur + cell_of((uint64_t)l.h, d, a.log2w), l.hits);
+  }
+}
+
+// Whether the merge rolls, and the window start it leaves.
+__device__ __forceinline__ bool rolls(const Args& a, int64_t* start) {
+  const int64_t w = a.window_ms[0];
+  const int64_t elapsed = wsub(a.now, a.window_start[0]);
+  *start = a.window_start[0];
+  if (elapsed < w) return false;
+  *start = wsub(a.now, floor_mod(elapsed, w));
+  return true;
+}
+
+// Launch 1: the roll's table sweep (ops/sketch.py _rotate_cond).
+__global__ void __launch_bounds__(kSweepThreads) roll_kernel(Args a) {
+  int64_t unused;
+  if (!rolls(a, &unused)) return;
+  const bool one_behind =
+      wsub(a.now, a.window_start[0]) < (int64_t)((uint64_t)a.window_ms[0] * 2);
+  const int64_t cells = (int64_t)a.depth << a.log2w;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = blockIdx.x * blockDim.x + threadIdx.x; i < cells; i += stride) {
+    a.prev[i] = one_behind ? a.cur[i] : 0;
+    a.cur[i] = 0;
+  }
+}
+
+// clip(1 - f32(now - start) / f32(w), 0, 1) in float32.
+__device__ __forceinline__ float overlap_of(const Args& a, int64_t start) {
+  const float frac = __fsub_rn(
+      1.0f, __fdiv_rn(__ll2float_rn(wsub(a.now, start)),
+                      __ll2float_rn(a.window_ms[0])));
+  return fminf(fmaxf(frac, 0.0f), 1.0f);
+}
+
+// Launch 2, B <= kLanes: one cluster walks the chunks, lane i on thread i
+// of the cluster.  Chunk c + 1's prev values and lane inputs, and chunk
+// c + 2's lane inputs, are loaded (and c + 1's cur cells brought into L2)
+// while chunk c's barriers and adds run.
+__global__ void __launch_bounds__(kLanes / 8) walk_kernel(Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  int64_t start;
+  const bool rolled = rolls(a, &start);
+  const float overlap = overlap_of(a, start);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool mine = i < a.B;
+  const Lane none{0, 0, 0};
+  Lane l = mine ? load_lane(a, 0, i) : none;
+  Lane l1 = (mine && a.k > 1) ? load_lane(a, 1, i) : none;
+  int32_t pv[kMaxDepth], pv1[kMaxDepth];
+  load_prev(a, l, pv);
+  for (int c = 0; c < a.k; ++c) {
+    if (mine) decide(a, c, i, l, pv, overlap);
+    load_prev(a, l1, pv1);
+    prefetch_cur(a, l1);
+    const Lane l2 = (mine && c + 2 < a.k) ? load_lane(a, c + 2, i) : none;
+    // Every read of this chunk precedes its adds.  The reads have returned
+    // their values (the outputs were computed from them), so this barrier
+    // needs no memory ordering.
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\t"
+                 "barrier.cluster.wait.aligned;" ::: "memory");
+    add(a, l);
+    cluster.sync();  // the next chunk reads after this chunk's adds
+    l = l1;
+    l1 = l2;
+#pragma unroll
+    for (int d = 0; d < kMaxDepth; ++d) pv[d] = pv1[d];
+  }
+  // Every thread read the window words before the first barrier.
+  if (rolled && i == 0) a.window_start[0] = start;
+}
+
+// Launch 2, B > kLanes (wider chunks, such as a warm-up's): a cooperative
+// grid walks each chunk with a grid-stride loop, grid barriers in the same
+// two places.
+__global__ void __launch_bounds__(kGridThreads) grid_walk_kernel(Args a) {
+  cg::grid_group grid = cg::this_grid();
+  int64_t start;
+  const bool rolled = rolls(a, &start);
+  const float overlap = overlap_of(a, start);
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  int32_t pv[kMaxDepth];
+  for (int c = 0; c < a.k; ++c) {
+    if (c > 0) grid.sync();  // chunk c reads after chunk c-1's adds
+    for (int i = tid; i < a.B; i += stride) {
+      const Lane l = load_lane(a, c, i);
+      load_prev(a, l, pv);
+      decide(a, c, i, l, pv, overlap);
+    }
+    grid.sync();  // every read of this chunk precedes its adds
+    for (int i = tid; i < a.B; i += stride) add(a, load_lane(a, c, i));
+  }
+  if (rolled && tid == 0) a.window_start[0] = start;
+}
+
+struct Device {
+  int sms = 0;
+  int cluster = 0;  // blocks of the walk's cluster
+  int grid_cap = 0; // co-resident blocks of grid_walk_kernel
+};
+
+// Sweep grid and walk cluster size of `device`.  Returns a cudaError_t.
+int device_shape(int device, Device* out) {
+  static Device of[64];
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (cap_of[device] == 0) {
-    int sms = 0, per_sm = 0, coop = 0;
+  Device& d = of[device];
+  if (d.cluster == 0) {
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    // 16 blocks a cluster is beyond the portable 8: take it where it fits.
+    err = cudaFuncSetAttribute(walk_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int fits = 0;
+    if (err == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 16;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(16);
+      cfg.blockDim = dim3(kLanes / 16);
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (cudaOccupancyMaxActiveClusters(&fits, walk_kernel, &cfg) != cudaSuccess)
+        fits = 0;
+    }
+    cudaGetLastError();  // a refused probe is not this launch's error
+    d.cluster = fits > 0 ? 16 : 8;
+    int coop = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (err != cudaSuccess) return (int)err;
     if (!coop) return (int)cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cms_kernel,
-                                                        kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_walk_kernel,
+                                                        kGridThreads, 0);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cap_of[device] = sms * per_sm;
-    sms_of[device] = sms;
+    d.grid_cap = d.sms * per_sm;
   }
-  int want = (B + kThreads - 1) / kThreads;
-  if (want < sms_of[device]) want = sms_of[device];
-  *grid_out = want < cap_of[device] ? want : cap_of[device];
+  *out = d;
   return (int)cudaSuccess;
 }
 
@@ -191,7 +332,8 @@ int cms_grid(int device, int B, int* grid_out) {
 
 extern "C" {
 
-// Launch K2 on `stream`.  Returns a cudaError_t.
+// Dispatch K2 on `stream`: roll_kernel, then walk_kernel (grid_walk_kernel
+// for chunks wider than kLanes).  Returns a cudaError_t.
 int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
                    int64_t* window_start, const int64_t* window_ms,
                    const int64_t* kh, const int32_t* hits, const int32_t* lim,
@@ -199,8 +341,8 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
                    int B) {
   if (depth < 1 || depth > kMaxDepth || log2w < 0 || log2w > 30 || k < 1 || B < 0)
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  int err = cms_grid(device, B, &grid);
+  Device d;
+  int err = device_shape(device, &d);
   if (err != (int)cudaSuccess) return err;
   Args a;
   a.cur = cur;
@@ -216,12 +358,42 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
   a.log2w = log2w;
   a.k = k;
   a.B = B;
-  void* params[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)cms_kernel, dim3(grid), dim3(kThreads), params, 0,
-      (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  roll_kernel<<<d.sms, kSweepThreads, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (B > kLanes) {
+    int grid = (B + kGridThreads - 1) / kGridThreads;
+    if (grid > d.grid_cap) grid = d.grid_cap;
+    void* params[] = {&a};
+    e = cudaLaunchCooperativeKernel((const void*)grid_walk_kernel, dim3(grid),
+                                    dim3(kGridThreads), params, 0, st);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = d.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(d.cluster);
+  cfg.blockDim = dim3(kLanes / d.cluster);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, walk_kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+
+// Blocks in the cluster that walks K2's chunks on `device` (16 or 8), or a
+// negated cudaError_t.
+extern "C" int gub_cms_cluster(int device) {
+  Device d;
+  const int err = device_shape(device, &d);
+  return err != (int)cudaSuccess ? -err : d.cluster;
+}

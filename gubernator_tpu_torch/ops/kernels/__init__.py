@@ -16,3 +16,8 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def device_index(dev: torch.device) -> int:
+    """The CUDA ordinal of `dev` (the current device when it names none)."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()

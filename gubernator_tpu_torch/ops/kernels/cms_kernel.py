@@ -4,19 +4,22 @@
         state, kh[k, B], hits[k, B], lim[k, B], now)
 
 Replaces the Pallas kernel of gubernator_tpu/ops/pallas/cms_kernel.py
-(`_cms_kernel`, `cms_step_pallas_impl`): one cooperative launch applies the
-k chunks of a merge in order, each seeing the previous chunk's adds
-(csrc/cms_kernel.cu says how).  The contract is the JAX package's
-`make_multi_step` (runtime/sketch_backend.py); `packed[:, 0]` is over and
-`packed[:, 1]` the estimate.  Its plain version is ops/sketch.py
-`multi_step`.
+(`_cms_kernel`, `cms_step_pallas_impl`): one dispatch applies the k chunks
+of a merge in order, each seeing the previous chunk's adds.  It is two
+launches on the caller's stream: a sweep of the tables that only a merge
+that rolls the window does, and one cluster of blocks that walks the chunks
+with cluster barriers, no grid barrier (csrc/cms_kernel.cu says how).  The
+contract is the JAX package's `make_multi_step`
+(runtime/sketch_backend.py); `packed[:, 0]` is over and `packed[:, 1]` the
+estimate.  Its plain version is ops/sketch.py `multi_step`.
 
 On the card the sketch is updated IN PLACE (cur, prev and window_start) and
 the same state is returned; the plain version returns new tensors.
 
 Tensors on the CPU take the plain `multi_step`.  Tensors on a CUDA device
-launch the kernel, or raise: there is no fallback.  `launches` counts the
-kernel launches, and nothing else.
+launch the kernel, or raise: there is no fallback.  `launches` counts one
+per merge dispatched to the kernel (its two launches together, whether or
+not the merge rolls), and nothing else.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from gubernator_tpu_torch.ops.kernels import check_tensor
+from gubernator_tpu_torch.ops.kernels import check_tensor, device_index
 from gubernator_tpu_torch.ops.sketch import SketchState, multi_step
 
 launches = 0
@@ -45,8 +48,20 @@ def library() -> ctypes.CDLL:
             i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32, i32, i32,
         ]
         lib.gub_cms_launch.restype = i32
+        lib.gub_cms_cluster.argtypes = [i32]
+        lib.gub_cms_cluster.restype = i32
         _lib = lib
     return _lib
+
+
+def cluster_blocks(dev) -> int:
+    """Blocks (one per SM) in the cluster that walks a merge's chunks of at
+    most 1024 lanes on CUDA device `dev`: 16, or 8 where the card refuses
+    16."""
+    n = library().gub_cms_cluster(device_index(torch.device(dev)))
+    if n <= 0:
+        raise RuntimeError(f"sketch kernel cluster: cudaError {-n}")
+    return n
 
 
 def cms_multi_step(
@@ -88,8 +103,7 @@ def cms_multi_step(
         return state, packed
     lib = library()
     err = lib.gub_cms_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
         state.cur.data_ptr(), state.prev.data_ptr(),
         state.window_start.data_ptr(), state.window_ms.data_ptr(),
         kh.data_ptr(), hits.data_ptr(), lim.data_ptr(), packed.data_ptr(),

@@ -4,9 +4,13 @@
         table, qs[k, 12, B], nows[k], seq, ways, claim)
 
 Replaces the Pallas kernel of gubernator_tpu/ops/pallas/serve_kernel.py
-(`_serve_kernel`, `persistent_serve_step_impl`): one launch drains k packed
-rounds in order (csrc/serve_kernel.cu says how).  The contract is
-`ops/ring.ring_step`'s, which is its plain version.
+(`_serve_kernel`, `persistent_serve_step_impl`): one dispatch drains k
+packed rounds in order.  It is two launches on the caller's stream: one
+bins each round's lanes by the block that owns their bucket (owner =
+bucket % `owners(device)`), and one in which each owner block drains every
+round over its own lanes with block barriers only (csrc/serve_kernel.cu
+says how).  The contract is `ops/ring.ring_step`'s, which is its plain
+version; `ops/ring.owner_partition` is the plain form of the binning.
 
 The table is updated IN PLACE (at 2^24 slots a copy would be 1.4 GB) and
 returned.  `claim` is the int32[S] claim-word buffer, all INT32_MAX between
@@ -14,8 +18,8 @@ launches.  A launch on the card needs the caller's buffer (the backend owns
 one); the plain path on the CPU takes none.
 
 Tensors on the CPU take the plain `ring_step`.  Tensors on a CUDA device
-launch the kernel, or raise: there is no fallback.  `launches` counts the
-kernel launches, and nothing else.
+launch the kernel, or raise: there is no fallback.  `launches` counts one
+per dispatch of the kernel (its two launches together), and nothing else.
 """
 from __future__ import annotations
 
@@ -24,11 +28,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from gubernator_tpu_torch.ops.kernels import check_tensor
+from gubernator_tpu_torch.ops.kernels import check_tensor, device_index
 from gubernator_tpu_torch.ops.ring import ring_step
 from gubernator_tpu_torch.ops.state import COLUMN_DTYPES, SlotTable
 
 INT32_MAX = 2**31 - 1
+MAX_LANES = 1 << 21  # B: 2048 bins of 1024 lanes a round
 
 launches = 0
 
@@ -45,11 +50,25 @@ def library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gub_serve_launch.argtypes = [
             i32, vp, ctypes.POINTER(vp), i64, i32,
-            vp, vp, vp, vp, vp, vp, vp, i32, i32,
+            vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
         ]
         lib.gub_serve_launch.restype = i32
+        lib.gub_serve_owners.argtypes = [i32]
+        lib.gub_serve_owners.restype = i32
+        lib.gub_serve_scratch_words.argtypes = [i32, i32, i32]
+        lib.gub_serve_scratch_words.restype = i64
         _lib = lib
     return _lib
+
+
+def owners(dev) -> int:
+    """G, the number of owner blocks K1 uses on CUDA device `dev`: the walk
+    blocks that fit on the card at once.  Lane i of a round belongs to
+    owner (h_i & (num_buckets - 1)) % G."""
+    g = library().gub_serve_owners(device_index(torch.device(dev)))
+    if g <= 0:
+        raise RuntimeError(f"serve kernel owners: cudaError {-g}")
+    return g
 
 
 def new_claim_buffer(num_slots: int, device) -> torch.Tensor:
@@ -85,8 +104,9 @@ def persistent_serve_step(
         return ring_step(table, qs, nows, seq, ways)
     if dev.type != "cuda":
         raise ValueError(f"no serve kernel for device {dev}")
-    if S > INT32_MAX or B > INT32_MAX:
-        raise ValueError("num_slots and B must fit int32")
+    if S > INT32_MAX or B > MAX_LANES:
+        raise ValueError(f"num_slots must fit int32 and B be at most "
+                         f"{MAX_LANES}")
     if claim is None:
         raise ValueError("claim: a launch on the card needs the caller's "
                          "int32[num_slots] claim-word buffer")
@@ -97,15 +117,19 @@ def persistent_serve_step(
     if k == 0:
         seq_out.copy_(seq)
         return table, resps, seq_out
-    scratch = torch.empty(3 * max(B, 1), dtype=torch.int32, device=dev)
-    cols = (ctypes.c_void_p * 12)(*[c.data_ptr() for c in table])
     lib = library()
+    index = device_index(dev)
+    words = lib.gub_serve_scratch_words(index, k, B)
+    if words < 0:
+        raise RuntimeError(f"serve kernel scratch: cudaError {-words}")
+    # Lane lists, per-entry scratch and per-(round, bin, owner) sub-lists.
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    cols = (ctypes.c_void_p * 12)(*[c.data_ptr() for c in table])
     err = lib.gub_serve_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        index, torch.cuda.current_stream(dev).cuda_stream,
         cols, S, ways,
         qs.data_ptr(), nows.data_ptr(), seq.data_ptr(), seq_out.data_ptr(),
-        resps.data_ptr(), claim.data_ptr(), scratch.data_ptr(), k, B,
+        resps.data_ptr(), claim.data_ptr(), scratch.data_ptr(), words, k, B,
     )
     if err != 0:
         raise RuntimeError(f"serve kernel launch failed: cudaError {err}")

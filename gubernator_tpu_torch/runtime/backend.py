@@ -3,7 +3,7 @@
 The counterpart of gubernator_tpu's `DeviceBackend` hot path (reference
 WorkerPool, workers.go:56-664): one device-resident slot table; each
 `check()` packs its requests into duplicate-free rounds, applies ALL of them
-with ONE launch of the serve kernel (ops/kernels/serve_kernel.py) at the
+with ONE dispatch of the serve kernel (ops/kernels/serve_kernel.py) at the
 widest batch tier the rounds need, and unpacks the packed responses.
 Inactive lanes are no-ops, so the responses of active lanes do not depend on
 the tier.
@@ -188,7 +188,7 @@ class TorchBackend:
             self.not_persisted += tally.not_persisted
 
     def _launch(self, qs, nows, seq) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One serve-kernel launch; caller holds `_lock`."""
+        """One serve-kernel dispatch; caller holds `_lock`."""
         qs = torch.as_tensor(qs, dtype=torch.int64).to(self.device)
         nows = torch.as_tensor(nows, dtype=torch.int64).to(self.device)
         seq = torch.as_tensor(seq, dtype=torch.int64).to(self.device)
@@ -265,7 +265,7 @@ class TorchBackend:
         return torch.zeros((), dtype=torch.int64, device=self.device)
 
     def persistent_serve_dispatch(self, qs, nows, seq):
-        """Drain `qs` int64[k, 12, B] stacked rounds in ONE kernel launch
+        """Drain `qs` int64[k, 12, B] stacked rounds in ONE kernel dispatch
         under the lock.  Returns the un-synced (responses[k, 9, B],
         seq + k)."""
         with self._lock:

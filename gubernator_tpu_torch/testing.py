@@ -5,12 +5,16 @@ over the limit, crowded buckets that need all three claim rounds and leave
 lanes transient, expired rows, tied touch stamps (lowest way wins), inactive
 lanes holding garbage, an algorithm id that is neither bucket, and a few
 lanes and rows at the int64 extremes (saturation, wrap, truncation).
+`owner_crowded_rounds` puts every active lane of a round in the buckets of
+one owner of the serve kernel's binning (bucket % owners == 0).
 
 The sketch tier has its own makers (`random_sketch`, `random_sketch_lanes`,
 `window_now`): sketches with cells near both int32 bounds and above 2^24,
 and merges with inactive lanes, duplicate-key groups, fingerprints at the
 int64 bounds and with the top bit set, zero and negative hits, and every
-window case of the rotation.
+window case of the rotation.  `cross_chunk_lanes` makes a merge in which one
+key crosses its limit in a chosen chunk, so each chunk must read the adds of
+the chunks before it.
 
 Everything is numpy from a `np.random.Generator`, so the same inputs can be
 handed to this package and to the JAX package.  Tables use the snapshot
@@ -131,6 +135,29 @@ def random_rounds(rng: np.random.Generator, ks: KeySpace,
     return qs
 
 
+def owner_crowded_rounds(rng: np.random.Generator, ks: KeySpace,
+                         table_keys: np.ndarray, k: int, B: int, now: int,
+                         owners: int) -> np.ndarray:
+    """`random_rounds` whose active lanes all lie in buckets that are 0 mod
+    `owners`, so one owner receives every whole round.  Up to half of each
+    round's keys are live table keys of those buckets, the rest fresh
+    fingerprints there: lanes find, insert, contend and go transient."""
+    qs = random_rounds(rng, ks, table_keys, k, B, now)
+    keys = table_keys[table_keys != 0]
+    live = np.unique(keys[(keys & (ks.nb - 1)) % owners == 0])
+    mine = np.arange(0, ks.nb, owners)
+    for b in range(k):
+        act = qs[b, 10] != 0
+        n = int(act.sum())
+        cand = np.concatenate([
+            rng.choice(live, min(len(live), n // 2), replace=False),
+            ks.in_bucket(rng.choice(mine, 2 * n)),
+        ])
+        cand = cand[np.sort(np.unique(cand, return_index=True)[1])]
+        qs[b, 0, act] = rng.permutation(cand[:n])
+    return qs
+
+
 # -- the sketch tier -------------------------------------------------------
 
 I32_MAX = 2**31 - 1
@@ -207,3 +234,24 @@ def window_now(case: str, window_start: int, window_ms: int) -> int:
         "far_behind": 3 * w + 7,        # both tables clear
         "before_start": -5,             # elapsed < 0: stays, overlap 1
     }[case]
+
+
+def cross_chunk_lanes(
+    rng: np.random.Generator, k: int, B: int, cross: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(kh, hits, lim, lane) for a merge of k chunks of B lanes in which one
+    key sits in every chunk, at lane[c] of chunk c, with 1 hit and limit
+    `cross`.  On an empty sketch in its window, its estimate in chunk c is
+    c, so it first goes over in chunk `cross`.  Half of the other lanes are
+    inactive; the rest carry other keys with 0 hits (they read cells, add
+    nothing and are never over)."""
+    kh = rng.integers(I64_MIN, I64_MAX, (k, B), dtype=np.int64, endpoint=True)
+    kh[(kh == 0) | (rng.random((k, B)) < 0.5)] = 0
+    hits = np.zeros((k, B), np.int32)
+    lim = rng.choice([0, 1, 5, I32_MAX], (k, B)).astype(np.int32)
+    lane = rng.integers(0, B, k)
+    rows = np.arange(k)
+    kh[rows, lane] = rng.integers(1, I64_MAX, dtype=np.int64)
+    hits[rows, lane] = 1
+    lim[rows, lane] = cross
+    return kh, hits, lim, lane

@@ -5,7 +5,10 @@ The plain k-round `ring_step` must match the JAX package's interpret-mode
 persistent kernel and its `ring_step` BIT-EXACTLY across two successive
 launches threading (table, seq) — the pattern of tests/test_serve_kernel.py.
 On CPU tensors the wrapper takes the plain path and counts no launch; the
-kernel itself is held against the plain version on a CUDA card only.
+kernel itself is held against the plain version on a CUDA card only.  The
+kernel's design rests on one premise, held here on the CPU: `ring_step`
+applied owner by owner (owner = bucket % G, `ops/ring.owner_partition`)
+equals one whole `ring_step` and the JAX package, bit for bit.
 
 The JAX package is imported inside the tests that compare with it, so the
 card's machine (no JAX there) can run the kernel test alone:
@@ -18,14 +21,19 @@ import pytest
 import torch
 
 from gubernator_tpu_torch.ops.kernels import serve_kernel
-from gubernator_tpu_torch.ops.ring import ring_step
+from gubernator_tpu_torch.ops.ring import owner_partition, ring_step
 from gubernator_tpu_torch.ops.state import (
     clone_table,
     init_table,
     table_from_host,
     table_to_host,
 )
-from gubernator_tpu_torch.testing import KeySpace, random_rounds, random_table
+from gubernator_tpu_torch.testing import (
+    KeySpace,
+    owner_crowded_rounds,
+    random_rounds,
+    random_table,
+)
 
 NUM_SLOTS, B = 1024, 64
 
@@ -135,6 +143,85 @@ def test_plain_ring_matches_jax_on_random_rounds(seed):
     assert int(jseq) == int(tseq) == 11
 
 
+def _premise_case():
+    """Full hot buckets and transient lanes: 8 rounds of B lanes, with
+    per-round clocks, on NUM_SLOTS (the shapes of the tests above)."""
+    rng = np.random.default_rng(7)
+    now = 1_700_000_000_000
+    ks = KeySpace(rng, NUM_SLOTS, 8, hot_buckets=2)
+    host = random_table(rng, ks, now)
+    qs = random_rounds(rng, ks, host["key"], 8, B, now)
+    return host, qs, now + np.arange(8, dtype=np.int64) * 700
+
+
+_JAX_PREMISE = {}
+
+
+def _jax_persistent(host, qs, nows):
+    """The JAX package's persistent kernel, in interpret mode, as its own
+    tests run it on the CPU (computed once for the parametrised test)."""
+    if not _JAX_PREMISE:
+        import jax.numpy as jnp
+
+        from gubernator_tpu.ops.pallas.serve_kernel import (
+            persistent_serve_step_impl,
+        )
+        from gubernator_tpu.ops.state import SlotTable as JaxTable
+
+        jt = JaxTable(**{f: jnp.asarray(v) for f, v in host.items()})
+        jt, jresp, _ = persistent_serve_step_impl(
+            jt, qs, nows, jnp.int64(0), ways=8, interpret=True)
+        _JAX_PREMISE["out"] = (jt, np.asarray(jresp))
+    return _JAX_PREMISE["out"]
+
+
+@pytest.mark.parametrize("owners", [1, 3, 7, 33])
+def test_owner_by_owner_equals_whole_ring_and_jax(owners):
+    """Exact (bit for bit): the lists hold every active lane once, at
+    owner = bucket % G; owners applied one by one in reverse order, each
+    with the other owners' lanes inactive, give every active lane's
+    response and the final table of one whole ring_step and of the JAX
+    persistent kernel."""
+    host, qs_np, nows_np = _premise_case()
+    qs, nows = torch.from_numpy(qs_np), torch.from_numpy(nows_np)
+    nb = NUM_SLOTS // 8
+    owner, lists = owner_partition(qs, nb, owners)
+    active = qs[:, 10] != 0
+    bucket = qs[:, 0] & (nb - 1)
+    assert torch.equal(owner[active], bucket[active] % owners)
+    assert bool((owner[~active] == -1).all())
+    for b in range(qs.shape[0]):
+        ids = torch.cat(lists[b])
+        assert len(ids) == int(active[b].sum())
+        assert torch.equal(ids.sort().values, active[b].nonzero().flatten())
+        for g, lanes in enumerate(lists[b]):
+            assert bool((owner[b, lanes] == g).all())
+
+    seq = torch.zeros((), dtype=torch.int64)
+    whole, wresp, _ = ring_step(table_from_host(host, "cpu"), qs, nows, seq, 8)
+    split = table_from_host(host, "cpu")
+    sresp = torch.zeros_like(wresp)
+    for g in reversed(range(owners)):
+        part = qs.clone()
+        part[:, 10] = torch.where(owner == g, qs[:, 10], 0)
+        split, resp, _ = ring_step(split, part, nows, seq, 8)
+        mine = (owner == g)[:, None, :].expand_as(resp)
+        sresp[mine] = resp[mine]
+    assert torch.equal(sresp, wresp)
+    for x, y in zip(split, whole):
+        if x.dtype == torch.float64:  # compare the float column as bits
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        assert torch.equal(x, y)
+    jt, jresp = _jax_persistent(host, qs_np, nows_np)
+    _assert_same(jt, split)
+    np.testing.assert_array_equal(jresp, sresp.numpy())
+    # The case reaches what the premise is about: claims that contend and
+    # lanes left transient.
+    persist = wresp[:, 4] != 0
+    assert int((active & ~persist).sum()) > 0
+    assert int((active & persist & (wresp[:, 5] == 0)).sum()) > 0
+
+
 def test_wrapper_takes_plain_path_on_cpu(frozen_clock):
     qs = torch.from_numpy(_packed_qs(frozen_clock))
     nows = torch.full((qs.shape[0],), frozen_clock.millisecond_now(),
@@ -174,31 +261,45 @@ def test_wrapper_rejects_bad_inputs(frozen_clock):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
+    """Bit-exact with restored claim words: a mixed case; one owner
+    receiving every whole round; more owners than buckets (S = 256); and
+    B = 2^18 lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
     dev = torch.device("cuda")
-    rng = np.random.default_rng(5)
+    owners = serve_kernel.owners(dev)
     now = 1_700_000_000_000
-    ks = KeySpace(rng, 1 << 14, 8, hot_buckets=32)
-    host = random_table(rng, ks, now)
-    qs = torch.from_numpy(random_rounds(rng, ks, host["key"], 3, 2048, now))
-    qs = qs.to(dev)
-    nows = torch.full((3,), now, dtype=torch.int64, device=dev)
-    seq = torch.zeros((), dtype=torch.int64, device=dev)
-    kt = table_from_host(host, dev)
-    pt = clone_table(kt)
-    claim = serve_kernel.new_claim_buffer(1 << 14, dev)
-    before = serve_kernel.launches
-    with pytest.raises(ValueError, match="claim"):
-        serve_kernel.persistent_serve_step(kt, qs, nows, seq, 8)
-    kt, kr, kseq = serve_kernel.persistent_serve_step(
-        kt, qs, nows, seq, 8, claim)
-    pt, pr, pseq = ring_step(pt, qs, nows, seq, 8)
-    torch.cuda.synchronize()
-    assert serve_kernel.launches == before + 1
-    assert torch.equal(kr, pr) and int(kseq) == int(pseq) == 3
-    for x, y in zip(kt, pt):
-        if x.dtype == torch.float64:  # compare the float column as bits
-            x, y = x.view(torch.int64), y.view(torch.int64)
-        assert torch.equal(x, y)
-    assert bool((claim == serve_kernel.INT32_MAX).all())
+    # (num_slots, k, B, hot buckets, crowd one owner)
+    cases = [(1 << 14, 3, 2048, 32, False), (1 << 20, 3, 4096, 64, True),
+             (256, 4, 64, 4, False), (1 << 20, 2, 1 << 18, 1024, False)]
+    for n, (S, k, lanes, hot, crowd) in enumerate(cases):
+        rng = np.random.default_rng(5 + n)
+        ks = KeySpace(rng, S, 8, hot_buckets=hot)
+        host = random_table(rng, ks, now)
+        make = owner_crowded_rounds if crowd else random_rounds
+        extra = (owners,) if crowd else ()
+        qs = torch.from_numpy(
+            make(rng, ks, host["key"], k, lanes, now, *extra)).to(dev)
+        if crowd:
+            own, _ = owner_partition(qs, S // 8, owners)
+            assert bool((own[qs[:, 10] != 0] == 0).all())
+        nows = torch.tensor([now + 900 * b for b in range(k)], device=dev)
+        seq = torch.zeros((), dtype=torch.int64, device=dev)
+        kt = table_from_host(host, dev)
+        pt = clone_table(kt)
+        claim = serve_kernel.new_claim_buffer(S, dev)
+        before = serve_kernel.launches
+        if n == 0:
+            with pytest.raises(ValueError, match="claim"):
+                serve_kernel.persistent_serve_step(kt, qs, nows, seq, 8)
+        kt, kr, kseq = serve_kernel.persistent_serve_step(
+            kt, qs, nows, seq, 8, claim)
+        pt, pr, pseq = ring_step(pt, qs, nows, seq, 8)
+        torch.cuda.synchronize()
+        assert serve_kernel.launches == before + 1, n
+        assert torch.equal(kr, pr) and int(kseq) == int(pseq) == k, n
+        for x, y in zip(kt, pt):
+            if x.dtype == torch.float64:  # compare the float column as bits
+                x, y = x.view(torch.int64), y.view(torch.int64)
+            assert torch.equal(x, y), n
+        assert bool((claim == serve_kernel.INT32_MAX).all()), n

@@ -24,6 +24,7 @@ from gubernator_tpu_torch.ops.kernels import cms_kernel
 from gubernator_tpu_torch.testing import (
     I32_MAX,
     WINDOW_CASES,
+    cross_chunk_lanes,
     random_sketch,
     random_sketch_lanes,
     window_now,
@@ -179,6 +180,33 @@ def test_multi_step_matches_jax_make_multi_step():
         assert_same_state(js, ts, case)
         assert tp.dtype == torch.int32 and tuple(tp.shape) == (4, 2, 128)
         np.testing.assert_array_equal(np.asarray(jp), tp.numpy(), case)
+
+
+def test_one_key_across_32_chunks_matches_jax():
+    """A W = 2^4 sketch, one key in all 32 chunks with limit 15: each chunk
+    must see the adds of the chunks before it, so the key's estimate is c
+    in chunk c and its first over lane is in chunk 15.  Exact against the
+    JAX `make_multi_step` scatter form."""
+    from gubernator_tpu.ops.sketch import cms_step_scatter_impl
+    from gubernator_tpu.runtime.sketch_backend import make_multi_step
+
+    rng = np.random.default_rng(6)
+    kh, hits, lim, lane = cross_chunk_lanes(rng, 32, 64, 15)
+    st = {"cur": np.zeros((D, 16), np.int32),
+          "prev": np.zeros((D, 16), np.int32),
+          "window_start": NOW0, "window_ms": 1000}
+    js, jp = make_multi_step(cms_step_scatter_impl)(
+        jax_state(st), kh, hits, lim, np.int64(NOW0))
+    ts, tp = T.multi_step(torch_state(st), t(kh), t(hits), t(lim), NOW0)
+    assert_same_state(js, ts)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    rows = np.arange(32)
+    assert tp[rows, 1, lane].tolist() == list(range(32))
+    over = tp[:, 0].numpy()
+    assert over.sum() == over[rows, lane].sum() == 32 - 15
+    assert int(np.flatnonzero(over.any(axis=1))[0]) == 15
+    col = T.row_columns(t(kh[:1, lane[0]]), D, 16).numpy()[:, 0]
+    assert ts.cur.numpy()[np.arange(D), col].tolist() == [32] * D
 
 
 def test_corners_saturation_wrap_negative_inactive():

@@ -242,6 +242,7 @@ def test_kernel_matches_plain_on_cuda():
     from gubernator_tpu_torch.ops.sketch import SketchState, multi_step
     from gubernator_tpu_torch.testing import (
         WINDOW_CASES,
+        cross_chunk_lanes,
         random_sketch,
         random_sketch_lanes,
         window_now,
@@ -250,10 +251,20 @@ def test_kernel_matches_plain_on_cuda():
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     big = rng.integers(-(2**63), 2**63 - 1, 8, dtype=np.int64)
-    for case in WINDOW_CASES:
-        st = random_sketch(rng, 4, 1 << 12, T0_NS // 10**6, 60_000, big)
-        kh, hits, lim = (torch.from_numpy(a).to(dev) for a in
-                         random_sketch_lanes(rng, 3, 1024, big))
+    ws = T0_NS // 10**6
+    # Every window case at 1024 lanes a chunk (one block walks them) and at
+    # 1025 (the grid walks them); then one key across 32 chunks of a 2^4
+    # sketch, whose cells every chunk must re-read after the last adds.
+    cases = [(case, 1 << 12, random_sketch_lanes(rng, 3, lanes, big))
+             for case in WINDOW_CASES for lanes in (1024, 1025)]
+    cross = cross_chunk_lanes(rng, 32, 1024, 15)
+    cases.append(("in_window", 16, cross[:3]))
+    for case, width, lanes in cases:
+        st = random_sketch(rng, 4, width, ws, 60_000, big)
+        if width == 16:
+            st["cur"][:] = 0
+            st["prev"][:] = 0
+        kh, hits, lim = (torch.from_numpy(a).to(dev) for a in lanes)
         now = window_now(case, st["window_start"], 60_000)
 
         def state():
@@ -268,9 +279,11 @@ def test_kernel_matches_plain_on_cuda():
         ps, pp = multi_step(state(), kh, hits, lim, now)
         torch.cuda.synchronize()
         assert cms_kernel.launches == before + 1, case
-        assert torch.equal(kp, pp), case
+        assert torch.equal(kp, pp), (case, width, kh.shape)
         for x, y in zip(ks, ps):
-            assert torch.equal(x, y), case
+            assert torch.equal(x, y), (case, width, kh.shape)
+    rows = torch.arange(32)
+    assert kp[rows, 1, torch.from_numpy(cross[3])].tolist() == list(range(32))
     be = SketchBackend(SketchTierConfig(names=["cms"], width=1 << 12,
                                         batch_size=256))
     be.warmup()
