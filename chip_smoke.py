@@ -38,11 +38,28 @@ Phases (any failure exits non-zero and prints no result line):
      version run on a copy;
   9. time K2 and its plain version (L2 flushed) at the main path's shape,
      at k = 1, on a merge that rolls and at the warm-up's shape, split the
-     sketch check()'s host time, trace one
-     check(), and print the kernel line (K1 and K2), the card, and the
-     result line.
+     sketch check()'s host time, and trace one check();
+ 10. start the port's daemon at full width on the card (2^24 slots,
+     batch 32768, the sketch tier at the 100M-key deployment), warm its
+     table to 10M live keys through K1, and in the pipelined and the
+     persistent serve modes send 64 concurrent gRPC clients' sequential
+     GetRateLimits of 1000 requests (1/8 on the sketch name); record every
+     K1 and K2 dispatch and replay them through the plain versions on
+     copies of the starting table and sketch (bit-exact outputs, table,
+     sketch, claim words), drive a control key past its limit on the wire,
+     require no fast-lane fallback (and in persistent mode no ring
+     sequence mismatch and no blocking fetch), time decisions/s and
+     per-RPC latency, and trace about a second of persistent serving with
+     torch.profiler;
+ 11. the same in the classic, ring and megaround modes on a 2^20-slot
+     daemon with fewer RPCs; then a 3-node in-process cluster answers a
+     stream through node 0 exactly as a single node does (owner metadata
+     aside), and GLOBAL keys hit through a non-owner are answered; print
+     the kernel line (K1 and K2), the card, and the result line.
 
-Needs torch with CUDA and nvcc; imports no JAX.
+Needs torch with CUDA, nvcc and a C++ compiler, and the daemon's wire
+stack (grpcio, protobuf, aiohttp, prometheus_client, xxhash); imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -248,7 +265,7 @@ def phase_random(dev) -> float:
     return err
 
 
-def phase_warm(be, dev) -> None:
+def phase_warm(be, dev, label="phase 3") -> None:
     """Fill the table with synthetic fingerprints through the kernel."""
     import torch
 
@@ -283,9 +300,9 @@ def phase_warm(be, dev) -> None:
         if fed >= WARM_KEYS:
             k = 1  # top up one round at a time
     torch.cuda.synchronize()
-    log(f"phase 3: fed {fed} fingerprints in {n_launch} launches "
+    log(f"{label}: fed {fed} fingerprints in {n_launch} launches "
         f"({time.perf_counter() - t0:.3f} s); occupancy {occ} of "
-        f"{NUM_SLOTS} slots; seq {int(seq)}")
+        f"{be.cfg.num_slots} slots; seq {int(seq)}")
 
 
 def make_batches(rng):
@@ -944,6 +961,424 @@ def k2_path(dev, name: str, smi: str) -> dict:
         "library_ms": None,
     }
 
+# -- phases 10-11: the daemon -------------------------------------------------
+DAEMON_SLOTS = 1 << 24       # phase 10: the library path's geometry
+SMALL_SLOTS = 1 << 20        # phase 11: the other modes and the cluster
+DAEMON_CLIENTS = 64          # concurrent gRPC clients
+DAEMON_RPCS = 6              # sequential RPCs per client in a phase-10 mode
+SMALL_CLIENTS = 16
+SMALL_RPCS = 3
+RPC_REQS = 1000              # MAX_BATCH_SIZE requests per GetRateLimits
+PROFILE_RPCS = 2             # per client, under torch.profiler (~1 s)
+CLUSTER_RPCS = 8             # sequential RPCs through node 0 in phase 11
+V1_RPC = "/pb.gubernator.V1/GetRateLimits"
+
+
+def rpc_requests(rng, n_rpc: int, first_key: int = 0):
+    """`n_rpc` GetRateLimits payloads of RPC_REQS requests: PERF.md §4's
+    exact-tier mix (token:leaky 2:1, 2% Gregorian, 0.5% RESET_REMAINING,
+    0.2% of lanes on 8 hot keys) with 1/8 of the requests on the sketch
+    tier's name ("cms", keys uniform over its 100M-key space)."""
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.core.interval import GREGORIAN_MINUTES
+    from gubernator_tpu_torch.core.types import (
+        Algorithm,
+        Behavior,
+        RateLimitReq,
+    )
+
+    names = ["api", "login", "search", "upload"]
+    out = []
+    for _ in range(n_rpc):
+        idx = rng.integers(0, 150_000, RPC_REQS) + first_key
+        hot = rng.random(RPC_REQS) < 0.002
+        idx[hot] = rng.integers(0, 8, int(hot.sum()))
+        sk = rng.random(RPC_REQS) < 1 / 8
+        sk_ids = rng.integers(0, SKETCH_KEYS, RPC_REQS)
+        hits = rng.choice([0, 1, 1, 1, 1, 2, 5], RPC_REQS)
+        roll = rng.random(RPC_REQS)
+        reqs = []
+        for i, u in enumerate(idx.tolist()):
+            if sk[i]:
+                reqs.append(RateLimitReq(
+                    name="cms", unique_key=f"s{int(sk_ids[i])}", hits=1,
+                    limit=1_000_000, duration=SKETCH_WINDOW_MS))
+                continue
+            leaky = u % 3 == 0
+            greg = roll[i] < 0.02
+            reqs.append(RateLimitReq(
+                name=names[u % 4], unique_key=f"tenant{u % 97}:user{u}",
+                hits=int(hits[i]),
+                limit=(10, 100, 1000)[u % 3 if not leaky else (u // 3) % 3],
+                duration=GREGORIAN_MINUTES if greg else (1000, 60_000)[u % 2],
+                algorithm=(Algorithm.LEAKY_BUCKET if leaky
+                           else Algorithm.TOKEN_BUCKET),
+                behavior=(Behavior.DURATION_IS_GREGORIAN if greg else
+                          Behavior.RESET_REMAINING if roll[i] > 0.995
+                          else Behavior.BATCHING)))
+        out.append(native.encode_reqs(reqs))
+    return out
+
+
+class DispatchRecorder:
+    """Keeps every K1 and K2 dispatch a daemon makes, in table order (both
+    happen under their backend's lock): the request block, clock and
+    sequence word in, and the kernel's output.  Nothing is copied: each
+    of these is a fresh array or tensor per dispatch."""
+
+    def __init__(self, be, sb):
+        self.be, self.sb = be, sb
+        self.k1, self.k2 = [], []
+        self._launch, self._dispatch = be._launch, sb._dispatch
+
+        def launch(qs, nows, seq):
+            resps, seq_out = self._launch(qs, nows, seq)
+            self.k1.append((qs, nows, seq, resps))
+            return resps, seq_out
+
+        def dispatch(kh, hc, lc, now):
+            packed = self._dispatch(kh, hc, lc, now)
+            self.k2.append((kh, hc, lc, now, packed))
+            return packed
+
+        be._launch, sb._dispatch = launch, dispatch
+
+    def close(self):
+        del self.be._launch, self.sb._dispatch
+
+    def replay(self, dev, table, sketch) -> float:
+        """Every recorded dispatch again through the plain versions, in
+        order, on copies of the starting table and sketch; requires the
+        outputs, the final table and sketch and the claim words equal."""
+        import torch
+
+        from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+        from gubernator_tpu_torch.ops.ring import ring_step
+        from gubernator_tpu_torch.ops.sketch import multi_step
+
+        def d(a):
+            return torch.as_tensor(a).to(dev)
+
+        k1_before, k2_before = serve_kernel.launches, cms_kernel.launches
+        err = 0.0
+        for j, (qs, nows, seq, resps) in enumerate(self.k1):
+            s = seq if isinstance(seq, torch.Tensor) else torch.tensor(
+                seq, dtype=torch.int64, device=dev)
+            table, pr, _ = ring_step(table, d(qs), d(nows), s, WAYS)
+            if not torch.equal(pr, resps):
+                raise AssertionError(f"K1 dispatch {j}: responses differ "
+                                     "from the plain version's")
+            err = max(err, max_abs_err(pr, resps))
+        for j, (kh, hc, lc, now, packed) in enumerate(self.k2):
+            sketch, pp = multi_step(sketch, d(kh), d(hc), d(lc), now)
+            if not torch.equal(pp, packed):
+                raise AssertionError(f"K2 dispatch {j}: outputs differ "
+                                     "from the plain version's")
+            err = max(err, max_abs_err(pp, packed))
+        torch.cuda.synchronize()
+        if (serve_kernel.launches, cms_kernel.launches) != (k1_before,
+                                                            k2_before):
+            raise AssertionError("the plain replay launched a kernel")
+        if not tables_equal(self.be.table, table):
+            raise AssertionError("daemon table differs from the plain "
+                                 "replay's")
+        if not sketch_equal(self.sb.state, sketch):
+            raise AssertionError("daemon sketch differs from the plain "
+                                 "replay's")
+        claim = self.be.claim  # None only where no kernel runs (the CPU)
+        if claim is not None and not bool(
+                (claim == serve_kernel.INT32_MAX).all()):
+            raise AssertionError("claim words not restored")
+        return err
+
+
+async def drive_rpcs(addr, per_client):
+    """Each client sends its payloads one after another; all clients at
+    once.  Returns (wall seconds, per-RPC latencies in seconds, the
+    response count of every RPC)."""
+    import asyncio
+
+    import grpc
+
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    lat, counts = [], []
+
+    async def client(payloads):
+        async with grpc.aio.insecure_channel(addr) as ch:
+            rpc = ch.unary_unary(V1_RPC)
+            for p in payloads:
+                t = time.perf_counter()
+                raw = await rpc(p, timeout=300)
+                lat.append(time.perf_counter() - t)
+                counts.append(len(pb.GetRateLimitsResp.FromString(
+                    raw).responses))
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client(ps) for ps in per_client))
+    return time.perf_counter() - t0, lat, counts
+
+
+async def control_key(addr):
+    """One key driven past its limit with sequential single-request RPCs:
+    the wire must give remaining 4, 3, 2, 1, 0 then OVER_LIMIT twice."""
+    import grpc
+
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    req = pb.GetRateLimitsReq(requests=[pb.RateLimitReq(
+        name="control", unique_key="driven", hits=1, limit=5,
+        duration=3_600_000)]).SerializeToString()
+    got = []
+    async with grpc.aio.insecure_channel(addr) as ch:
+        for _ in range(7):
+            r = pb.GetRateLimitsResp.FromString(
+                await ch.unary_unary(V1_RPC)(req, timeout=60)).responses[0]
+            got.append((r.status, r.limit, r.remaining, r.error))
+    want = [(0, 5, n, "") for n in (4, 3, 2, 1, 0)] + [(1, 5, 0, "")] * 2
+    if got != want:
+        raise AssertionError(f"control key on the wire: {got}")
+
+
+def start_daemons(dev, n, slots, mode):
+    """n daemons of the port (one in-process cluster) on `dev`."""
+    from gubernator_tpu_torch.core.config import (
+        DaemonConfig,
+        DeviceConfig,
+        SketchTierConfig,
+    )
+    from gubernator_tpu_torch.testing.cluster import Cluster
+
+    sketch = SketchTierConfig(names=["cms"], depth=SKETCH_DEPTH,
+                              width=SKETCH_WIDTH, window_ms=SKETCH_WINDOW_MS,
+                              batch_size=SKETCH_BATCH)
+    return Cluster.start_with(
+        [""] * n,
+        device=DeviceConfig(num_slots=slots, ways=WAYS, batch_size=BATCH,
+                            platform=dev.type),
+        conf_template=DaemonConfig(serve_mode=mode, sketch=sketch))
+
+
+def percentiles_ms(lat):
+    a = np.sort(np.asarray(lat)) * 1e3
+    return [float(np.percentile(a, q)) for q in (50, 99, 99.9)]
+
+
+def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
+                   profile=False):
+    """One serve mode on one daemon: traffic over gRPC with every K1/K2
+    dispatch recorded, the control key, then the plain replay.  Returns
+    (max_abs_err, K1 launches, K2 launches)."""
+    import asyncio
+
+    import torch
+
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+
+    c = start_daemons(dev, 1, slots, mode)
+    try:
+        d = c.daemons[0]
+        be, sb, fp = d.service.backend, d.service.sketch_backend, d.fastpath
+        if be.device.type != dev.type or fp.effective_serve_mode != mode:
+            raise AssertionError(f"{mode}: daemon on {be.device}, serving "
+                                 f"{fp.effective_serve_mode}")
+        if warm:
+            phase_warm(be, dev, f"phase 10 ({mode})")
+        torch.cuda.synchronize()
+        table, sketch = clone_table(be.table), clone_sketch(sb.state)
+        per_client = [rpc_requests(rng, rpcs, first_key=1 + 10_000 * j)
+                      for j in range(clients)]
+        rec = DispatchRecorder(be, sb)
+        serve_kernel.launches = cms_kernel.launches = 0
+        # The clients share the daemon's event loop: grpc.aio serves one
+        # loop per process.
+        wall, lat, counts = c.run(drive_rpcs(d.grpc_address, per_client),
+                                  timeout=900)
+        k1, k2 = serve_kernel.launches, cms_kernel.launches
+        c.run(control_key(d.grpc_address))
+        n = clients * rpcs * RPC_REQS
+        if sum(counts) != n or k1 == 0 or k2 == 0:
+            raise AssertionError(f"{mode}: {sum(counts)} of {n} answers, "
+                                 f"K1 launches {k1}, K2 launches {k2}")
+        p50, p99, p999 = percentiles_ms(lat)
+        log(f"phase 10/11 ({smi}): {mode} on {slots} slots: {clients} "
+            f"clients x {rpcs} RPCs x {RPC_REQS}: {n / wall:.1f} "
+            f"decisions/s through gRPC; per-RPC latency p50 {p50:.3f} ms, "
+            f"p99 {p99:.3f} ms, p99.9 {p999:.3f} ms (host clock); K1 "
+            f"launches {k1}, K2 launches {k2}; fast lane served "
+            f"{fp.served}, fallbacks {fp.fallbacks}, blocking fetches "
+            f"{fp.blocking_fetches}")
+        lanes = fp.debug_vars()["lanes"]
+        log(f"phase 10/11: {mode} host split (ms in each fast-lane stage, "
+            "summed over merges): " + "; ".join(
+                f"{lane} {v['drains']} merges, dispatch "
+                f"{v['dispatch_ms_total']:.1f}, fetch {v['fetch_ms_total']:.1f}"
+                f", waiting for a fetch slot {v['bubble_ms_total']:.1f}"
+                for lane, v in lanes.items()))
+        if profile:
+            profile_daemon(c, d, rng, clients)
+        rec.close()
+        if fp.fallbacks != 0:
+            raise AssertionError(f"{mode}: {fp.fallbacks} fast-lane "
+                                 "fallbacks")
+        ring = fp._ring
+        if ring is not None:
+            if ring.seq_mismatches or sum(fp.blocking_fetches.values()):
+                raise AssertionError(
+                    f"{mode}: seq mismatches {ring.seq_mismatches}, "
+                    f"blocking fetches {fp.blocking_fetches}")
+            log(f"phase 10/11: {mode} ring: {ring.iterations} iterations "
+                f"({ring.mega_iterations} mega), {ring.rounds_per_dispatch():.2f}"
+                f" rounds a dispatch, {ring.host_jobs} host jobs (cascade "
+                f"merges and sketch fetches), seq {ring.seq}, seq mismatches 0")
+        err = rec.replay(dev, table, sketch)
+        log(f"phase 10/11: {mode}: {len(rec.k1)} K1 and {len(rec.k2)} K2 "
+            f"dispatches replayed through the plain versions: responses, "
+            f"table, sketch bit-exact, claim words restored; control key "
+            f"exact on the wire")
+        return err, k1, k2
+    finally:
+        c.stop()
+
+
+def profile_daemon(c, d, rng, clients):
+    """About a second of serving under torch.profiler: the device's busy
+    share and the device time of each kernel and copy per RPC."""
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    per_client = [rpc_requests(rng, PROFILE_RPCS, first_key=2_000_000 + j)
+                  for j in range(clients)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _, counts = c.run(drive_rpcs(d.grpc_address, per_client),
+                                timeout=300)
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    n_rpc = len(counts)
+    if not spans:
+        log("phase 10: torch.profiler recorded no device time: device "
+            "busy share not measured")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"phase 10: torch.profiler, {n_rpc} RPCs in {wall * 1e3:.3f} ms "
+        f"wall: device busy {busy_us / 1e3:.4f} ms "
+        f"({busy_us / 1e3 / (wall * 1e3):.4%}); device ms per RPC: "
+        + "; ".join(f"{k} {v / n_rpc:.5f}" for k, v in top))
+
+
+def daemon_path(dev, smi) -> float:
+    """Phase 10: the daemon at full width in the pipelined and persistent
+    modes, the table warmed to 10M live keys through K1."""
+    rng = np.random.default_rng(SEED + 500)
+    err = 0.0
+    for mode in ("pipelined", "persistent"):
+        e, _, _ = serve_mode_run(dev, mode, DAEMON_SLOTS, DAEMON_CLIENTS,
+                                 DAEMON_RPCS, rng, smi, warm=True,
+                                 profile=(mode == "persistent"))
+        err = max(err, e)
+    return err
+
+
+def cluster_path(dev, smi) -> float:
+    """Phase 11: classic, ring and megaround on a 2^20-slot daemon; then a
+    3-node cluster against a single node on one stream, and GLOBAL keys
+    through a non-owner."""
+    import asyncio
+
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    rng = np.random.default_rng(SEED + 600)
+    err = 0.0
+    for mode in ("classic", "ring", "megaround"):
+        e, _, _ = serve_mode_run(dev, mode, SMALL_SLOTS, SMALL_CLIENTS,
+                                 SMALL_RPCS, rng, smi)
+        err = max(err, e)
+
+    stream = rpc_requests(rng, CLUSTER_RPCS)
+
+    def strip(raw):
+        out = []
+        for r in pb.GetRateLimitsResp.FromString(raw).responses:
+            md = dict(r.metadata)
+            md.pop("owner", None)
+            out.append((r.status, r.limit, r.remaining, r.reset_time,
+                        r.error, tuple(sorted(md.items()))))
+        return out
+
+    async def sequential(addr, payloads):
+        import grpc
+
+        async with grpc.aio.insecure_channel(addr) as ch:
+            return [await ch.unary_unary(V1_RPC)(p, timeout=120)
+                    for p in payloads]
+
+    answers = []
+    for n in (3, 1):
+        c = start_daemons(dev, n, SMALL_SLOTS, "pipelined")
+        try:
+            serve_kernel.launches = cms_kernel.launches = 0
+            raw = c.run(sequential(c.addresses()[0], stream), timeout=300)
+            answers.append([strip(x) for x in raw])
+            k1, k2 = serve_kernel.launches, cms_kernel.launches
+            log(f"phase 11: {n}-node run: K1 launches {k1}, K2 launches "
+                f"{k2}")
+            if k1 == 0 or k2 == 0:
+                raise AssertionError(f"{n}-node run: K1 launches {k1}, K2 "
+                                     f"launches {k2}")
+            if n == 3:
+                fwd = sum(1 for x in raw for r in
+                          pb.GetRateLimitsResp.FromString(x).responses
+                          if "owner" in r.metadata)
+                glob = [pb.RateLimitReq(
+                    name="global", unique_key=f"g{i}", hits=1, limit=100,
+                    duration=60_000, behavior=2) for i in range(64)]
+                owners = {c.daemons[0].service.get_peer(
+                    f"global_g{i}").info().grpc_address for i in range(64)}
+                greq = pb.GetRateLimitsReq(requests=glob).SerializeToString()
+                g1, g2 = (pb.GetRateLimitsResp.FromString(x).responses
+                          for x in c.run(sequential(
+                              c.addresses()[0], [greq, greq])))
+                bad = [r for r in list(g1) + list(g2)
+                       if r.error or r.limit != 100]
+                remote = sum(1 for r in g2 if r.metadata.get("owner"))
+                if bad or remote == 0 or len(owners) < 2:
+                    raise AssertionError(
+                        f"GLOBAL through node 0: {len(bad)} bad answers, "
+                        f"{remote} from replicas, {len(owners)} owners")
+                log(f"phase 11: 3-node cluster ({SMALL_SLOTS} slots each, "
+                    f"pipelined): {CLUSTER_RPCS} RPCs through node 0, "
+                    f"{fwd} answers forwarded to other owners; 128 GLOBAL "
+                    f"checks through node 0 answered ({remote} of the "
+                    f"second 64 from node 0's replica)")
+        finally:
+            c.stop()
+    if answers[0] != answers[1]:
+        diff = sum(a != b for x, y in zip(*answers) for a, b in zip(x, y))
+        raise AssertionError(f"cluster answers differ from a single "
+                             f"node's in {diff} places")
+    log(f"phase 11: the cluster's {CLUSTER_RPCS * RPC_REQS} answers equal "
+        f"a single node's on the same stream (owner metadata aside)")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -962,9 +1397,19 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"card: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.core import clock as clock_mod
+
     phase_build()
+    if not native.available():
+        raise RuntimeError("the native host runtime (native/gubtpu.cpp) "
+                           "did not build: the compiled fast lane is off")
     k1 = k1_path(dev, name, smi)
     k2 = k2_path(dev, name, smi)
+    clock_mod.freeze(T0_NS)  # the daemons' clock, frozen
+    derr = max(daemon_path(dev, smi), cluster_path(dev, smi))
+    k1["max_abs_err"] = max(k1["max_abs_err"], derr)
+    k2["max_abs_err"] = max(k2["max_abs_err"], derr)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

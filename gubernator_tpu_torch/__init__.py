@@ -8,7 +8,11 @@ version (ops/ring.py) when the caller asks for the CPU.  The approximate
 tier (runtime/sketch_backend.SketchBackend) answers its limit names from a
 sliding-window count-min sketch, one launch of a second hand-written kernel
 (csrc/cms_kernel.cu) per merge, or its plain version (ops/sketch.py) on the
-CPU.  Needs torch and numpy; imports nothing of JAX or of gubernator_tpu.
+CPU.  The daemon (daemon.py, `python -m gubernator_tpu_torch.cli.server`)
+serves both over gRPC and HTTP through the compiled fast lane
+(runtime/fastpath.py) in every serve mode.  The engine needs torch and
+numpy; the daemon's modules add the wire stack (grpcio, protobuf, aiohttp,
+prometheus_client, xxhash).  Imports nothing of JAX or of gubernator_tpu.
 """
 from gubernator_tpu_torch.core.types import (  # noqa: F401
     Algorithm,

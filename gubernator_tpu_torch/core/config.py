@@ -1,8 +1,768 @@
-"""Device geometry of the torch engine, and the sketch tier's settings."""
+"""Configuration system.
+
+The planes' configs (hotkey, lease, reshard, region, stats, tier) are kept
+as data so the GUBER_* surface parses as it does for the JAX package, but
+each plane is off by default here and the service refuses to start with
+one armed: none is ported yet (ROADMAP.md, "What the daemon still lacks").
+
+Mirrors the reference's struct + `GUBER_*` env-var config (config.go:44-459,
+example.conf), extended with the engine's own knobs (slot-table geometry, batch
+shape, serve modes).  Library users populate the dataclasses directly;
+the CLI calls `setup_daemon_config()` which reads the environment, with an
+optional KEY=VALUE config file loaded into the environment first
+(config.go:583-611).
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+import os
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Tuple
+
+# Defaults from reference config.go:115-131, 300-301, lrucache.go:63.
+DEFAULT_BATCH_TIMEOUT_S = 0.5
+DEFAULT_BATCH_WAIT_S = 500e-6
+DEFAULT_BATCH_LIMIT = 1000
+DEFAULT_CACHE_SIZE = 50_000
+MAX_BATCH_SIZE = 1000  # gubernator.go:41
+
+
+@dataclass
+class BehaviorConfig:
+    """Batch / GLOBAL / multi-region timing knobs (config.go:44-65,115-127)."""
+
+    batch_timeout_s: float = DEFAULT_BATCH_TIMEOUT_S
+    batch_wait_s: float = DEFAULT_BATCH_WAIT_S
+    batch_limit: int = DEFAULT_BATCH_LIMIT
+
+    global_timeout_s: float = DEFAULT_BATCH_TIMEOUT_S
+    global_sync_wait_s: float = DEFAULT_BATCH_WAIT_S
+    global_batch_limit: int = DEFAULT_BATCH_LIMIT
+
+    multi_region_timeout_s: float = DEFAULT_BATCH_TIMEOUT_S
+    multi_region_sync_wait_s: float = DEFAULT_BATCH_WAIT_S
+    multi_region_batch_limit: int = DEFAULT_BATCH_LIMIT
+
+
+@dataclass
+class CircuitConfig:
+    """Per-peer circuit breaker (net/breaker.py; no reference analog —
+    the Go daemon spends the full RPC deadline against a dead peer on
+    every forwarded check).
+
+    Fed by the same failures that populate the 5-minute HealthCheck
+    error window: `failure_threshold` CONSECUTIVE failures trip the
+    breaker open; while open, every enqueue sheds immediately with
+    PeerNotReadyError (counted in `gubernator_peer_shed_total`) instead
+    of burning `batch_timeout_s` against a dead channel.  After a
+    jittered exponential backoff (`base_backoff_s * 2^(streak-1)`,
+    capped at `max_backoff_s`, ±`jitter`) the breaker goes half-open
+    and admits `half_open_probes` probe RPCs: one success re-closes it,
+    one failure re-opens with a doubled backoff.  A probe whose gated
+    RPC never reports an outcome (e.g. cancelled in flight) is treated
+    as failed `probe_timeout_s` after it was issued, so the breaker
+    cannot wedge half-open shedding forever."""
+
+    enabled: bool = True
+    failure_threshold: int = 5
+    base_backoff_s: float = 0.5
+    max_backoff_s: float = 30.0
+    jitter: float = 0.2  # fraction of the backoff, uniform ±
+    half_open_probes: int = 1
+    probe_timeout_s: float = 10.0
+
+    def __post_init__(self) -> None:
+        if self.failure_threshold < 1:
+            raise ValueError(
+                f"circuit failure_threshold must be >= 1, "
+                f"got {self.failure_threshold}"
+            )
+        if not 0.0 <= self.jitter <= 1.0:
+            raise ValueError(
+                f"circuit jitter must be in [0, 1], got {self.jitter}"
+            )
+        if self.probe_timeout_s <= 0.0:
+            raise ValueError(
+                f"circuit probe_timeout_s must be > 0, "
+                f"got {self.probe_timeout_s}"
+            )
+
+
+# Degraded-mode ownership fallback (runtime/service.py): what a node
+# answers when the owner of a forwarded key is unreachable (breaker
+# open or the ownership-retry loop exhausted).  "error" is the legacy
+# strict mode (the reference behavior: an error response, client
+# decides); the rest are the degraded-operation policies.
+DEGRADED_MODES = ("error", "fail_closed", "fail_open", "local_shadow")
+
+
+def normalize_degraded_mode(value: str) -> str:
+    """Canonicalize a degraded-mode policy; raise on anything unknown —
+    a typo must not silently fail open."""
+    v = (value or "").strip().lower() or "error"
+    if v not in DEGRADED_MODES:
+        raise ValueError(
+            f"unknown degraded mode {value!r}; expected one of "
+            + ", ".join(repr(m) for m in DEGRADED_MODES)
+        )
+    return v
+
+
+@dataclass
+class HotKeyConfig:
+    """Hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md; no
+    reference analog — the Go daemon funnels a zipfian workload's
+    hottest keys onto single owners until they melt).
+
+    Three coupled mechanisms, all gated on MEASURED owner pressure (the
+    flight recorder's rolling p99 vs GUBER_SLO_P99_MS) so that none of
+    them activates on a healthy cluster — naive always-on duplication
+    makes tails worse under load (arXiv:1909.08969):
+
+    * detection — every node tracks the per-key rate of the traffic it
+      routes in a host-side count-min sketch; a key whose pressure
+      score (estimated hits/s x owner SLO-pressure ratio) stays past
+      `threshold` for `promote_windows` consecutive windows joins a
+      small exact hot-set, leaving it after `demote_windows` windows
+      below (hysteresis: the set cannot flap at the threshold);
+    * mirroring — a hot key's owner-set widens to the next `mirrors`
+      distinct arcs of the existing ring (deterministic on every
+      peer); each mirror serves from a LOCAL allowance of
+      `fraction x limit` and reconciles its hits to the owner through
+      the GLOBAL async-hit machinery, bounding cluster-wide
+      over-admission to `limit x (1 + mirrors x fraction)` — the
+      local_shadow algebra with pressure (not death) as the gate;
+    * shedding — when this node's own p99 breach persists past
+      `shed_cooldown_s`, requests matching `shed_priorities` globs are
+      dropped with OVER_LIMIT + retry-after metadata, lowest priority
+      class first, escalating one class per further cooldown.
+    """
+
+    enabled: bool = False
+    # Promotion threshold on the pressure score: estimated hits/s for
+    # the key (this node's local view) x the owner's SLO-pressure
+    # ratio (p99 / target; 0 while the owner is healthy — so with no
+    # measured pressure NOTHING ever promotes).
+    threshold: float = 500.0
+    # Extra next-arc ring replicas a hot key's owner-set widens to
+    # while the owner is pressured.  0 disables widening entirely.
+    mirrors: int = 1
+    # Fraction of the limit each mirror may admit from its local slot.
+    fraction: float = 0.25
+    # Detection window length (seconds) — rates are estimated per
+    # window; promote/demote hysteresis counts these windows.
+    window_s: float = 1.0
+    promote_windows: int = 2
+    demote_windows: int = 3
+    # Hot-set capacity (exact entries; the sketch stays O(1) per key).
+    max_hot: int = 64
+    # How long an owner's advertised pressure (RPC trailing metadata)
+    # stays live on this node before decaying to 0.
+    pressure_ttl_s: float = 5.0
+    # p99 breach must persist this long before shedding arms; each
+    # further cooldown escalates one priority class.
+    shed_cooldown_s: float = 5.0
+    # fnmatch globs over limit NAMES, lowest-priority (shed first)
+    # first.  A name matching no glob is never shed.  Empty list =
+    # shedding disabled.
+    shed_priorities: List[str] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        if self.threshold <= 0:
+            raise ValueError(
+                f"hotkey threshold must be > 0, got {self.threshold}"
+            )
+        if self.mirrors < 0:
+            raise ValueError(
+                f"hotkey mirrors must be >= 0, got {self.mirrors}"
+            )
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(
+                f"hotkey fraction must be in (0, 1], got {self.fraction}"
+            )
+        if self.window_s <= 0:
+            raise ValueError(
+                f"hotkey window_s must be > 0, got {self.window_s}"
+            )
+        for n, v in (
+            ("promote_windows", self.promote_windows),
+            ("demote_windows", self.demote_windows),
+            ("max_hot", self.max_hot),
+        ):
+            if v < 1:
+                raise ValueError(f"hotkey {n} must be >= 1, got {v}")
+        if self.pressure_ttl_s <= 0:
+            raise ValueError(
+                f"hotkey pressure_ttl_s must be > 0, "
+                f"got {self.pressure_ttl_s}"
+            )
+        if self.shed_cooldown_s <= 0:
+            raise ValueError(
+                f"hotkey shed_cooldown_s must be > 0, "
+                f"got {self.shed_cooldown_s}"
+            )
+
+
+def hotkey_config_from_env() -> HotKeyConfig:
+    """The hot-key plane's env parse, shared by the daemon and harnesses
+    (same contract as pipeline_depth_from_env): validation errors name
+    the env var at startup instead of crashing a constructor later."""
+    prios = [
+        p.strip()
+        for p in _env("GUBER_HOTKEY_SHED_PRIORITIES").split(",")
+        if p.strip()
+    ]
+    try:
+        return HotKeyConfig(
+            enabled=_env("GUBER_HOTKEY_ENABLED", "false").lower()
+            not in ("0", "false", "no"),
+            threshold=float(_env("GUBER_HOTKEY_THRESHOLD", "500")),
+            mirrors=_env_int("GUBER_HOTKEY_MIRRORS", 1),
+            fraction=float(_env("GUBER_HOTKEY_FRACTION", "0.25")),
+            window_s=_env_float_s("GUBER_HOTKEY_WINDOW", 1.0),
+            promote_windows=_env_int("GUBER_HOTKEY_PROMOTE_WINDOWS", 2),
+            demote_windows=_env_int("GUBER_HOTKEY_DEMOTE_WINDOWS", 3),
+            max_hot=_env_int("GUBER_HOTKEY_MAX", 64),
+            pressure_ttl_s=_env_float_s("GUBER_HOTKEY_PRESSURE_TTL", 5.0),
+            shed_cooldown_s=_env_float_s(
+                "GUBER_HOTKEY_SHED_COOLDOWN", 5.0
+            ),
+            shed_priorities=prios,
+        )
+    except ValueError as e:
+        raise ValueError(f"hot-key env config: {e}") from None
+
+
+@dataclass
+class LeaseConfig:
+    """Client-side admission leases (runtime/lease.py; docs/leases.md;
+    no reference analog — the cheapest RPC is the one never sent,
+    arXiv:2510.04516).
+
+    A key's owner grants a holder (a LeasedClient or an edge daemon) a
+    bounded LOCAL allowance of `fraction x limit` hits it may burn with
+    zero RPCs, valid for `ttl_ms`.  Allowances are carved from a
+    `<unique_key>.lease-grant` shadow slot sized
+    `max_holders x fraction x limit` per window — the hot-mirror
+    algebra — so cluster-wide admission for a leased key is bounded by
+    `limit x (1 + max_holders x fraction)` even if every holder
+    partitions away with a full grant.  Burned hits reconcile
+    asynchronously (at-most-once); grants are refused while the owner
+    is shedding under SLO pressure.  `low_water` and `reconcile_ms`
+    are CLIENT cadence knobs (grant refresh threshold, reconcile
+    interval) parsed here so the SDK and the daemon read one surface.
+    """
+
+    enabled: bool = False
+    # Fraction of the limit one holder's allowance covers.
+    fraction: float = 0.25
+    # Grant lifetime in milliseconds; an expired grant burns nothing.
+    ttl_ms: int = 2000
+    # Concurrent holders per key; the over-admission bound multiplier.
+    max_holders: int = 4
+    # Client-side: refresh the grant in the background once remaining
+    # allowance drops below low_water x allowance.
+    low_water: float = 0.25
+    # Client-side: burned-hit reconcile cadence in milliseconds.  Must
+    # not exceed ttl_ms (a grant would expire between reconciles and
+    # the owner would re-collect allowances still in active use).
+    reconcile_ms: int = 500
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(
+                f"lease fraction must be in (0, 1], got {self.fraction}"
+            )
+        if self.ttl_ms < 1:
+            raise ValueError(
+                f"lease ttl_ms must be >= 1, got {self.ttl_ms}"
+            )
+        if self.max_holders < 1:
+            raise ValueError(
+                f"lease max_holders must be >= 1, got {self.max_holders}"
+            )
+        if not 0.0 <= self.low_water < 1.0:
+            raise ValueError(
+                f"lease low_water must be in [0, 1), got {self.low_water}"
+            )
+        if self.reconcile_ms < 1:
+            raise ValueError(
+                f"lease reconcile_ms must be >= 1, got {self.reconcile_ms}"
+            )
+        if self.ttl_ms < self.reconcile_ms:
+            raise ValueError(
+                "lease ttl_ms must be >= reconcile_ms (a grant must "
+                f"outlive the reconcile cadence), got ttl_ms="
+                f"{self.ttl_ms} < reconcile_ms={self.reconcile_ms}"
+            )
+
+
+def lease_config_from_env() -> LeaseConfig:
+    """The lease plane's env parse, shared by the daemon and the client
+    SDK (same contract as hotkey_config_from_env): validation errors
+    name the env surface at startup instead of crashing a constructor
+    later."""
+    try:
+        return LeaseConfig(
+            enabled=_env("GUBER_LEASE_ENABLED", "false").lower()
+            not in ("0", "false", "no"),
+            fraction=float(_env("GUBER_LEASE_FRACTION", "0.25")),
+            ttl_ms=int(_env_float_s("GUBER_LEASE_TTL", 2.0) * 1000),
+            max_holders=_env_int("GUBER_LEASE_MAX_HOLDERS", 4),
+            low_water=float(_env("GUBER_LEASE_LOW_WATER", "0.25")),
+            reconcile_ms=int(
+                _env_float_s("GUBER_LEASE_RECONCILE", 0.5) * 1000
+            ),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "lease env config (GUBER_LEASE_FRACTION, GUBER_LEASE_TTL, "
+            "GUBER_LEASE_MAX_HOLDERS, GUBER_LEASE_LOW_WATER, "
+            f"GUBER_LEASE_RECONCILE): {e}"
+        ) from None
+
+
+@dataclass
+class ReshardConfig:
+    """Elastic membership / live slot migration (runtime/reshard.py;
+    docs/resharding.md; no reference analog — the Go daemon's peer
+    remap silently orphans every moved key's counters, so at scale
+    every autoscaling event is a mass limit reset).
+
+    When `service.set_peers` computes a hash remap, the OLD owner of
+    every moved arc drives a per-destination handoff
+    (PREPARE -> DRAIN -> TRANSFER -> CUTOVER -> RELEASE): packed table
+    rows stream to the new owner on the peers wire (Migrate RPCs) and
+    the moved slots are cleared atomically with their extraction.
+    During the window the new owner forwards covered checks back to
+    the still-authoritative old owner; once TRANSFER is announced it
+    serves them from a bounded `<key>.handoff-shadow` carve at
+    `handoff_fraction x limit` instead, so cluster-wide admission for
+    a moved key is bounded by `limit x (1 + handoff_fraction)` — the
+    local_shadow/mirror/lease algebra with a remap (not death or
+    pressure) as the gate.  Shadow burns are applied to the
+    authoritative row at cutover (counters conserved, never inflated).
+    """
+
+    enabled: bool = False
+    # Fraction of the limit the NEW owner may admit from the local
+    # handoff shadow while a covered key's row is in flight.
+    handoff_fraction: float = 0.25
+    # Rows per Migrate RPC chunk (bounded by the 4MB message cap).
+    chunk_rows: int = 1024
+    # New-owner watchdog: if the old owner goes silent mid-handoff for
+    # this long, self-cutover (missing rows conservatively reset).
+    timeout_s: float = 10.0
+    # How long the old owner keeps forwarding stale-routed checks for
+    # released arcs after cutover (covers discovery convergence).
+    release_linger_s: float = 10.0
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.handoff_fraction <= 1.0:
+            raise ValueError(
+                "reshard handoff_fraction must be in (0, 1], got "
+                f"{self.handoff_fraction}"
+            )
+        if self.chunk_rows < 1:
+            raise ValueError(
+                f"reshard chunk_rows must be >= 1, got {self.chunk_rows}"
+            )
+        if self.timeout_s <= 0:
+            raise ValueError(
+                f"reshard timeout_s must be > 0, got {self.timeout_s}"
+            )
+        if self.release_linger_s < 0:
+            raise ValueError(
+                "reshard release_linger_s must be >= 0, got "
+                f"{self.release_linger_s}"
+            )
+
+
+def reshard_config_from_env() -> ReshardConfig:
+    """The reshard plane's env parse (same contract as
+    hotkey_config_from_env): validation errors name the env surface at
+    startup instead of crashing a constructor later."""
+    try:
+        return ReshardConfig(
+            enabled=_env("GUBER_RESHARD_ENABLED", "false").lower()
+            not in ("0", "false", "no"),
+            handoff_fraction=float(
+                _env("GUBER_RESHARD_FRACTION", "0.25")
+            ),
+            chunk_rows=_env_int("GUBER_RESHARD_CHUNK", 1024),
+            timeout_s=_env_float_s("GUBER_RESHARD_TIMEOUT", 10.0),
+            release_linger_s=_env_float_s(
+                "GUBER_RESHARD_RELEASE_LINGER", 10.0
+            ),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "reshard env config (GUBER_RESHARD_FRACTION, "
+            "GUBER_RESHARD_CHUNK, GUBER_RESHARD_TIMEOUT, "
+            f"GUBER_RESHARD_RELEASE_LINGER): {e}"
+        ) from None
+
+
+@dataclass
+class RegionConfig:
+    """Planet-scale active-active regions (runtime/multiregion.py;
+    docs/multiregion.md; the reference ships only a stub sender,
+    multiregion.go:23-102 — this is the follow-the-sun layer it never
+    grew).
+
+    Each region runs its own mesh + peer ring.  A key's HOME region
+    (a deterministic rendezvous pick over the configured region set,
+    using the region-picker hash) owns truth; every other region
+    serves the key from a bounded `<key>.region-carve` shadow slot at
+    `fraction x limit` per window, so cluster-wide admission is
+    bounded by `limit x (1 + remote_regions x fraction)` — the
+    lease/mirror/shadow carve algebra with geography (not death,
+    pressure, or a remap) as the gate.  Burned carve hits reconcile
+    to the home owner asynchronously over the WAN peer arcs every
+    `reconcile_ms`, with the GLOBAL lane's at-most-once discipline
+    (provably-unsent failures re-queue and survive a region
+    partition; ambiguous failures drop — arXiv 1909.08969's caution
+    against retry inflation).  `drift_max` bounds the un-reconciled
+    burn backlog: past it the carve refuses new admissions, so a
+    long partition's divergence stays finite.  On region heal the
+    carve re-homes through REGION_PREPARE -> TRANSFER -> CUTOVER
+    (late burns compensated at cutover; a carve slot still homed
+    remotely keeps its consumed state, so each window's fraction is
+    spent at most once — only slots whose home MOVED are dropped)."""
+
+    enabled: bool = False
+    # This daemon's region name.  Empty + enabled defers to
+    # GUBER_DATA_CENTER at daemon assembly (the region name IS the
+    # data-center tag peers advertise on the wire).
+    name: str = ""
+    # region -> WAN seed addresses (grpc host:port).  Remote entries
+    # are dialed as cross-region peers; the key set (plus `name`)
+    # is the configured region universe the home rendezvous runs
+    # over.  Empty = derive the universe from live peer discovery.
+    peers: Dict[str, List[str]] = field(default_factory=dict)
+    # Fraction of the limit a remote region may admit from its local
+    # carve slot per window.
+    fraction: float = 0.25
+    # Burned-hit WAN reconcile cadence in milliseconds.
+    reconcile_ms: int = 500
+    # Max un-reconciled burned hits (per node, across keys) before
+    # the carve refuses new admissions — the bounded-divergence
+    # valve for a long partition.
+    drift_max: int = 100_000
+
+    def __post_init__(self) -> None:
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(
+                f"region fraction must be in (0, 1], got {self.fraction}"
+            )
+        if self.reconcile_ms < 1:
+            raise ValueError(
+                f"region reconcile_ms must be >= 1, "
+                f"got {self.reconcile_ms}"
+            )
+        if self.drift_max < 1:
+            raise ValueError(
+                f"region drift_max must be >= 1, got {self.drift_max}"
+            )
+        if self.peers and self.name and self.name not in self.peers:
+            raise ValueError(
+                f"self region {self.name!r} missing from the region "
+                "peer map — a daemon must appear in its own universe "
+                f"(regions: {', '.join(sorted(self.peers))})"
+            )
+
+
+def _parse_region_peers(raw: str) -> Dict[str, List[str]]:
+    """Parse GUBER_REGION_PEERS: `region=addr|addr,region2=addr`.
+    A region with no addresses (`region=`) is legal — it names the
+    region in the universe without seeding WAN dials (discovery
+    supplies the peers)."""
+    out: Dict[str, List[str]] = {}
+    for entry in raw.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if "=" not in entry:
+            raise ValueError(
+                f"region peer entry {entry!r} is not region=addr|addr"
+            )
+        region, _, addrs = entry.partition("=")
+        region = region.strip()
+        if not region:
+            raise ValueError(
+                f"region peer entry {entry!r} has an empty region name"
+            )
+        out[region] = [
+            a.strip() for a in addrs.split("|") if a.strip()
+        ]
+    return out
+
+
+def region_config_from_env() -> RegionConfig:
+    """The region plane's env parse (same contract as
+    hotkey_config_from_env): validation errors name the env surface
+    at startup — fraction outside (0, 1] and a self region absent
+    from the peer map are rejected here, not deep in RegionManager."""
+    try:
+        return RegionConfig(
+            enabled=_env("GUBER_REGION_ENABLED", "false").lower()
+            in ("1", "true", "yes"),
+            name=_env("GUBER_REGION_NAME", "").strip(),
+            peers=_parse_region_peers(_env("GUBER_REGION_PEERS", "")),
+            fraction=float(_env("GUBER_REGION_FRACTION", "0.25")),
+            reconcile_ms=_env_int("GUBER_REGION_RECONCILE_MS", 500),
+            drift_max=_env_int("GUBER_REGION_DRIFT_MAX", 100_000),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "region env config (GUBER_REGION_ENABLED, "
+            "GUBER_REGION_NAME, GUBER_REGION_PEERS, "
+            "GUBER_REGION_FRACTION, GUBER_REGION_RECONCILE_MS, "
+            f"GUBER_REGION_DRIFT_MAX): {e}"
+        ) from None
+
+
+@dataclass
+class StatsConfig:
+    """Gubstat — state-plane introspection (runtime/gubstat.py;
+    docs/observability.md; no reference analog — the Go daemon's cache
+    is host memory an operator can inspect ad hoc, the device table is
+    not).
+
+    The sampler dispatches the read-only ops/state.table_stats census
+    every `interval_s` as a ring host job (or an executor call outside
+    ring mode), so the request path never blocks on it.  `top_k`
+    bounds the per-tenant accounting surface (names tracked exactly;
+    hit totals ride the existing HostCMS sketch, so cardinality is
+    bounded however many tenants appear).  `peek` gates the
+    /debug/key inspection route (it decodes live counter state, which
+    an operator may prefer to keep off an exposed debug port)."""
+
+    enabled: bool = False
+    # Census cadence in seconds.
+    interval_s: float = 5.0
+    # Tenants surfaced in /debug/vars, /metrics, and gubtop.
+    top_k: int = 16
+    # Allow the /debug/key row-inspection route.
+    peek: bool = True
+
+    def __post_init__(self) -> None:
+        if self.interval_s <= 0:
+            raise ValueError(
+                f"stats interval_s must be > 0, got {self.interval_s}"
+            )
+        if self.top_k < 1:
+            raise ValueError(
+                f"stats top_k must be >= 1, got {self.top_k}"
+            )
+
+
+def stats_config_from_env() -> StatsConfig:
+    """The gubstat plane's env parse (same contract as
+    hotkey_config_from_env): validation errors name the env surface at
+    startup instead of crashing a constructor later."""
+    try:
+        return StatsConfig(
+            enabled=_env("GUBER_STATS_ENABLED", "false").lower()
+            not in ("0", "false", "no"),
+            interval_s=_env_float_s("GUBER_STATS_INTERVAL", 5.0),
+            top_k=_env_int("GUBER_STATS_TOP_K", 16),
+            peek=_env("GUBER_STATS_PEEK", "true").lower()
+            not in ("0", "false", "no"),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "stats env config (GUBER_STATS_ENABLED, "
+            "GUBER_STATS_INTERVAL, GUBER_STATS_TOP_K, "
+            f"GUBER_STATS_PEEK): {e}"
+        ) from None
+
+
+@dataclass
+class LoadConfig:
+    """Gubload — the open-loop scenario harness (loadgen/;
+    docs/loadgen.md; no reference analog — the Go repo benchmarks
+    closed-loop).  Parsed by the gubload CLI and scripts/load_smoke.py,
+    never by the daemon: the knobs shape the LOAD, not the server.
+
+    `seed` drives every arrival timestamp and key draw (identical
+    seeds reproduce identical schedules across runs and worker
+    counts).  `duration_s` stretches the named scenario's phases to
+    this total; `clients` bounds the connection fan-out; `target_rps`
+    is the peak arrival rate the schedules are planned at."""
+
+    seed: int = 1337
+    scenario: str = "steady"
+    duration_s: float = 6.0
+    clients: int = 8
+    target_rps: float = 400.0
+
+    def __post_init__(self) -> None:
+        if not self.scenario:
+            raise ValueError("load scenario must be non-empty")
+        if self.duration_s <= 0:
+            raise ValueError(
+                f"load duration_s must be > 0, got {self.duration_s}"
+            )
+        _require_min("load clients", self.clients, 1)
+        if self.target_rps <= 0:
+            raise ValueError(
+                f"load target_rps must be > 0, got {self.target_rps}"
+            )
+
+
+def load_config_from_env() -> LoadConfig:
+    """The gubload plane's env parse (same contract as
+    hotkey_config_from_env): validation errors name the env surface at
+    startup instead of crashing a constructor later."""
+    try:
+        return LoadConfig(
+            seed=_env_int("GUBER_LOAD_SEED", 1337),
+            scenario=_env("GUBER_LOAD_SCENARIO", "steady"),
+            duration_s=_env_float_s("GUBER_LOAD_DURATION", 6.0),
+            clients=_env_int("GUBER_LOAD_CLIENTS", 8),
+            target_rps=float(_env("GUBER_LOAD_TARGET_RPS", "400")),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "load env config (GUBER_LOAD_SEED, GUBER_LOAD_SCENARIO, "
+            "GUBER_LOAD_DURATION, GUBER_LOAD_CLIENTS, "
+            f"GUBER_LOAD_TARGET_RPS): {e}"
+        ) from None
+
+
+@dataclass
+class TierConfig:
+    """Guberberg — the two-tier key table (runtime/coldtier.py;
+    docs/tiering.md; no reference analog — the Go daemon's cache IS
+    host memory, so it never needed a second tier).
+
+    Off by default: the cold tier allocates `cold_capacity` rows of
+    host RAM up front, a budget the operator should size, not inherit.
+    When enabled, the TierManager demotes the coldest HBM rows once
+    occupancy crosses `high_water` (fraction of slots), draining to
+    `low_water` (hysteresis — the gap is the breathing room between
+    demote ticks); `demote_batch` bounds one demote_extract dispatch
+    (per shard on a mesh)."""
+
+    enabled: bool = False
+    # Cold-tier row budget (host RAM; rows beyond it are dropped).
+    cold_capacity: int = 1_000_000
+    # Occupancy fraction that starts demotion pressure.
+    high_water: float = 0.85
+    # Occupancy fraction demotion drains down to.
+    low_water: float = 0.70
+    # Rows per demote_extract dispatch (per shard on a mesh).
+    demote_batch: int = 256
+    # Watermark evaluation cadence in seconds.
+    interval_s: float = 1.0
+
+    def __post_init__(self) -> None:
+        if self.cold_capacity < 1:
+            raise ValueError(
+                f"tier cold_capacity must be >= 1, "
+                f"got {self.cold_capacity}"
+            )
+        if not 0.0 < self.high_water <= 1.0:
+            raise ValueError(
+                f"tier high_water must be in (0, 1], "
+                f"got {self.high_water}"
+            )
+        if not 0.0 < self.low_water <= 1.0:
+            raise ValueError(
+                f"tier low_water must be in (0, 1], "
+                f"got {self.low_water}"
+            )
+        if self.low_water >= self.high_water:
+            raise ValueError(
+                f"tier low_water ({self.low_water}) must be below "
+                f"high_water ({self.high_water}) — the gap is the "
+                f"demotion hysteresis"
+            )
+        if self.demote_batch < 1:
+            raise ValueError(
+                f"tier demote_batch must be >= 1, "
+                f"got {self.demote_batch}"
+            )
+        if self.interval_s <= 0:
+            raise ValueError(
+                f"tier interval_s must be > 0, got {self.interval_s}"
+            )
+
+
+def tier_config_from_env() -> TierConfig:
+    """The tier plane's env parse: validation errors name the env
+    surface at startup (reject low >= high, capacity < 1) instead of
+    crashing a constructor later."""
+    try:
+        return TierConfig(
+            enabled=_env("GUBER_TIER_ENABLED", "false").lower()
+            in ("1", "true", "yes"),
+            cold_capacity=_env_int(
+                "GUBER_TIER_COLD_CAPACITY", 1_000_000
+            ),
+            high_water=float(_env("GUBER_TIER_HIGH_WATER", "0.85")),
+            low_water=float(_env("GUBER_TIER_LOW_WATER", "0.70")),
+            demote_batch=_env_int("GUBER_TIER_DEMOTE_BATCH", 256),
+            interval_s=_env_float_s("GUBER_TIER_INTERVAL", 1.0),
+        )
+    except ValueError as e:
+        raise ValueError(
+            "tier env config (GUBER_TIER_ENABLED, "
+            "GUBER_TIER_COLD_CAPACITY, GUBER_TIER_HIGH_WATER, "
+            "GUBER_TIER_LOW_WATER, GUBER_TIER_DEMOTE_BATCH, "
+            f"GUBER_TIER_INTERVAL): {e}"
+        ) from None
+
+
+def peer_debounce_ms_from_env() -> int:
+    """Discovery-update coalescing window (GUBER_PEER_DEBOUNCE_MS): an
+    etcd/k8s watch storm delivering N membership events within the
+    window triggers ONE remap (latest peer set wins), not N
+    interleaved rebuilds.  0 disables coalescing (every event applies,
+    still serialized latest-wins)."""
+    return _require_min(
+        "GUBER_PEER_DEBOUNCE_MS",
+        _env_int("GUBER_PEER_DEBOUNCE_MS", 100), 0,
+    )
+
+
+# Fast-lane drain disciplines (runtime/fastpath.py; docs/ring.md):
+#   classic    — strict depth-1: every merge's dispatch AND fetch
+#                serialize end to end;
+#   pipelined  — dispatch serialized, device->host fetches overlapped at
+#                GUBER_PIPELINE_DEPTH;
+#   ring       — the device-resident serving loop (runtime/ring.py):
+#                merges enter a request ring, ONE runner thread drives
+#                multi-round dispatches of the serve kernel and
+#                publishes responses, and the request path never blocks
+#                on a device->host fetch.  Only a backend without ring
+#                support degrades to pipelined.
+#   megaround  — ring plus the adaptive round accumulator: the ring
+#                capacity multiplies to GUBER_RING_SLOTS x
+#                GUBER_RING_ROUNDS and a backlog past the base tier
+#                dispatches as ONE mega block (ops/ring.mega_ring_step)
+#                — one dispatch amortized across the whole block, with
+#                add-latency bounded by GUBER_RING_MAX_LINGER_US.  A
+#                shallow queue dispatches immediately at base tiers.
+#   persistent — the ring protocol served by the hand-written serve
+#                kernel (ops/kernels/serve_kernel.py) with its build
+#                reported: one kernel dispatch drains the whole block.
+#                Capability is probed at arm time; on the CPU, where no
+#                kernel exists, the daemon degrades to megaround with
+#                the reason in /debug/vars.
+SERVE_MODES = ("classic", "pipelined", "ring", "megaround", "persistent")
+
+
+def normalize_serve_mode(value: str) -> str:
+    """Canonicalize a serve mode; raise on anything unknown — a typo
+    must not silently drop the daemon to a slower discipline."""
+    v = (value or "").strip().lower() or "pipelined"
+    if v not in SERVE_MODES:
+        raise ValueError(
+            f"unknown serve mode {value!r}; expected one of "
+            + ", ".join(repr(m) for m in SERVE_MODES)
+        )
+    return v
 
 
 @dataclass
@@ -24,8 +784,17 @@ class DeviceConfig:
     batch_size: int = 1024
     platform: Optional[str] = None
     batch_tiers: Optional[Tuple[int, ...]] = None
+    # The mesh axis (the JAX package's sharded table).  The port serves
+    # one table on one card; a mesh is ROADMAP queue 1 item 9.
+    num_shards: int = 1
 
     def __post_init__(self) -> None:
+        if self.num_shards != 1:
+            raise ValueError(
+                f"num_shards={self.num_shards}: a sharded table is not "
+                "ported yet (ROADMAP queue 1 item 9, mesh and collective "
+                "GLOBAL); the port serves num_shards=1"
+            )
         if self.num_slots % self.ways != 0:
             raise ValueError(
                 "num_slots must be divisible by ways "
@@ -83,3 +852,587 @@ class SketchTierConfig:
     #                      table; the unexpired_evictions signal)
     spill_inserts: Optional[int] = None
     spill_transients: Optional[int] = None
+
+
+@dataclass
+class Config:
+    """Service-instance config (reference config.go:44-113)."""
+
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
+    cache_size: int = DEFAULT_CACHE_SIZE
+    data_center: str = ""
+    # "xx" (default; see net/replicated_hash.py on FNV clustering) or
+    # "fnv1"/"fnv1a" for placement interop with reference peers
+    # (config.go:403-425).
+    local_picker_hash: str = "xx"
+    region_picker_hash: str = "xx"
+    loader: Optional[object] = None  # runtime.store.Loader
+    store: Optional[object] = None  # runtime.store.Store
+    sketch: Optional[SketchTierConfig] = None  # approximate tier
+    # Resilience plane (net/breaker.py + the degraded-mode ownership
+    # fallback in runtime/service.py).
+    circuit: CircuitConfig = field(default_factory=CircuitConfig)
+    degraded_mode: str = "error"  # see DEGRADED_MODES
+    # local_shadow: fraction of the limit a non-owner may admit from its
+    # shadow slot while the owner is gone (cluster-wide over-admission
+    # is bounded by peers * shadow_fraction * limit).
+    shadow_fraction: float = 0.5
+    # Hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md).
+    hotkey: HotKeyConfig = field(default_factory=HotKeyConfig)
+    # Client-side admission leases (runtime/lease.py; docs/leases.md).
+    lease: LeaseConfig = field(default_factory=LeaseConfig)
+    # Elastic membership / live slot migration (runtime/reshard.py;
+    # docs/resharding.md).
+    reshard: ReshardConfig = field(default_factory=ReshardConfig)
+    # Gubstat state-plane introspection (runtime/gubstat.py;
+    # docs/observability.md).
+    stats: StatsConfig = field(default_factory=StatsConfig)
+    # Guberberg two-tier key table (runtime/coldtier.py;
+    # docs/tiering.md).
+    tier: TierConfig = field(default_factory=TierConfig)
+    # Planet-scale active-active regions (runtime/multiregion.py;
+    # docs/multiregion.md).
+    region: RegionConfig = field(default_factory=RegionConfig)
+
+
+@dataclass
+class DaemonConfig:
+    """Daemon assembly config (reference config.go:171-235)."""
+
+    grpc_listen_address: str = "localhost:1051"
+    http_listen_address: str = "localhost:1050"
+    advertise_address: str = ""
+    cache_size: int = DEFAULT_CACHE_SIZE
+    data_center: str = ""
+    behaviors: BehaviorConfig = field(default_factory=BehaviorConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
+    peer_discovery_type: str = "none"  # none|static|dns|gossip|k8s|etcd
+    # Ring hash for key placement: "xx" (default), or "fnv1"/"fnv1a" for
+    # placement interop with reference peers (config.go:403-425); the
+    # columnar fast-lane router serves all three (gub_fnv_hashkey_batch).
+    local_picker_hash: str = "xx"
+    region_picker_hash: str = "xx"
+    static_peers: List[str] = field(default_factory=list)
+    dns_fqdn: str = ""
+    dns_poll_interval_s: float = 10.0
+    gossip_bind_address: str = ""  # host:port UDP; default grpc_port+1000
+    gossip_seeds: List[str] = field(default_factory=list)
+    etcd_endpoints: str = "localhost:2379"
+    # Kubernetes discovery (reference kubernetes.go:36-110 /
+    # config.go:467-504): which Endpoints/Pods to watch and how to map
+    # them to peer addresses.  pod_ip marks ourselves in the peer list.
+    k8s_namespace: str = "default"
+    k8s_endpoints_selector: str = ""
+    k8s_pod_ip: str = ""
+    k8s_pod_port: int = 81
+    k8s_watch_mechanism: str = "endpoints"  # endpoints | pods
+    log_level: str = "info"
+    # TLS (reference tls.go / config.go:338-368)
+    tls: Optional["TLSConfig"] = None
+    metric_flags: int = 0
+    # Persistence SPI (runtime.store.Loader / Store)
+    loader: Optional[object] = None
+    store: Optional[object] = None
+    # Approximate (count-min sketch) tier for selected limit names.
+    sketch: Optional[SketchTierConfig] = None
+    # Compiled fast lane pipeline depth: how many coalesced device
+    # merges may be in flight at once.  Depth 1 means every drain takes
+    # the WHOLE queue as one maximal merge (fewer response syncs).
+    # Raise only if profiling shows host-side gather/serialize starving
+    # the device between merges.
+    fastpath_inflight: int = 1
+    # Sparse-overlap threshold (requests): a fast-lane drain at most this
+    # big may dispatch on one of 3 overlap slots instead of waiting out
+    # the in-flight merge's response sync, so a small arrival at low
+    # load costs about one fetch cycle (big drains exceed the limit and
+    # keep the strict depth-1 maximal-merge discipline).  0 disables.
+    fastpath_sparse: int = 64
+    # Pipelined-drain depth (docs/pipeline.md): how many coalesced
+    # merges may be OUTSTANDING (dispatched, response not yet fetched)
+    # per fast-lane lane.  The dispatch stage stays serialized — this
+    # never splits a maximal merge — but merge N+1's device dispatch
+    # overlaps merge N's device->host readback, moving steady-state
+    # throughput from B/(dispatch+fetch) toward B/max(dispatch, fetch).
+    # 1 restores the strict pre-pipeline discipline (dispatch and fetch
+    # serialized end to end); raise past 2 only if pipeline-occupancy
+    # telemetry shows the depth saturated AND bubble time is nonzero.
+    pipeline_depth: int = 2
+    # Fast-lane drain discipline (SERVE_MODES; docs/ring.md).  "ring"
+    # takes host fetches off the request path entirely: enqueue ->
+    # poll response slot, with the device loop fed by a request ring.
+    serve_mode: str = "pipelined"
+    # Request-ring capacity in ROUNDS (GUBER_RING_SLOTS): how many
+    # packed [12, B] rounds one ring iteration may consume (one
+    # dispatch's slot budget) and how many may queue before
+    # producers block (backpressure, measured as ring slot-wait).
+    # Each power-of-two tier up to this is launched once at warmup.
+    ring_slots: int = 8
+    # Megaround multiplier (GUBER_RING_ROUNDS; serve_mode=megaround or
+    # persistent): ring capacity widens to ring_slots x ring_rounds and
+    # a backlog past the base tier dispatches as ONE mega block — one
+    # dispatch amortized across the block (docs/ring.md).  1 disables.
+    ring_rounds: int = 4
+    # Adaptive accumulator's bounded add-latency in MICROSECONDS
+    # (GUBER_RING_MAX_LINGER_US): how long the runner may wait for a
+    # mega block to fill once the queue is already past the base tier.
+    # A shallow queue never waits.  0 disables lingering.
+    ring_max_linger_us: float = 200.0
+    # Flight recorder / SLO telemetry (runtime/flightrec.py).  Off by
+    # default: the ring + sampler are cheap, but dumps write to disk and
+    # operators should choose the directory.
+    flightrec: bool = False
+    flightrec_dir: str = "flightrec-dumps"
+    flightrec_ring: int = 512
+    # Rolling-p99 target in MILLISECONDS (BASELINE.json: p99 < 2ms); a
+    # trailing-window p99 over it increments slo_breach_total and dumps.
+    slo_p99_ms: float = 2.0
+    # > 0: on breach, also start a time-boxed torch.profiler trace of this
+    # many seconds under <flightrec_dir>/profile.
+    flightrec_profile_s: float = 0.0
+    # Resilience plane: per-peer circuit breakers (net/breaker.py) and
+    # the degraded-mode ownership fallback (docs/resilience.md).
+    circuit: CircuitConfig = field(default_factory=CircuitConfig)
+    degraded_mode: str = "error"  # see DEGRADED_MODES
+    shadow_fraction: float = 0.5
+    # Hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md):
+    # owner-pressure detection, bounded mirroring, SLO-driven shedding.
+    hotkey: HotKeyConfig = field(default_factory=HotKeyConfig)
+    # Client-side admission leases (runtime/lease.py; docs/leases.md):
+    # bounded local allowances on the peers wire.
+    lease: LeaseConfig = field(default_factory=LeaseConfig)
+    # Elastic membership / live slot migration (runtime/reshard.py;
+    # docs/resharding.md): a remap streams moved rows old owner -> new
+    # owner instead of orphaning them.
+    reshard: ReshardConfig = field(default_factory=ReshardConfig)
+    # Gubstat state-plane introspection (runtime/gubstat.py;
+    # docs/observability.md): census cadence, tenant top-K, /debug/key.
+    stats: StatsConfig = field(default_factory=StatsConfig)
+    # Guberberg two-tier key table (runtime/coldtier.py;
+    # docs/tiering.md): HBM hot slots over a host-RAM cold tier.
+    tier: TierConfig = field(default_factory=TierConfig)
+    # Planet-scale active-active regions (runtime/multiregion.py;
+    # docs/multiregion.md): home-region truth, bounded remote carves,
+    # at-most-once WAN reconcile.
+    region: RegionConfig = field(default_factory=RegionConfig)
+    # Discovery-update coalescing window in ms (GUBER_PEER_DEBOUNCE_MS):
+    # rapid watch events within the window apply as ONE latest-wins
+    # remap.  0 = apply every event (still serialized).
+    peer_debounce_ms: int = 100
+    # Graceful scale-down: on daemon close, migrate every owned row to
+    # its next owner (the ring without this node) BEFORE stopping the
+    # listeners — the autoscaler's preStop/SIGTERM drain.  Off by
+    # default: a crash-stop must stay cheap, and tests tear clusters
+    # down constantly.
+    reshard_drain_on_close: bool = False
+    # Chaos plane (testing/chaos.py): a seeded fault plan injected at
+    # the peer-client and daemon RPC boundaries.  `chaos_plan` is a JSON
+    # plan file (empty = no chaos — the production default); `chaos`
+    # accepts a pre-built ChaosInjector programmatically (the in-process
+    # cluster fixture).  `chaos_seed` > 0 overrides the plan's seed.
+    chaos_plan: str = ""
+    chaos_seed: int = 0
+    chaos: Optional[object] = None  # testing.chaos.ChaosInjector
+
+
+@dataclass
+class TLSConfig:
+    """Subset of reference TLSConfig (tls.go:46-138).
+
+    AutoTLS tiers (tls.go:59-62): with no files at all, a private CA and
+    server cert are generated — single-node only, since each daemon would
+    mint its own CA.  With `ca_file` + `ca_key_file` but no server cert,
+    a per-daemon cert is generated from the SHARED CA — the multi-node
+    AutoTLS mode.
+    """
+
+    ca_file: str = ""
+    ca_key_file: str = ""
+    cert_file: str = ""
+    key_file: str = ""
+    # ""|request|verify-if-given|require-any|require-and-verify
+    # (legacy "require"/"verify" == require-and-verify); see net/tls.py
+    # for the exact python mapping of the four Go modes.  The reference's
+    # spellings (config.go:351-354) are accepted as aliases by
+    # normalize_tls_client_auth.
+    client_auth: str = ""
+    insecure_skip_verify: bool = False
+
+
+# The reference daemon's GUBER_TLS_CLIENT_AUTH spellings
+# (config.go:351-354) -> this repo's canonical modes (net/tls.py).
+TLS_CLIENT_AUTH_ALIASES = {
+    "request-cert": "request",
+    "verify-cert": "verify-if-given",
+    "require-any-cert": "require-any",
+}
+TLS_CLIENT_AUTH_MODES = (
+    "",
+    "request",
+    "verify-if-given",
+    "require-any",
+    "require-and-verify",
+    # Legacy spellings of require-and-verify.
+    "require",
+    "verify",
+)
+
+
+def normalize_tls_client_auth(value: str) -> str:
+    """Canonicalize a client-auth mode, accepting the reference
+    spellings as aliases; raise on anything unknown (the reference
+    errors too, config.go:357-359) — a typo must not silently disable
+    client auth."""
+    v = (value or "").strip().lower()
+    v = TLS_CLIENT_AUTH_ALIASES.get(v, v)
+    if v not in TLS_CLIENT_AUTH_MODES:
+        raise ValueError(
+            f"unknown TLS client-auth mode {value!r}; expected one of "
+            + ", ".join(repr(m) for m in TLS_CLIENT_AUTH_MODES if m)
+            + " or a reference spelling "
+            + ", ".join(repr(m) for m in TLS_CLIENT_AUTH_ALIASES)
+        )
+    return v
+
+
+def _env(name: str, default: str = "") -> str:
+    return os.environ.get(name, default)
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else default
+
+
+def _env_float_s(name: str, default: float) -> float:
+    """Duration env var in Go-style suffix notation or plain seconds."""
+    v = os.environ.get(name)
+    if v in (None, ""):
+        return default
+    return parse_duration_s(v)
+
+
+def _require_min(name: str, value: int, lo: int) -> int:
+    """Fail at config parse with the env-var name instead of letting an
+    out-of-range value crash deep inside a constructor."""
+    if value < lo:
+        raise ValueError(f"{name} must be >= {lo}, got {value}")
+    return value
+
+
+def parse_duration_s(v: str) -> float:
+    """Parse '500us' / '500ms' / '2s' / '1m' / plain float seconds."""
+    v = v.strip()
+    for suffix, mult in (("us", 1e-6), ("µs", 1e-6), ("ms", 1e-3),
+                         ("s", 1.0), ("m", 60.0), ("h", 3600.0)):
+        if v.endswith(suffix) and v[: -len(suffix)].replace(".", "").isdigit():
+            return float(v[: -len(suffix)]) * mult
+    return float(v)
+
+
+def load_config_file(path: str) -> None:
+    """Load KEY=VALUE lines into the environment (config.go:583-611)."""
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if "=" not in line:
+                continue
+            k, _, val = line.partition("=")
+            os.environ[k.strip()] = val.strip()
+
+
+
+
+
+
+
+
+
+
+
+
+def fastpath_sparse_from_env() -> int:
+    """The sparse-overlap drain knob, parsed/validated exactly as the
+    daemon does — the public entry for harnesses (bench_e2e) that build
+    DaemonConfig directly but must honor the same env override."""
+    return _require_min(
+        "GUBER_FASTPATH_SPARSE",
+        _env_int("GUBER_FASTPATH_SPARSE", 64), 0,
+    )
+
+
+def pipeline_depth_from_env() -> int:
+    """The pipelined-drain depth knob, parsed/validated exactly as the
+    daemon does (same harness contract as fastpath_sparse_from_env)."""
+    return _require_min(
+        "GUBER_PIPELINE_DEPTH",
+        _env_int("GUBER_PIPELINE_DEPTH", 2), 1,
+    )
+
+
+def serve_mode_from_env() -> str:
+    """The fast-lane drain-discipline knob (GUBER_SERVE_MODE), parsed/
+    validated exactly as the daemon does — rejects unknown modes at
+    startup (same harness contract as pipeline_depth_from_env)."""
+    return normalize_serve_mode(_env("GUBER_SERVE_MODE", "pipelined"))
+
+
+def ring_slots_from_env() -> int:
+    """The request-ring capacity knob (GUBER_RING_SLOTS), validated at
+    daemon startup: fewer than 1 slot cannot hold a round, and past
+    1024 the per-tier warmup launches + the padded scan's wasted work
+    outgrow any coalescing win — both are config mistakes, not
+    tunings."""
+    v = _require_min(
+        "GUBER_RING_SLOTS", _env_int("GUBER_RING_SLOTS", 8), 1
+    )
+    if v > 1024:
+        raise ValueError(f"GUBER_RING_SLOTS must be <= 1024, got {v}")
+    return v
+
+
+def ring_rounds_from_env() -> int:
+    """The megaround multiplier (GUBER_RING_ROUNDS): how many base-tier
+    ring rounds one mega dispatch may amortize — capacity becomes
+    GUBER_RING_SLOTS x GUBER_RING_ROUNDS rounds (docs/ring.md).  1
+    disables megaround (the plain ring ladder); past 64 the mega-tier
+    compiles and the scan's padded work outgrow the amortization win —
+    a config mistake, rejected at startup.  The combined
+    slots x rounds capacity is bounded in setup_daemon_config (the two
+    knobs compose)."""
+    v = _require_min(
+        "GUBER_RING_ROUNDS", _env_int("GUBER_RING_ROUNDS", 4), 1
+    )
+    if v > 64:
+        raise ValueError(f"GUBER_RING_ROUNDS must be <= 64, got {v}")
+    return v
+
+
+def ring_linger_us_from_env() -> float:
+    """The megaround accumulator's add-latency bound
+    (GUBER_RING_MAX_LINGER_US, microseconds): how long the runner may
+    wait for a mega block to fill once the queue is already past the
+    base tier.  0 disables lingering (backlog still widens blocks to
+    whatever has queued); past 1s it stops being a linger and starts
+    being an outage — rejected at startup."""
+    raw = _env("GUBER_RING_MAX_LINGER_US", "200")
+    try:
+        v = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"GUBER_RING_MAX_LINGER_US must be a number of "
+            f"microseconds, got {raw!r}"
+        ) from None
+    if v < 0:
+        raise ValueError(
+            f"GUBER_RING_MAX_LINGER_US must be >= 0, got {raw!r}"
+        )
+    if v > 1_000_000:
+        raise ValueError(
+            "GUBER_RING_MAX_LINGER_US must be <= 1000000 (1s), got "
+            f"{raw!r}"
+        )
+    return v
+
+
+def mesh_ways_from_env() -> int:
+    """The mesh axis size (GUBER_MESH_WAYS — the deployment-mode
+    spelling for "shards mapped onto mesh axes"; GUBER_TPU_NUM_SHARDS
+    stays as the geometry-level alias).  Returns 0 when unset so the
+    caller can defer to the alias; a SET value must be >= 1 — a zero or
+    negative mesh is a config mistake rejected at startup, and a count
+    past the attached device set is rejected when the mesh is built
+    (parallel/mesh.make_mesh names the shortfall)."""
+    raw = _env("GUBER_MESH_WAYS")
+    if not raw:
+        return 0
+    v = _env_int("GUBER_MESH_WAYS", 0)
+    if v < 1:
+        raise ValueError(f"GUBER_MESH_WAYS must be >= 1, got {raw!r}")
+    return v
+
+
+def setup_daemon_config(config_file: Optional[str] = None) -> DaemonConfig:
+    """Build a DaemonConfig from GUBER_* env vars (config.go:253-459)."""
+    if config_file:
+        load_config_file(config_file)
+
+    behaviors = BehaviorConfig(
+        batch_timeout_s=_env_float_s("GUBER_BATCH_TIMEOUT", DEFAULT_BATCH_TIMEOUT_S),
+        batch_wait_s=_env_float_s("GUBER_BATCH_WAIT", DEFAULT_BATCH_WAIT_S),
+        batch_limit=_env_int("GUBER_BATCH_LIMIT", DEFAULT_BATCH_LIMIT),
+        global_timeout_s=_env_float_s("GUBER_GLOBAL_TIMEOUT", DEFAULT_BATCH_TIMEOUT_S),
+        global_sync_wait_s=_env_float_s("GUBER_GLOBAL_SYNC_WAIT", DEFAULT_BATCH_WAIT_S),
+        global_batch_limit=_env_int("GUBER_GLOBAL_BATCH_LIMIT", DEFAULT_BATCH_LIMIT),
+    )
+    num_shards = mesh_ways_from_env() or _require_min(
+        "GUBER_TPU_NUM_SHARDS", _env_int("GUBER_TPU_NUM_SHARDS", 1), 1
+    )
+    try:
+        device = DeviceConfig(
+            num_slots=_env_int("GUBER_TPU_NUM_SLOTS", 65_536),
+            ways=_env_int("GUBER_TPU_WAYS", 8),
+            batch_size=_env_int("GUBER_TPU_BATCH_SIZE", 1024),
+            num_shards=num_shards,
+            platform=os.environ.get("GUBER_TPU_PLATFORM") or None,
+        )
+    except ValueError as e:
+        # Name the env surface in the startup rejection: an invalid
+        # shard count (slots not divisible by ways*shards) must fail
+        # here, not deep inside the backend's construction.
+        raise ValueError(
+            "mesh/device geometry invalid (GUBER_MESH_WAYS, "
+            f"GUBER_TPU_NUM_SLOTS, GUBER_TPU_WAYS): {e}"
+        ) from None
+    tls: Optional[TLSConfig] = None
+    if _env("GUBER_TLS_CERT") or _env("GUBER_TLS_CA"):
+        tls = TLSConfig(
+            ca_file=_env("GUBER_TLS_CA"),
+            ca_key_file=_env("GUBER_TLS_CA_KEY"),
+            cert_file=_env("GUBER_TLS_CERT"),
+            key_file=_env("GUBER_TLS_KEY"),
+            client_auth=normalize_tls_client_auth(
+                _env("GUBER_TLS_CLIENT_AUTH")
+            ),
+            insecure_skip_verify=_env("GUBER_TLS_INSECURE_SKIP_VERIFY") == "true",
+        )
+    static_peers = [
+        p.strip() for p in _env("GUBER_PEERS").split(",") if p.strip()
+    ]
+    sketch: Optional[SketchTierConfig] = None
+    sketch_names = [
+        n.strip() for n in _env("GUBER_SKETCH_NAMES").split(",") if n.strip()
+    ]
+    if sketch_names:
+        window_ms = int(_env_float_s("GUBER_SKETCH_WINDOW", 1.0) * 1000)
+        if window_ms < 1:
+            # Fail at parse: a zero/negative window reaches the rotation
+            # arithmetic as a modulo-by-zero and serves garbage silently.
+            raise ValueError(
+                "GUBER_SKETCH_WINDOW must be >= 1ms, got "
+                f"{_env('GUBER_SKETCH_WINDOW')!r}"
+            )
+        sketch = SketchTierConfig(
+            names=sketch_names,
+            depth=_env_int("GUBER_SKETCH_DEPTH", 4),
+            width=_env_int("GUBER_SKETCH_WIDTH", 8192),
+            window_ms=window_ms,
+            batch_size=_env_int("GUBER_SKETCH_BATCH_SIZE", 1024),
+            use_pallas=_env("GUBER_SKETCH_USE_PALLAS") == "true",
+        )
+    circuit = CircuitConfig(
+        enabled=_env("GUBER_CIRCUIT_ENABLED", "true").lower()
+        not in ("0", "false", "no"),
+        failure_threshold=_require_min(
+            "GUBER_CIRCUIT_FAILURE_THRESHOLD",
+            _env_int("GUBER_CIRCUIT_FAILURE_THRESHOLD", 5), 1,
+        ),
+        base_backoff_s=_env_float_s("GUBER_CIRCUIT_BASE_BACKOFF", 0.5),
+        max_backoff_s=_env_float_s("GUBER_CIRCUIT_MAX_BACKOFF", 30.0),
+        jitter=float(_env("GUBER_CIRCUIT_JITTER", "0.2")),
+        half_open_probes=_require_min(
+            "GUBER_CIRCUIT_HALF_OPEN_PROBES",
+            _env_int("GUBER_CIRCUIT_HALF_OPEN_PROBES", 1), 1,
+        ),
+        probe_timeout_s=_env_float_s("GUBER_CIRCUIT_PROBE_TIMEOUT", 10.0),
+    )
+    shadow_fraction = float(_env("GUBER_DEGRADED_SHADOW_FRACTION", "0.5"))
+    if not 0.0 < shadow_fraction <= 1.0:
+        raise ValueError(
+            "GUBER_DEGRADED_SHADOW_FRACTION must be in (0, 1], got "
+            f"{shadow_fraction}"
+        )
+    ring_rounds = ring_rounds_from_env()
+    if ring_slots_from_env() * ring_rounds > 4096:
+        # The knobs compose: capacity = slots x rounds bounds both the
+        # mega-tier compile ladder and the padded scan's worst case.
+        raise ValueError(
+            "GUBER_RING_SLOTS x GUBER_RING_ROUNDS must be <= 4096, got "
+            f"{ring_slots_from_env()} x {ring_rounds}"
+        )
+    return DaemonConfig(
+        grpc_listen_address=_env("GUBER_GRPC_ADDRESS", "localhost:1051"),
+        http_listen_address=_env("GUBER_HTTP_ADDRESS", "localhost:1050"),
+        advertise_address=_env("GUBER_ADVERTISE_ADDRESS", ""),
+        cache_size=_env_int("GUBER_CACHE_SIZE", DEFAULT_CACHE_SIZE),
+        data_center=_env("GUBER_DATA_CENTER", ""),
+        behaviors=behaviors,
+        device=device,
+        peer_discovery_type=_env(
+            "GUBER_PEER_DISCOVERY_TYPE", "static" if static_peers else "none"
+        ),
+        local_picker_hash=_env("GUBER_PEER_PICKER_HASH", "xx"),
+        region_picker_hash=_env("GUBER_REGION_PICKER_HASH", "xx"),
+        static_peers=static_peers,
+        dns_fqdn=_env("GUBER_DNS_FQDN", ""),
+        dns_poll_interval_s=_env_float_s("GUBER_DNS_POLL_INTERVAL", 10.0),
+        gossip_bind_address=_env("GUBER_GOSSIP_ADDRESS", ""),
+        gossip_seeds=[
+            s.strip()
+            for s in _env("GUBER_GOSSIP_SEEDS").split(",")
+            if s.strip()
+        ],
+        etcd_endpoints=_env("GUBER_ETCD_ENDPOINTS", "localhost:2379"),
+        k8s_namespace=_env("GUBER_K8S_NAMESPACE", "default"),
+        k8s_endpoints_selector=_env("GUBER_K8S_ENDPOINTS_SELECTOR", ""),
+        k8s_pod_ip=_env("GUBER_K8S_POD_IP", ""),
+        k8s_pod_port=_env_int("GUBER_K8S_POD_PORT", 81),
+        k8s_watch_mechanism=_env("GUBER_K8S_WATCH_MECHANISM", "endpoints"),
+        log_level=_env("GUBER_LOG_LEVEL", "info"),
+        tls=tls,
+        sketch=sketch,
+        # Bit 1 = process/platform/GC collectors (the GUBER_METRIC_FLAGS
+        # golang/process flags, daemon.go:255-266, flags.go:19-56).
+        metric_flags=_env_int("GUBER_METRIC_FLAGS", 0),
+        fastpath_inflight=_require_min(
+            "GUBER_FASTPATH_INFLIGHT",
+            _env_int("GUBER_FASTPATH_INFLIGHT", 1), 1,
+        ),
+        fastpath_sparse=fastpath_sparse_from_env(),
+        pipeline_depth=pipeline_depth_from_env(),
+        serve_mode=serve_mode_from_env(),
+        ring_slots=ring_slots_from_env(),
+        ring_rounds=ring_rounds,
+        ring_max_linger_us=ring_linger_us_from_env(),
+        flightrec=_env("GUBER_FLIGHTREC") in ("1", "true"),
+        flightrec_dir=_env("GUBER_FLIGHTREC_DIR", "flightrec-dumps"),
+        flightrec_ring=_require_min(
+            "GUBER_FLIGHTREC_RING",
+            _env_int("GUBER_FLIGHTREC_RING", 512), 1,
+        ),
+        slo_p99_ms=float(_env("GUBER_SLO_P99_MS", "2.0")),
+        flightrec_profile_s=_env_float_s("GUBER_FLIGHTREC_PROFILE", 0.0),
+        circuit=circuit,
+        degraded_mode=normalize_degraded_mode(
+            _env("GUBER_DEGRADED_MODE", "error")
+        ),
+        shadow_fraction=shadow_fraction,
+        hotkey=hotkey_config_from_env(),
+        lease=lease_config_from_env(),
+        reshard=reshard_config_from_env(),
+        stats=stats_config_from_env(),
+        tier=tier_config_from_env(),
+        region=region_config_from_env(),
+        peer_debounce_ms=peer_debounce_ms_from_env(),
+        reshard_drain_on_close=_env(
+            "GUBER_RESHARD_DRAIN_ON_CLOSE", "false"
+        ).lower() in ("1", "true", "yes"),
+        chaos_plan=_env("GUBER_CHAOS_PLAN", ""),
+        chaos_seed=_env_int("GUBER_CHAOS_SEED", 0),
+    )
+
+
+def fast_test_behaviors() -> BehaviorConfig:
+    """Short windows for tests (reference cluster/cluster.go:119-125)."""
+    return BehaviorConfig(
+        batch_timeout_s=2.0,
+        batch_wait_s=0.01,
+        batch_limit=DEFAULT_BATCH_LIMIT,
+        global_timeout_s=2.0,
+        global_sync_wait_s=0.05,
+        global_batch_limit=DEFAULT_BATCH_LIMIT,
+        multi_region_timeout_s=2.0,
+        multi_region_sync_wait_s=0.05,
+    )

@@ -157,3 +157,27 @@ def bulk_key_hash64(keys: Sequence[str]) -> np.ndarray:
         out[np.asarray(idx, dtype=np.int64)] = _xxh64_same_len(mat)
     out[out == 0] = 1
     return out.view(np.int64)
+
+
+# -- the consistent-hash peer ring's string hashes ----------------------
+_FNV_OFFSET = 0xCBF29CE484222325
+_FNV_PRIME = 0x100000001B3
+
+
+def fnv1_64(data: bytes) -> int:
+    """FNV-1 64-bit (multiply then xor) — fasthash/fnv1.HashString64
+    (reference replicated_hash.go:26,33)."""
+    h = _FNV_OFFSET
+    for b in data:
+        h = (h * _FNV_PRIME) & _M64
+        h ^= b
+    return h
+
+
+def fnv1a_64(data: bytes) -> int:
+    """FNV-1a 64-bit (xor then multiply) — fasthash/fnv1a.HashString64."""
+    h = _FNV_OFFSET
+    for b in data:
+        h ^= b
+        h = (h * _FNV_PRIME) & _M64
+    return h

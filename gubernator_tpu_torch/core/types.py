@@ -1,15 +1,15 @@
 """Core request/response types and enums.
 
-Mirrors the reference wire contract (proto/gubernator.proto:57-182) as plain
-Python dataclasses.  These are the host-side currency of the engine; the
-device layer consumes them as packed int64 rounds (see
-gubernator_tpu_torch.ops.batch).
+Mirrors the reference wire contract (proto/gubernator.proto:57-182,
+proto/peers.proto:36-57) as plain Python dataclasses.  These are the host-side
+currency of the framework; the device layer consumes them as packed arrays
+(see gubernator_tpu_torch.ops.batch).
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 
 class Algorithm(enum.IntEnum):
@@ -84,10 +84,84 @@ class RateLimitResp:
 
 
 @dataclass
+class GetRateLimitsReq:
+    requests: List[RateLimitReq] = field(default_factory=list)
+
+
+@dataclass
+class GetRateLimitsResp:
+    responses: List[RateLimitResp] = field(default_factory=list)
+
+
+@dataclass
+class HealthCheckResp:
+    """gubernator.proto:185-192."""
+
+    status: str = "healthy"
+    message: str = ""
+    peer_count: int = 0
+
+
+@dataclass
+class UpdatePeerGlobal:
+    """peers.proto:52-56 — owner-authoritative status pushed to peers."""
+
+    key: str = ""
+    status: Optional[RateLimitResp] = None
+    algorithm: Algorithm = Algorithm.TOKEN_BUCKET
+
+
+@dataclass
+class LeaseGrant:
+    """One granted (or refused) client-side admission lease
+    (peers.proto Lease/Reconcile; docs/leases.md).
+
+    `allowance` hits may be burned locally with zero RPCs until
+    `expires_at` (unix ms); a non-empty `refusal` means no allowance was
+    granted (allowance == 0) and the holder must degrade to per-call
+    checks.  `reset_time` is the carve slot's window reset — the
+    holder's local remaining/reset view between reconciles."""
+
+    key: str = ""  # hash key (name + "_" + unique_key)
+    allowance: int = 0
+    expires_at: int = 0  # unix ms
+    reset_time: int = 0  # unix ms
+    limit: int = 0
+    refusal: str = ""  # empty = granted
+
+    @property
+    def granted(self) -> bool:
+        return self.allowance > 0 and not self.refusal
+
+
+@dataclass
+class ReconcileItem:
+    """One holder->owner reconcile entry: `request.hits` carries the
+    hits burned locally since the last reconcile (0 = nothing new);
+    `release` drops the holder's grant outright; `renew` piggybacks a
+    grant refresh on the reconcile RPC (the low-water refresh without a
+    second round trip)."""
+
+    request: RateLimitReq = field(default_factory=RateLimitReq)
+    release: bool = False
+    renew: bool = False
+
+
+@dataclass(frozen=True)
+class PeerInfo:
+    """Cluster-membership record (reference config.go peer info struct)."""
+
+    grpc_address: str = ""
+    http_address: str = ""
+    data_center: str = ""
+    is_owner: bool = False  # true only for the local instance
+
+
+@dataclass
 class CacheItem:
-    """Host-side representation of one cached entry (reference
-    cache.go:30-42).  On the device the same record is a row across the
-    SlotTable tensors; this form is the host view.
+    """Host-side representation of one cached entry, used by the Store/Loader
+    persistence SPI (reference cache.go:30-42).  On device the same record is
+    a row across the SlotTable arrays; this form is the DMA'd host view.
     """
 
     key: str = ""

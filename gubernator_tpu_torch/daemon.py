@@ -1,0 +1,872 @@
+"""Daemon assembly: gRPC + HTTP servers, discovery, metrics, lifecycle.
+
+The analog of the reference daemon (daemon.go:45-442): builds the metrics
+registry, the gRPC server hosting both V1 and PeersV1, the JSON/REST
+gateway with under_score marshaling (daemon.go:231-249), the `/metrics`
+endpoint, the discovery pool, and readiness gating — all on one asyncio
+loop, so many daemons can share a process (the in-process cluster fixture
+depends on this, cluster/cluster.go:111-146).
+
+The port's daemon serves what the JAX daemon serves with its planes off:
+discovery kinds other than none and static, the chaos plane, the gubstat
+census and key peek, and the cold tier raise a ValueError at construction
+(the service refuses the other planes and Store/Loader).
+"""
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import List, Optional, Sequence
+
+import grpc
+import grpc.aio
+from aiohttp import web
+from google.protobuf import json_format
+
+from gubernator_tpu_torch.core.config import Config, DaemonConfig
+from gubernator_tpu_torch.core.types import PeerInfo
+from gubernator_tpu_torch.net import grpc_api
+from gubernator_tpu_torch.net.netutil import resolve_host_ip
+from gubernator_tpu_torch.net.peer_client import PRESSURE_METADATA_KEY
+from gubernator_tpu_torch.net.tls import TLSBundle, setup_tls
+from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+from gubernator_tpu_torch.proto import peers_pb2
+from gubernator_tpu_torch.runtime import tracing
+from gubernator_tpu_torch.runtime.metrics import Metrics
+from gubernator_tpu_torch.runtime.service import ApiError, Service
+
+log = logging.getLogger("gubernator_tpu_torch.daemon")
+
+_GRPC_CODES = {
+    "OUT_OF_RANGE": grpc.StatusCode.OUT_OF_RANGE,
+    "INVALID_ARGUMENT": grpc.StatusCode.INVALID_ARGUMENT,
+    "INTERNAL": grpc.StatusCode.INTERNAL,
+    "FAILED_PRECONDITION": grpc.StatusCode.FAILED_PRECONDITION,
+}
+
+
+class _TracingInterceptor(grpc.aio.ServerInterceptor):
+    """Server-side w3c context extract: every unary RPC runs inside an
+    `rpc.server` span whose parent is the caller's `traceparent`
+    metadata (a forwarding daemon or a traced client), so one trace
+    spans a multi-daemon cluster.  Listed FIRST so the stats
+    interceptor's SLO observation (and its exemplar) runs with the
+    request's trace context still bound.  When tracing is disarmed the
+    handler is returned untouched — zero per-RPC overhead."""
+
+    async def intercept_service(self, continuation, handler_call_details):
+        handler = await continuation(handler_call_details)
+        if (
+            handler is None
+            or handler.unary_unary is None
+            or not tracing.enabled()
+        ):
+            return handler
+        method = handler_call_details.method
+        parent = None
+        for key, value in handler_call_details.invocation_metadata or ():
+            if key == "traceparent":
+                parent = tracing.parse_traceparent(value)
+                break
+        inner = handler.unary_unary
+
+        async def wrapped(request, context):
+            with tracing.span(
+                "rpc.server", parent=parent, **{"rpc.method": method}
+            ):
+                return await inner(request, context)
+
+        return grpc.unary_unary_rpc_method_handler(
+            wrapped,
+            request_deserializer=handler.request_deserializer,
+            response_serializer=handler.response_serializer,
+        )
+
+
+class _StatsInterceptor(grpc.aio.ServerInterceptor):
+    """Per-RPC count + duration + failed for EVERY server method — the
+    analog of the reference's grpc.StatsHandler, which tags each RPC and
+    records both services uniformly (grpc_stats.go:41-145), not just
+    V1/GetRateLimits."""
+
+    def __init__(self, metrics: Metrics) -> None:
+        self.metrics = metrics
+
+    async def _observed_call(self, inner, method, request, context):
+        m = self.metrics
+        start = time.monotonic()
+        failed = "false"
+        try:
+            out = await inner(request, context)
+            # Pressure advertisement (docs/hotkeys.md): while this
+            # daemon's rolling p99 breach run is unbroken, every answered
+            # RPC carries the ratio as trailing metadata so callers'
+            # PeerClients learn the owner is overloaded-but-alive —
+            # the signal that gates hot-key mirroring on their side.
+            fr = m.flightrec
+            if fr is not None and fr.pressure_active():
+                try:
+                    context.set_trailing_metadata((
+                        (PRESSURE_METADATA_KEY,
+                         "%.3f" % max(fr.pressure_ratio(), 1.0)),
+                    ))
+                except Exception:  # noqa: BLE001 — advisory only
+                    pass
+            return out
+        except BaseException:
+            failed = "true"
+            raise
+        finally:
+            dur = time.monotonic() - start
+            m.grpc_request_counts.labels(
+                method=method, failed=failed
+            ).inc()
+            # The SLO histogram records the serving request's trace id
+            # as an OpenMetrics exemplar when the request is sampled —
+            # a scrape's p99 bucket then names a trace to pull
+            # (rendered by the openmetrics exposition; docs/tracing.md).
+            ctx = tracing.current_context()
+            tid = ctx.trace_id_hex() if ctx and ctx.sampled else None
+            m.grpc_request_duration.labels(method=method).observe(
+                dur, {"trace_id": tid} if tid else None
+            )
+            fr = m.flightrec
+            if fr is not None:
+                # Every RPC feeds the rolling SLO window (the p99 the
+                # north star is stated against is request latency); the
+                # trace id makes a breach dump name its slow traces.
+                fr.observe_request(dur, trace_id=tid)
+
+    async def intercept_service(self, continuation, handler_call_details):
+        handler = await continuation(handler_call_details)
+        if handler is None or handler.unary_unary is None:
+            return handler
+        method = handler_call_details.method
+        inner = handler.unary_unary
+
+        async def wrapped(request, context):
+            return await self._observed_call(inner, method, request, context)
+
+        return grpc.unary_unary_rpc_method_handler(
+            wrapped,
+            request_deserializer=handler.request_deserializer,
+            response_serializer=handler.response_serializer,
+        )
+
+
+class _V1Servicer:
+    """Wire <-> Service adapter for the client-facing V1 service.
+
+    GetRateLimits is registered RAW (payload bytes in, bytes out): the
+    compiled fast lane (runtime/fastpath.py) serves eligible batches with
+    zero per-request Python; everything else deserializes here and takes
+    the object path."""
+
+    def __init__(self, daemon: "Daemon") -> None:
+        self.d = daemon
+
+    async def GetRateLimits(self, payload: bytes, context):
+        try:
+            fp = self.d.fastpath
+            if fp is not None:
+                out = await fp.check_raw(payload, peer_rpc=False)
+                if out is not None:
+                    return out
+            try:
+                request = pb.GetRateLimitsReq.FromString(payload)
+            except Exception as e:  # noqa: BLE001 — DecodeError etc.
+                await context.abort(
+                    grpc.StatusCode.INVALID_ARGUMENT,
+                    f"failed to parse GetRateLimitsReq: {e}",
+                )
+            reqs = grpc_api.reqs_from_pb(request.requests)
+            resps = await self.d.service.get_rate_limits(reqs)
+        except ApiError as e:
+            await context.abort(
+                _GRPC_CODES.get(e.code, grpc.StatusCode.INTERNAL), str(e)
+            )
+        return pb.GetRateLimitsResp(
+            responses=grpc_api.resps_to_pb(resps)
+        ).SerializeToString()
+
+    async def HealthCheck(self, request, context):
+        h = await self.d.service.health_check()
+        return grpc_api.health_to_pb(h)
+
+
+class _PeersServicer:
+    """Wire <-> Service adapter for the peer-to-peer PeersV1 service.
+    GetPeerRateLimits is raw like the client RPC — the owner side of
+    forwarded batches is the cluster hot path."""
+
+    def __init__(self, daemon: "Daemon") -> None:
+        self.d = daemon
+
+    async def GetPeerRateLimits(self, payload: bytes, context):
+        try:
+            fp = self.d.fastpath
+            if fp is not None:
+                out = await fp.check_raw(payload, peer_rpc=True)
+                if out is not None:
+                    return out
+            try:
+                request = peers_pb2.GetPeerRateLimitsReq.FromString(payload)
+            except Exception as e:  # noqa: BLE001
+                await context.abort(
+                    grpc.StatusCode.INVALID_ARGUMENT,
+                    f"failed to parse GetPeerRateLimitsReq: {e}",
+                )
+            reqs = grpc_api.reqs_from_pb(request.requests)
+            resps = await self.d.service.get_peer_rate_limits(reqs)
+        except ApiError as e:
+            await context.abort(
+                _GRPC_CODES.get(e.code, grpc.StatusCode.INTERNAL), str(e)
+            )
+        return peers_pb2.GetPeerRateLimitsResp(
+            rate_limits=grpc_api.resps_to_pb(resps)
+        ).SerializeToString()
+
+    async def UpdatePeerGlobals(self, request, context):
+        globals_ = [grpc_api.global_from_pb(g) for g in request.globals]
+        await self.d.service.update_peer_globals(globals_)
+        return peers_pb2.UpdatePeerGlobalsResp()
+
+    async def Lease(self, request, context):
+        """Client-side admission (docs/leases.md): grant bounded local
+        allowances for owned keys, proxy the rest to their owners."""
+        grants = await self.d.service.lease(
+            request.client_id, grpc_api.reqs_from_pb(request.requests)
+        )
+        return peers_pb2.LeaseResp(
+            grants=[grpc_api.lease_grant_to_pb(g) for g in grants]
+        )
+
+    async def Reconcile(self, request, context):
+        items = [
+            grpc_api.reconcile_item_from_pb(it) for it in request.items
+        ]
+        grants = await self.d.service.reconcile(request.client_id, items)
+        return peers_pb2.ReconcileResp(
+            grants=[grpc_api.lease_grant_to_pb(g) for g in grants]
+        )
+
+    async def Handoff(self, request, context):
+        """Live resharding control plane (docs/resharding.md): the old
+        owner announces a handoff phase; we ack and adjust how covered
+        keys are served."""
+        accepted, state = await self.d.service.handoff(
+            request.from_address, request.epoch, request.phase,
+            request.total_rows,
+        )
+        return peers_pb2.HandoffResp(accepted=accepted, state=state)
+
+    async def Migrate(self, request, context):
+        """One chunk of packed table rows for an active inbound
+        handoff; injected only where the key is absent here."""
+        try:
+            injected, skipped = await self.d.service.migrate(
+                request.from_address, request.epoch, request.rows,
+                request.final,
+            )
+        except ApiError as e:
+            await context.abort(
+                _GRPC_CODES.get(e.code, grpc.StatusCode.INTERNAL), str(e)
+            )
+        return peers_pb2.MigrateResp(injected=injected, skipped=skipped)
+
+
+def refuse_unported_daemon(conf: DaemonConfig) -> None:
+    """Raise for daemon-level features this port does not serve yet,
+    naming the ROADMAP item that brings each."""
+    kind = conf.peer_discovery_type
+    if kind not in ("none", "", "static"):
+        raise ValueError(
+            f"peer_discovery_type={kind!r}: only 'none' and 'static' "
+            "discovery are ported (ROADMAP, \"What the daemon still "
+            "lacks\": the other discovery kinds)"
+        )
+    if conf.chaos is not None or conf.chaos_plan:
+        raise ValueError(
+            "the chaos plane is not ported (ROADMAP, \"What the daemon "
+            "still lacks\": chaos)"
+        )
+    if conf.reshard_drain_on_close:
+        raise ValueError(
+            "reshard_drain_on_close: resharding is not ported yet (ROADMAP "
+            "queue 1 item 7, the state-plane kernels and their host planes)"
+        )
+
+
+class Daemon:
+    """One gubernator node on the port's engine."""
+
+    def __init__(
+        self,
+        conf: Optional[DaemonConfig] = None,
+        clock=None,
+    ) -> None:
+        self.conf = conf or DaemonConfig()
+        refuse_unported_daemon(self.conf)
+        self.clock = clock
+        self.metrics = Metrics()
+        # Flight recorder (runtime/flightrec.py): armed per config; the
+        # Metrics bundle carries it to the layers that feed it.
+        from gubernator_tpu_torch.runtime.flightrec import recorder_from_config
+
+        self.flightrec = recorder_from_config(self.conf, self.metrics)
+        self.metrics.flightrec = self.flightrec
+        # AutoTLS certs must carry the advertise host in their SANs or
+        # cross-host peer dials fail hostname verification.
+        adv_host = (
+            self.conf.advertise_address.rpartition(":")[0]
+            or resolve_host_ip(self.conf.grpc_listen_address).rpartition(
+                ":"
+            )[0]
+        )
+        self.tls: Optional[TLSBundle] = setup_tls(
+            self.conf.tls, hostnames=("localhost", adv_host)
+        )
+        if self.conf.metric_flags:
+            # Opt-in process/runtime collectors on the private registry
+            # (GUBER_METRIC_FLAGS, daemon.go:255-266).
+            from prometheus_client import (
+                GC_COLLECTOR,
+                PLATFORM_COLLECTOR,
+                PROCESS_COLLECTOR,
+            )
+
+            for c in (PROCESS_COLLECTOR, PLATFORM_COLLECTOR, GC_COLLECTOR):
+                try:
+                    self.metrics.registry.register(c)
+                except ValueError:
+                    pass  # another daemon in this process registered them
+        self.service: Optional[Service] = None
+        self.fastpath = None
+        self._grpc_server: Optional[grpc.aio.Server] = None
+        self._grpc_tls_proxy = None  # net.tls.TLSTerminatingProxy
+        self._grpc_backend_dir: Optional[str] = None
+        self._http_runner: Optional[web.AppRunner] = None
+        self._pool = None
+        self._peers: List[PeerInfo] = []
+        # Discovery-update applier state: ONE task applies membership
+        # updates in order (latest wins), so rapid watch events can
+        # never interleave their set_peers rebuilds; direct callers
+        # (the cluster fixture) serialize through the same lock.
+        self._set_peers_lock = asyncio.Lock()
+        self._pending_peers: Optional[List[PeerInfo]] = None
+        self._peers_event: Optional[asyncio.Event] = None
+        self._peer_update_task: Optional[asyncio.Task] = None
+        # Monotone count of APPLIED membership updates (observability +
+        # the watch-storm coalescing test).
+        self.peer_updates_applied = 0
+        self.grpc_address = self.conf.grpc_listen_address
+        self.http_address = self.conf.http_listen_address
+
+    # -- lifecycle -------------------------------------------------------
+    async def start(self) -> None:
+        cfg = Config(
+            behaviors=self.conf.behaviors,
+            device=self.conf.device,
+            cache_size=self.conf.cache_size,
+            data_center=self.conf.data_center,
+            local_picker_hash=getattr(
+                self.conf, "local_picker_hash", "xx"
+            ),
+            region_picker_hash=getattr(
+                self.conf, "region_picker_hash", "xx"
+            ),
+            loader=getattr(self.conf, "loader", None),
+            store=getattr(self.conf, "store", None),
+            sketch=getattr(self.conf, "sketch", None),
+            circuit=getattr(self.conf, "circuit", None) or Config().circuit,
+            degraded_mode=getattr(self.conf, "degraded_mode", "error"),
+            shadow_fraction=getattr(self.conf, "shadow_fraction", 0.5),
+            hotkey=getattr(self.conf, "hotkey", None) or Config().hotkey,
+            lease=getattr(self.conf, "lease", None) or Config().lease,
+            stats=getattr(self.conf, "stats", None) or Config().stats,
+            reshard=getattr(self.conf, "reshard", None) or Config().reshard,
+            tier=getattr(self.conf, "tier", None) or Config().tier,
+            region=getattr(self.conf, "region", None) or Config().region,
+        )
+        peer_creds = (
+            self.tls.client_credentials() if self.tls is not None else None
+        )
+        if self.flightrec is not None:
+            self.flightrec.start()
+        self.service = Service(
+            cfg,
+            clock=self.clock,
+            peer_credentials=peer_creds,
+            metrics=self.metrics,
+        )
+        await self.service.start()
+        from gubernator_tpu_torch.runtime.fastpath import FastPath
+
+        self.fastpath = FastPath(
+            self.service,
+            max_inflight=getattr(self.conf, "fastpath_inflight", 1),
+            sparse_limit=getattr(self.conf, "fastpath_sparse", 64),
+            pipeline_depth=getattr(self.conf, "pipeline_depth", 2),
+            serve_mode=getattr(self.conf, "serve_mode", "pipelined"),
+            ring_slots=getattr(self.conf, "ring_slots", 8),
+            ring_rounds=getattr(self.conf, "ring_rounds", 4),
+            ring_max_linger_us=getattr(
+                self.conf, "ring_max_linger_us", 200.0
+            ),
+        )
+        if self.fastpath._ring is not None:
+            # Launch every ring block shape up front, so the serve
+            # kernel's scratch is sized before any serving iteration.
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.fastpath._ring.warmup
+            )
+        # gRPC server (daemon.go:101-126): both services on one listener.
+        # 4MB recv cap: grpc-go's default, which reference peers assume.
+        # Count-capped peer batches (batch_limit=1000) with long key strings
+        # can pass 1MB, and a rejected batch fails every flush window.
+        interceptors = [
+            _TracingInterceptor(),
+            _StatsInterceptor(self.metrics),
+        ]
+        server = grpc.aio.server(
+            options=[
+                ("grpc.max_receive_message_length", 4 * 1024 * 1024),
+            ],
+            interceptors=interceptors,
+        )
+        server.add_generic_rpc_handlers((
+            grpc_api.v1_generic_handler(_V1Servicer(self), raw=True),
+            grpc_api.peers_generic_handler(_PeersServicer(self), raw=True),
+        ))
+        from gubernator_tpu_torch.net.tls import OPTIONAL_MODES
+
+        proxy_auth = (
+            self.tls is not None
+            and self.tls.client_auth in OPTIONAL_MODES
+        )
+        if proxy_auth:
+            # Optional client-auth (request / verify-if-given): grpc's
+            # credentials can't request-without-require a client cert,
+            # so terminate TLS in-process (ssl.CERT_OPTIONAL, ALPN h2)
+            # and pipe plaintext HTTP/2 to an insecure gRPC listener on
+            # a unix socket in a 0700 tempdir — NOT a loopback TCP port,
+            # which would let any local process bypass TLS/client-auth.
+            import tempfile
+
+            self._grpc_backend_dir = tempfile.mkdtemp(prefix="gubtpu-grpc-")
+            bound = "unix:%s/backend.sock" % self._grpc_backend_dir
+            port = server.add_insecure_port(bound)
+        elif self.tls is not None:
+            bound = self.conf.grpc_listen_address
+            port = server.add_secure_port(
+                bound, self.tls.server_credentials(),
+            )
+        else:
+            bound = self.conf.grpc_listen_address
+            port = server.add_insecure_port(bound)
+        if port == 0:
+            raise RuntimeError(f"failed to bind {bound}")
+        host = self.conf.grpc_listen_address.rpartition(":")[0]
+        await server.start()
+        self._grpc_server = server
+        if proxy_auth:
+            from gubernator_tpu_torch.net.tls import TLSTerminatingProxy
+
+            self._grpc_tls_proxy = TLSTerminatingProxy(
+                self.tls.grpc_proxy_ssl_context(),
+                "%s/backend.sock" % self._grpc_backend_dir,
+            )
+            try:
+                port = await self._grpc_tls_proxy.start(
+                    self.conf.grpc_listen_address
+                )
+            except BaseException:
+                # The real listener never came up (port already bound,
+                # bad address): the daemon is NOT serving, so don't
+                # leave the insecure unix-socket backend and its 0700
+                # tempdir behind for a caller that may never close().
+                import shutil
+
+                self._grpc_tls_proxy = None
+                await server.stop(grace=None)
+                self._grpc_server = None
+                shutil.rmtree(self._grpc_backend_dir, ignore_errors=True)
+                self._grpc_backend_dir = None
+                raise
+        # Rewrite :0 ephemeral binds to the actual port for advertisement.
+        self.grpc_address = f"{host}:{port}"
+
+        await self._start_http()
+        await self._start_discovery()
+        log.info(
+            "gubernator daemon (torch port, %s) up: grpc=%s http=%s",
+            self.service.backend.device,
+            self.grpc_address, self.http_address,
+        )
+
+    async def close(self) -> None:
+        # Order: stop taking traffic (discovery, then listeners with a
+        # drain grace) BEFORE tearing down the service — late requests must
+        # drain, not crash into a closed device executor.
+        if self._peer_update_task is not None:
+            self._peer_update_task.cancel()
+            await asyncio.gather(
+                self._peer_update_task, return_exceptions=True
+            )
+            self._peer_update_task = None
+        if self._pool is not None:
+            await self._pool.close()
+            self._pool = None
+        if self._grpc_tls_proxy is not None:
+            # Refuse NEW connections on the real socket before the gRPC
+            # drain (a mid-shutdown dial must see connection-refused, not
+            # a handshake onto a dying backend); live pipes keep flowing
+            # through the grace below, then get cut.
+            await self._grpc_tls_proxy.stop_accepting()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop(grace=1.0)
+            self._grpc_server = None
+        if self._grpc_tls_proxy is not None:
+            await self._grpc_tls_proxy.close()
+            self._grpc_tls_proxy = None
+        if self._grpc_backend_dir is not None:
+            import shutil
+
+            shutil.rmtree(self._grpc_backend_dir, ignore_errors=True)
+            self._grpc_backend_dir = None
+        if self._http_runner is not None:
+            await self._http_runner.cleanup()
+            self._http_runner = None
+        if self.fastpath is not None:
+            await self.fastpath.close()
+            self.fastpath = None
+        if self.service is not None:
+            await self.service.close()
+        if self.flightrec is not None:
+            await self.flightrec.close()
+
+    # -- HTTP gateway (daemon.go:231-270) --------------------------------
+    async def _start_http(self) -> None:
+        app = web.Application()
+        app.router.add_post("/v1/GetRateLimits", self._http_get_rate_limits)
+        app.router.add_get("/v1/HealthCheck", self._http_health)
+        app.router.add_get("/metrics", self._http_metrics)
+        app.router.add_get("/debug/flightrec", self._http_flightrec)
+        app.router.add_get("/debug/vars", self._http_vars)
+        runner = web.AppRunner(app, access_log=None)
+        await runner.setup()
+        host, _, port = self.conf.http_listen_address.rpartition(":")
+        ssl_ctx = (
+            self.tls.server_ssl_context() if self.tls is not None else None
+        )
+        site = web.TCPSite(runner, host or "0.0.0.0", int(port),
+                           ssl_context=ssl_ctx)
+        await site.start()
+        actual_port = site._server.sockets[0].getsockname()[1]
+        self.http_address = f"{host}:{actual_port}"
+        self._http_runner = runner
+
+    async def _http_get_rate_limits(self, request: web.Request):
+        """REST gateway contract: JSON with under_score field names
+        (daemon.go:241-243 marshaler options)."""
+        try:
+            body = await request.text()
+            msg = json_format.Parse(body, pb.GetRateLimitsReq())
+        except json_format.ParseError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        try:
+            out = None
+            if self.fastpath is not None:
+                # Ride the compiled lane: same serialized device pipeline
+                # as gRPC traffic, so REST and gRPC checks of one key
+                # never interleave mid-cascade.
+                raw = await self.fastpath.check_raw(
+                    msg.SerializeToString(), peer_rpc=False
+                )
+                if raw is not None:
+                    out = pb.GetRateLimitsResp.FromString(raw)
+            if out is None:
+                resps = await self.service.get_rate_limits(
+                    grpc_api.reqs_from_pb(msg.requests)
+                )
+                out = pb.GetRateLimitsResp(
+                    responses=grpc_api.resps_to_pb(resps)
+                )
+        except ApiError as e:
+            return web.json_response(
+                {"error": str(e), "code": e.code}, status=400
+            )
+        return web.Response(
+            text=json_format.MessageToJson(
+                out,
+                preserving_proto_field_name=True,
+                always_print_fields_with_no_presence=True,
+            ),
+            content_type="application/json",
+        )
+
+    async def _http_health(self, request: web.Request):
+        h = await self.service.health_check()
+        return web.Response(
+            text=json_format.MessageToJson(
+                grpc_api.health_to_pb(h),
+                preserving_proto_field_name=True,
+                always_print_fields_with_no_presence=True,
+            ),
+            content_type="application/json",
+        )
+
+    async def _http_metrics(self, request: web.Request):
+        # Refresh device gauges at scrape time.
+        if self.service is not None:
+            self.metrics.device_occupancy.set(
+                self.service.backend.occupancy()
+            )
+            self.metrics.cache_size.set(self.service.backend.occupancy())
+            # Per-peer rolling error windows (the HealthCheck signal,
+            # peer_client.last_errors) as scrape-time gauges.
+            for peer in (
+                self.service.peer_list()
+                + self.service.region_picker.peers()
+            ):
+                self.metrics.peer_error_window.labels(
+                    peerAddr=peer.info().grpc_address
+                ).set(len(peer.last_errors()))
+                if peer.breaker is not None:
+                    self.metrics.circuit_state.labels(
+                        peerAddr=peer.info().grpc_address
+                    ).set(int(peer.breaker.state))
+        # Tracing span counters (runtime/tracing.py is process-global;
+        # refreshed at scrape like the device gauges above).
+        tv = tracing.debug_vars()
+        for state, val in (tv.get("spans") or {}).items():
+            if state != "recent":
+                self.metrics.tracing_spans.labels(state=state).set(val)
+        accept = request.headers.get("Accept", "")
+        if "application/openmetrics-text" in accept:
+            # OpenMetrics exposition carries the trace-id exemplars the
+            # classic text format cannot represent (docs/tracing.md).
+            return web.Response(
+                body=self.metrics.render_openmetrics(),
+                headers={
+                    "Content-Type": (
+                        "application/openmetrics-text; version=1.0.0; "
+                        "charset=utf-8"
+                    )
+                },
+            )
+        return web.Response(
+            body=self.metrics.render(),
+            content_type="text/plain",
+            charset="utf-8",
+        )
+
+    # -- debug plane (runtime/flightrec.py) ------------------------------
+    async def _http_flightrec(self, request: web.Request):
+        """Live flight-recorder snapshot; `?limit=N` caps the ring tail."""
+        if self.flightrec is None:
+            return web.json_response(
+                {"enabled": False,
+                 "hint": "set GUBER_FLIGHTREC=1 to arm the recorder"},
+                status=404,
+            )
+        try:
+            limit = int(request.query.get("limit", "0")) or None
+        except ValueError:
+            return web.json_response({"error": "bad limit"}, status=400)
+        snap = self.flightrec.snapshot(limit=limit)
+        snap["enabled"] = True
+        return web.json_response(snap)
+
+    async def _http_vars(self, request: web.Request):
+        """expvar-style internal counters (the Go daemon exposes
+        /debug/vars via expvar; these are the engine's equivalents)."""
+        out = {
+            "grpc_address": self.grpc_address,
+            "http_address": self.http_address,
+        }
+        s = self.service
+        if s is not None:
+            be = s.backend
+            out["backend"] = {
+                "checks": be.checks,
+                "over_limit": be.over_limit,
+                "not_persisted": be.not_persisted,
+                "occupancy": be.occupancy(),
+            }
+            out["backend"]["device"] = str(be.device)
+            out["inflight_checks"] = s._inflight_checks
+            out["global"] = {
+                "async_sends": s.global_mgr.async_sends,
+                "broadcasts": s.global_mgr.broadcasts,
+                "reread_batches": s.global_mgr.reread_batches,
+                "reread_keys": s.global_mgr.reread_keys,
+            }
+            out["multi_region_sends"] = s.multi_region_mgr.region_sends
+            out["peers"] = {
+                p.info().grpc_address: len(p.last_errors())
+                for p in s.peer_list() + s.region_picker.peers()
+            }
+            out["circuits"] = {
+                p.info().grpc_address: p.circuit_snapshot()
+                for p in s.peer_list() + s.region_picker.peers()
+            }
+            out["degraded"] = {
+                "mode": s.cfg.degraded_mode,
+                "served": s.degraded_served,
+                "shadow_owners": {
+                    addr: len(keys) for addr, keys in s._shadow.items()
+                },
+            }
+        fp = self.fastpath
+        if fp is not None:
+            # Per-lane drain/pipeline counters (drains, overlap_drains,
+            # waited_drains, bubble_ms_total, occupancy) — the knobs an
+            # operator reads when tuning GUBER_PIPELINE_DEPTH.
+            out["fastpath"] = fp.debug_vars()
+        # Attribution plane (runtime/tracing.py): enabled, sampler,
+        # honest exporter status, spans started/exported/dropped.
+        out["tracing"] = tracing.debug_vars()
+        fr = self.flightrec
+        if fr is not None:
+            out["flightrec"] = {
+                "breaches": fr.breaches,
+                "dumps": fr.dumps,
+                "last_p50_ms": round(fr.last_p50_ms, 3),
+                "last_p99_ms": round(fr.last_p99_ms, 3),
+                "loop_lag_ms_max": round(fr.max_lag_ms, 2),
+                "last_dump_path": fr.last_dump_path,
+            }
+        return web.json_response(out)
+
+    # -- peers / discovery ----------------------------------------------
+    def advertise_address(self) -> str:
+        return self.conf.advertise_address or resolve_host_ip(
+            self.grpc_address
+        )
+
+    async def set_peers(self, peers: Sequence[PeerInfo]) -> None:
+        """Mark ourselves in the peer list and hand it to the service
+        (daemon.go:375-385 sets IsOwner on the local instance).
+        Serialized: concurrent callers (the discovery applier, the
+        cluster fixture) apply one at a time, in call order."""
+        me = self.advertise_address()
+        peers = list(peers)
+        marked = [
+            PeerInfo(
+                grpc_address=p.grpc_address,
+                http_address=p.http_address,
+                data_center=p.data_center,
+                is_owner=(p.grpc_address == me),
+            )
+            for p in peers
+        ]
+        async with self._set_peers_lock:
+            self._peers = marked
+            await self.service.set_peers(marked)
+            self.peer_updates_applied += 1
+
+    def peers(self) -> List[PeerInfo]:
+        return list(self._peers)
+
+    async def _apply_peer_updates(self) -> None:
+        """The discovery-update applier: ONE long-lived task drains
+        membership events latest-wins, so an etcd/k8s watch storm of N
+        events within the GUBER_PEER_DEBOUNCE_MS window triggers ONE
+        remap, not N interleaved rebuilds (and out-of-order application
+        is structurally impossible — there is exactly one applier)."""
+        assert self._peers_event is not None
+        debounce_s = max(self.conf.peer_debounce_ms, 0) / 1000.0
+        while True:
+            await self._peers_event.wait()
+            if debounce_s:
+                # Coalescing window: later events within it simply
+                # overwrite _pending_peers (latest wins).
+                await asyncio.sleep(debounce_s)
+            self._peers_event.clear()
+            peers, self._pending_peers = self._pending_peers, None
+            if peers is None:
+                continue
+            try:
+                await self.set_peers(peers)
+            except Exception as e:  # noqa: BLE001 — keep the applier
+                log.warning("peer update failed: %s", e)
+
+    async def _start_discovery(self) -> None:
+        kind = self.conf.peer_discovery_type
+        if kind in ("none", ""):
+            return
+        loop = asyncio.get_running_loop()
+        self._peers_event = asyncio.Event()
+        # Keep a reference to the applier: a fire-and-forget task can
+        # be garbage-collected mid-flight, and close() must be able to
+        # cancel it.
+        self._peer_update_task = asyncio.ensure_future(
+            self._apply_peer_updates()
+        )
+
+        def on_update(peers: Sequence[PeerInfo]) -> None:
+            # Pools usually run on this loop, but some sources (etcd watch
+            # callbacks) fire from background threads — route accordingly.
+            def submit() -> None:
+                self._pending_peers = list(peers)
+                self._peers_event.set()
+
+            try:
+                running = asyncio.get_running_loop()
+            except RuntimeError:
+                running = None
+            if running is loop:
+                submit()
+            else:
+                loop.call_soon_threadsafe(submit)
+
+        if kind == "static":
+            from gubernator_tpu_torch.discovery.static import StaticPool
+
+            peers = [
+                PeerInfo(grpc_address=a) for a in self.conf.static_peers
+            ]
+            me = self.advertise_address()
+            if all(p.grpc_address != me for p in peers):
+                peers.append(PeerInfo(grpc_address=me))
+            self._pool = StaticPool(peers, on_update)
+        else:
+            raise ValueError(f"unknown peer_discovery_type '{kind}'")
+        await self._pool.start()
+
+
+async def spawn_daemon(conf: DaemonConfig, clock=None) -> Daemon:
+    """Create + start a daemon (SpawnDaemon, daemon.go:66-79)."""
+    d = Daemon(conf, clock=clock)
+    await d.start()
+    return d
+
+
+async def wait_for_connect(
+    addresses: Sequence[str],
+    timeout_s: float = 10.0,
+    credentials=None,
+) -> None:
+    """Block until every address accepts a gRPC connection
+    (daemon.go:403-442)."""
+    deadline = time.monotonic() + timeout_s
+    for addr in addresses:
+        while True:
+            if credentials is not None:
+                ch = grpc.aio.secure_channel(addr, credentials)
+            else:
+                ch = grpc.aio.insecure_channel(addr)
+            try:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"timed out connecting to {addr}")
+                await asyncio.wait_for(
+                    ch.channel_ready(), timeout=remaining
+                )
+                break
+            except asyncio.TimeoutError:
+                raise TimeoutError(f"timed out connecting to {addr}")
+            finally:
+                await ch.close()

@@ -1,0 +1,466 @@
+"""ctypes bindings for the C++ host runtime (native/gubtpu.cpp).
+
+The C++ source lives at the repository root (`native/gubtpu.cpp`).  At first
+use it is compiled with g++ into `gubernator_tpu_torch/_build/` (listed in
+.gitignore), under a name keyed by a hash of the source and the flags, and
+loaded with ctypes; nothing is compiled when the module is imported.  The
+compiled fast lane (runtime/fastpath.py) needs the library; without a
+toolchain `available()` is False and the daemon serves every request on
+the object path, which counts each such batch in `FastPath.fallbacks`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+log = logging.getLogger("gubernator_tpu_torch.native")
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "gubtpu.cpp")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+_load_lock = threading.Lock()
+
+
+def library_path() -> Optional[str]:
+    """Where the library for the current source and flags lives (None
+    when the source is missing)."""
+    if not os.path.exists(_SRC):
+        return None
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(_CXXFLAGS).encode()
+        ).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libgubtpu-{digest}.so")
+
+
+def _build(out: str) -> bool:
+    """Compile to a temp path and rename, so a concurrent builder never
+    loads a half-written library."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        log.info("no C++ compiler; the compiled fast lane is unavailable")
+        return False
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    try:
+        subprocess.run(
+            [cxx, *_CXXFLAGS, "-o", tmp, _SRC],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, out)
+        return True
+    except (subprocess.SubprocessError, OSError) as e:
+        log.warning("native build failed (%s); the compiled fast lane is "
+                    "unavailable", e)
+        return False
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    with _load_lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        path = library_path()
+        if path is None:
+            log.info("native source %s missing", _SRC)
+            return None
+        if not os.path.exists(path) and not _build(path):
+            return None
+        try:
+            _lib = _bind(ctypes.CDLL(path))
+        except (OSError, AttributeError) as e:
+            # Built elsewhere (another toolchain or libc): rebuild once.
+            log.info("failed to load %s (%s); rebuilding", path, e)
+            if _build(path):
+                try:
+                    _lib = _bind(ctypes.CDLL(path))
+                except (OSError, AttributeError) as e2:
+                    log.warning("failed to load %s: %s", path, e2)
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.gub_xxh64_batch.argtypes = [
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.gub_xxh64_batch.restype = None
+    lib.gub_fnv_hashkey_batch.argtypes = [
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+        ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.gub_fnv_hashkey_batch.restype = None
+    lib.gub_assign_rounds.argtypes = [
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_void_p,  # shards (int32*) or None
+        ctypes.c_int64,
+        ctypes.c_int32,
+        ctypes.c_int32,
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+    ]
+    lib.gub_assign_rounds.restype = ctypes.c_int64
+    lib.gub_count_reqs.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.gub_count_reqs.restype = ctypes.c_int64
+    lib.gub_parse_reqs2.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.gub_parse_reqs2.restype = ctypes.c_int64
+    lib.gub_parse_resps2.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+    ]
+    lib.gub_parse_resps2.restype = ctypes.c_int64
+    lib.gub_serialize_resps2.argtypes = [
+        ctypes.c_int64,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_char_p,   # meta_blob (may be None)
+        ctypes.c_void_p,   # meta_off (int64* or None)
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+    ]
+    lib.gub_serialize_resps2.restype = ctypes.c_int64
+    lib.gub_serialize_reqs.argtypes = [
+        ctypes.c_int64,
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+    ]
+    lib.gub_serialize_reqs.restype = ctypes.c_int64
+    return lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def hash_keys(keys) -> np.ndarray:
+    """XXH64 fingerprints (int64, 0 remapped to 1) of a list of strings."""
+    lib = _load()
+    n = len(keys)
+    if lib is None:
+        from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+        return bulk_key_hash64(keys)
+    encoded = [k.encode() for k in keys]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    blob = b"".join(encoded)
+    out = np.empty(n, dtype=np.int64)
+    lib.gub_xxh64_batch(blob, offsets, n, out)
+    return out
+
+
+def fnv_hashkey_batch(
+    payload: bytes, cols, variant: str
+) -> Optional[np.ndarray]:
+    """FNV-1/FNV-1a ring hashes of each parsed request's hash key
+    (name + "_" + unique_key), int64 two's-complement view; 0 on errored
+    lanes.  `cols` is a ParsedReqs (its msg_off/msg_len frame table is
+    re-walked).  Keeps the columnar router serving under the reference's
+    fnv placement rings (replicated_hash.go:33) in mixed clusters.
+    Returns None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty(cols.n, dtype=np.int64)
+    lib.gub_fnv_hashkey_batch(
+        payload, cols.msg_off, cols.msg_len, cols.n,
+        0 if variant == "fnv1" else 1, out,
+    )
+    return out
+
+
+def assign_rounds(
+    hashes: np.ndarray,
+    shards: Optional[np.ndarray],
+    n_shards: int,
+    batch_size: int,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(round, lane) per request + round count; hashes==0 lanes skipped.
+
+    Native only — callers fall back to the ops/batch.py python loop when
+    `available()` is False.
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    n = len(hashes)
+    out_round = np.empty(n, dtype=np.int32)
+    out_lane = np.empty(n, dtype=np.int32)
+    shard_ptr = (
+        shards.ctypes.data_as(ctypes.c_void_p)
+        if shards is not None
+        else None
+    )
+    n_rounds = lib.gub_assign_rounds(
+        np.ascontiguousarray(hashes, dtype=np.int64),
+        shard_ptr,
+        n,
+        n_shards,
+        batch_size,
+        out_round,
+        out_lane,
+    )
+    return out_round, out_lane, int(n_rounds)
+
+
+class ParsedReqs:
+    """Columnar view of a GetRateLimitsReq payload (gub_parse_reqs2)."""
+
+    __slots__ = (
+        "n", "hash", "err", "hits", "limit", "duration", "algo",
+        "behavior", "burst", "msg_off", "msg_len", "name_hash",
+    )
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+        self.hash = np.empty(n, dtype=np.int64)
+        self.err = np.empty(n, dtype=np.int32)
+        self.hits = np.empty(n, dtype=np.int64)
+        self.limit = np.empty(n, dtype=np.int64)
+        self.duration = np.empty(n, dtype=np.int64)
+        self.algo = np.empty(n, dtype=np.int32)
+        self.behavior = np.empty(n, dtype=np.int64)
+        self.burst = np.empty(n, dtype=np.int64)
+        # Each request's raw wire frame within the payload (tag + length
+        # varint + body) — splice these to forward without re-encoding.
+        self.msg_off = np.empty(n, dtype=np.int64)
+        self.msg_len = np.empty(n, dtype=np.int64)
+        # XXH64 of the name field alone (0 when empty) — the route key
+        # for name-scoped tiers (sketch).
+        self.name_hash = np.empty(n, dtype=np.int64)
+
+    def subset(self, idx: np.ndarray) -> "ParsedReqs":
+        """Row-subset view (fancy-indexed copies) for split routing."""
+        out = ParsedReqs.__new__(ParsedReqs)
+        out.n = len(idx)
+        for f in ("hash", "err", "hits", "limit", "duration", "algo",
+                  "behavior", "burst", "msg_off", "msg_len", "name_hash"):
+            setattr(out, f, getattr(self, f)[idx])
+        return out
+
+
+def parse_reqs(payload: bytes) -> Optional[ParsedReqs]:
+    """Parse raw GetRateLimitsReq / GetPeerRateLimitsReq bytes into columns.
+    Returns None when the native library is unavailable or the payload is
+    malformed (callers fall back to python-protobuf for the real error)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = lib.gub_count_reqs(payload, len(payload))
+    if n < 0:
+        return None
+    cols = ParsedReqs(int(n))
+    got = lib.gub_parse_reqs2(
+        payload, len(payload), n, cols.hash, cols.err, cols.hits,
+        cols.limit, cols.duration, cols.algo, cols.behavior, cols.burst,
+        cols.msg_off, cols.msg_len, cols.name_hash,
+    )
+    if got != n:
+        return None
+    return cols
+
+
+class ParsedResps:
+    """Columnar view of a GetPeerRateLimitsResp payload (gub_parse_resps2).
+    err_off/err_len index into the payload bytes (lazy error slicing);
+    meta_off/meta_len cover each item's metadata map entries as raw wire
+    frames (meta_len -1 = fragmented, drop)."""
+
+    __slots__ = (
+        "n", "status", "limit", "remaining", "reset_time",
+        "err_off", "err_len", "meta_off", "meta_len",
+    )
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+        self.status = np.empty(n, dtype=np.int64)
+        self.limit = np.empty(n, dtype=np.int64)
+        self.remaining = np.empty(n, dtype=np.int64)
+        self.reset_time = np.empty(n, dtype=np.int64)
+        self.err_off = np.empty(n, dtype=np.int64)
+        self.err_len = np.empty(n, dtype=np.int64)
+        self.meta_off = np.empty(n, dtype=np.int64)
+        self.meta_len = np.empty(n, dtype=np.int64)
+
+
+def parse_resps(payload: bytes) -> Optional[ParsedResps]:
+    """Parse raw GetRateLimitsResp / GetPeerRateLimitsResp bytes into
+    columns; None when unavailable/malformed."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = lib.gub_count_reqs(payload, len(payload))  # same field-1 framing
+    if n < 0:
+        return None
+    cols = ParsedResps(int(n))
+    got = lib.gub_parse_resps2(
+        payload, len(payload), n, cols.status, cols.limit, cols.remaining,
+        cols.reset_time, cols.err_off, cols.err_len, cols.meta_off,
+        cols.meta_len,
+    )
+    if got != n:
+        return None
+    return cols
+
+
+def encode_reqs(reqs) -> Optional[bytes]:
+    """Emit GetRateLimitsReq / GetPeerRateLimitsReq wire bytes for a
+    sequence of RateLimitReq dataclasses without constructing python
+    protobuf objects — the compiled CLIENT codec (client.FastV1Client;
+    gub_serialize_reqs).  Returns None when the native library is
+    unavailable (callers fall back to python-protobuf)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(reqs)
+    names = [r.name.encode() for r in reqs]
+    keys = [r.unique_key.encode() for r in reqs]
+    name_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in names], out=name_off[1:])
+    key_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in keys], out=key_off[1:])
+
+    def col(attr):
+        return np.fromiter(
+            (int(getattr(r, attr)) for r in reqs),
+            dtype=np.int64, count=n,
+        )
+
+    # Worst case per item: 6 numeric fields at 11 B (negative int64
+    # varints are 10 B + tag), two string frames at 6 B of framing, and
+    # the item frame header — 96 B covers it with slack.
+    cap = int(name_off[-1] + key_off[-1]) + n * 96 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    written = lib.gub_serialize_reqs(
+        n, b"".join(names), name_off, b"".join(keys), key_off,
+        col("hits"), col("limit"), col("duration"), col("algorithm"),
+        col("behavior"), col("burst"), out, cap,
+    )
+    if written < 0:
+        raise RuntimeError("serialize_reqs buffer overflow")
+    return out[:written].tobytes()
+
+
+def _encode_varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def meta_frame(key: bytes, value: bytes) -> bytes:
+    """A complete metadata map-entry wire frame (RateLimitResp field 6:
+    map<string,string>) for serialize_resps' meta_blob."""
+    body = (
+        b"\x0a" + _encode_varint(len(key)) + key
+        + b"\x12" + _encode_varint(len(value)) + value
+    )
+    return b"\x32" + _encode_varint(len(body)) + body
+
+
+def serialize_resps(
+    status: np.ndarray,
+    limit: np.ndarray,
+    remaining: np.ndarray,
+    reset_time: np.ndarray,
+    err_blob: bytes,
+    err_off: np.ndarray,
+    meta_blob: Optional[bytes] = None,
+    meta_off: Optional[np.ndarray] = None,
+) -> bytes:
+    """Emit GetRateLimitsResp / GetPeerRateLimitsResp wire bytes from packed
+    response columns; meta_blob/meta_off add per-request pre-encoded
+    metadata map-entry frames (see meta_frame; forwarded-owner and
+    sketch-tier annotations).  Native only (callers gate on available())."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    n = len(status)
+    # Worst case per item: 4 varint fields (<=11 B each) + submsg framing
+    # (<=6 B) + error bytes (+3 B framing); metadata frames are verbatim.
+    cap = (
+        n * 64 + len(err_blob)
+        + (len(meta_blob) if meta_blob else 0) + 16
+    )
+    out = np.empty(cap, dtype=np.uint8)
+    if meta_off is not None:
+        meta_off = np.ascontiguousarray(meta_off, dtype=np.int64)
+        meta_off_ptr = meta_off.ctypes.data_as(ctypes.c_void_p)
+    else:
+        meta_off_ptr = None
+    written = lib.gub_serialize_resps2(
+        n,
+        np.ascontiguousarray(status, dtype=np.int64),
+        np.ascontiguousarray(limit, dtype=np.int64),
+        np.ascontiguousarray(remaining, dtype=np.int64),
+        np.ascontiguousarray(reset_time, dtype=np.int64),
+        err_blob,
+        np.ascontiguousarray(err_off, dtype=np.int64),
+        meta_blob,
+        meta_off_ptr,
+        out,
+        cap,
+    )
+    if written < 0:
+        raise RuntimeError("serialize_resps buffer overflow")
+    return out[:written].tobytes()

@@ -1,0 +1,932 @@
+"""Peer client: one gRPC channel per peer with an async request batcher.
+
+Forwarded checks amortize RPC cost the same way the reference does
+(peer_client.go:39-573): requests enqueue onto a bounded queue; a background
+task flushes when `batch_limit` (default 1000) items are pending or
+`batch_wait` (default 500µs) elapses after the first enqueue, issuing ONE
+GetPeerRateLimits RPC whose responses are demultiplexed back to the waiting
+callers in order (peers.proto order-preservation contract).  NO_BATCHING
+requests bypass the queue with a direct single-item RPC.
+
+Differences from the reference are deliberate asyncio re-expressions:
+goroutine+channel batcher -> asyncio task + futures; WaitGroup drain on
+shutdown -> in-flight counter + event.  The rolling per-peer error window
+feeding HealthCheck (peer_client.go:271-300) is a deque pruned by timestamp.
+"""
+from __future__ import annotations
+
+import asyncio
+import collections
+import time
+from typing import Deque, List, Optional, Tuple
+
+import grpc
+import grpc.aio
+
+from gubernator_tpu_torch.core.config import BehaviorConfig, CircuitConfig
+from gubernator_tpu_torch.core.types import (
+    Behavior,
+    LeaseGrant,
+    PeerInfo,
+    RateLimitReq,
+    RateLimitResp,
+    ReconcileItem,
+    UpdatePeerGlobal,
+    has_behavior,
+)
+from gubernator_tpu_torch.net import grpc_api
+from gubernator_tpu_torch.net.breaker import CircuitBreaker, CircuitState
+from gubernator_tpu_torch.proto import peers_pb2
+from gubernator_tpu_torch.runtime import tracing
+
+ERROR_WINDOW_S = 300.0  # keep peer errors 5 min (peer_client.go:282)
+
+# Trailing-metadata key a pressured daemon stamps on its RPC responses
+# (daemon.py stats interceptor): the owner's rolling p99 over its SLO
+# target while its breach run is unbroken.  The cross-peer half of the
+# hot-key survival plane (docs/hotkeys.md): an overloaded-but-ALIVE
+# owner — answering RPCs, clean error window, breaker closed — is
+# otherwise indistinguishable from a healthy one.
+PRESSURE_METADATA_KEY = "x-guber-pressure"
+
+
+class PeerNotReadyError(RuntimeError):
+    """Routing-layer retry signal: peer is shutting down or unreachable
+    (the reference's PeerErr/IsNotReady, peer_client.go:549-573)."""
+
+
+# Connect-phase failure markers, matched against BOTH details() and
+# debug_error_string() (wording moves between the two across grpc-core
+# versions; checking both plus a marker set keeps classification stable).
+_UNSENT_MARKERS = (
+    "failed to connect",
+    "connection refused",
+    "connect failed",
+    "no connection established",
+    "name resolution",
+    "dns resolution failed",
+    "endpoints failed",
+)
+
+
+def provably_unsent(e: BaseException, peer=None) -> bool:
+    """True when a failed peer call provably never DELIVERED the request —
+    i.e. retrying it cannot double-apply hits on the peer.
+
+    Covers: local shutdown / queue-full (PeerNotReadyError raised before
+    any RPC), and UNAVAILABLE on a channel that structurally NEVER reached
+    READY (`peer.ever_connected()` — no connection has ever existed, so
+    nothing can have been delivered; no error-string matching needed).
+    The marker-string heuristic over details()/debug_error_string()
+    remains as a fallback for ever-connected channels whose failure text
+    names a connect-phase cause.  A mid-RPC socket reset or timeout is
+    NOT provably unsent (the peer may have applied the batch before the
+    response was lost).  Duck-typed so the classification is testable
+    without fabricating cython AioRpcError instances."""
+    if isinstance(e, PeerNotReadyError):
+        return True
+    code = getattr(e, "code", None)
+    if not callable(code):
+        return False
+    try:
+        if code() != grpc.StatusCode.UNAVAILABLE:
+            return False
+    except Exception:  # noqa: BLE001
+        return False
+    if peer is not None:
+        ever = getattr(peer, "ever_connected", None)
+        if callable(ever) and not ever():
+            return True
+    text = ""
+    for attr in ("details", "debug_error_string"):
+        f = getattr(e, attr, None)
+        if callable(f):
+            try:
+                text += (f() or "").lower()
+            except Exception:  # noqa: BLE001
+                pass
+    return any(m in text for m in _UNSENT_MARKERS)
+
+
+class PeerClient:
+    """Async client for one peer, with batching."""
+
+    def __init__(
+        self,
+        info: PeerInfo,
+        behavior: Optional[BehaviorConfig] = None,
+        channel_credentials: Optional[grpc.ChannelCredentials] = None,
+        metrics=None,
+        circuit: Optional[CircuitConfig] = None,
+        chaos=None,
+        pressure_ttl_s: float = 5.0,
+    ) -> None:
+        self.peer_info = info
+        self.metrics = metrics
+        self.behavior = behavior or BehaviorConfig()
+        # Per-peer circuit breaker (net/breaker.py): fed by the same
+        # failures as the health window, gates every RPC path.  A None
+        # breaker (circuit.enabled=False) restores the pre-breaker
+        # behavior exactly.
+        cc = circuit if circuit is not None else CircuitConfig()
+        self.breaker: Optional[CircuitBreaker] = (
+            CircuitBreaker(cc, on_transition=self._on_circuit_transition)
+            if cc.enabled
+            else None
+        )
+        # Chaos hook (testing/chaos.py): awaited immediately before each
+        # outbound RPC; may delay or raise a fabricated AioRpcError.
+        self.chaos = chaos
+        # Success observer (runtime/service.py): ANY successful RPC to
+        # this peer — object path, compiled raw lane, GLOBAL flush or
+        # broadcast — proves the peer healed, so the service can drop
+        # its degraded-mode shadow state for it.
+        self.on_rpc_success = None
+        self._creds = channel_credentials
+        self._channel: Optional[grpc.aio.Channel] = None
+        self._stub: Optional[grpc_api.PeersV1Stub] = None
+        self._raw_get_peer_rate_limits = None
+        self._connect_lock = asyncio.Lock()
+        # Batch queue: (request, future) pairs.
+        self._queue: asyncio.Queue[Tuple[RateLimitReq, asyncio.Future]] = (
+            asyncio.Queue(maxsize=1000)
+        )
+        self._batcher_task: Optional[asyncio.Task] = None
+        # Bound concurrent batch RPCs: the reference serializes sends
+        # through one sendQueue goroutine (peer_client.go:450-509); we allow
+        # a small window of overlap but never unbounded fan-out — under a
+        # stalled peer the batcher blocks here, the queue fills, and new
+        # enqueues shed with PeerNotReadyError (backpressure, not pile-up).
+        self._send_sem = asyncio.Semaphore(4)
+        self._shutdown = False
+        self._inflight = 0
+        self._drained = asyncio.Event()
+        self._drained.set()
+        self._errors: Deque[Tuple[float, str]] = collections.deque(maxlen=100)
+        # Owner-pressure view (docs/hotkeys.md): (monotonic expiry,
+        # ratio) from the peer's latest x-guber-pressure trailing
+        # metadata; decays to 0 after `pressure_ttl_s` without a fresh
+        # advertisement, so a healed owner's widening collapses even if
+        # no further RPC flows.
+        self._pressure_ttl_s = pressure_ttl_s
+        self._pressure = (0.0, 0.0)
+        # Structural unsent-classification state: has this channel EVER
+        # reached READY?  Set by the `_ensure_ready` pre-dial gate (and
+        # by any RPC completing).  While False, NO RPC has ever been
+        # issued on the channel — every RPC path gates on readiness
+        # first — so a failure before that point provably delivered
+        # nothing.
+        self._ever_ready = False
+
+    def info(self) -> PeerInfo:
+        return self.peer_info
+
+    def ever_connected(self) -> bool:
+        """True once this peer's channel has been observed READY (the
+        `_ensure_ready` gate) or any RPC completed.  provably_unsent's
+        structural signal: while False, no request was ever handed to the
+        transport (the gate runs BEFORE the first RPC is issued), so a
+        failure is retry-safe without inspecting error strings — there is
+        no delivered-but-unanswered window, unlike a passive readiness
+        watcher which can miss a short-lived READY."""
+        return self._ever_ready
+
+    # -- circuit breaker -------------------------------------------------
+    def circuit_state_name(self) -> str:
+        return (
+            "disabled" if self.breaker is None
+            else self.breaker.state_name()
+        )
+
+    def circuit_open(self) -> bool:
+        """True while the breaker is open with backoff still running —
+        the degraded-mode fallback's fast-fail signal."""
+        return self.breaker is not None and self.breaker.fast_fail()
+
+    def circuit_snapshot(self) -> dict:
+        snap = (
+            {"state": "disabled"} if self.breaker is None
+            else self.breaker.snapshot()
+        )
+        # Overloaded-but-alive interplay (docs/hotkeys.md): a peer that
+        # answers RPCs but advertises an SLO breach must not read as
+        # fully healthy in /debug/vars circuits — the breaker has no
+        # failures to show, so the pressure view rides the snapshot.
+        ratio = self.pressure_ratio()
+        if ratio > 0.0:
+            snap["pressure"] = round(ratio, 3)
+        return snap
+
+    # -- owner pressure (docs/hotkeys.md) --------------------------------
+    def note_pressure(self, ratio: float) -> None:
+        """The peer advertised an SLO breach (ratio = its p99 over its
+        target); live for `pressure_ttl_s` from now."""
+        self._pressure = (time.monotonic() + self._pressure_ttl_s, ratio)
+
+    def pressure_ratio(self) -> float:
+        """Latest advertised pressure ratio, 0 once the TTL lapsed."""
+        deadline, ratio = self._pressure
+        return ratio if time.monotonic() < deadline else 0.0
+
+    def pressure_active(self) -> bool:
+        """True while the peer's advertised p99 is at/over its target —
+        the gate that activates hot-key mirroring toward this owner."""
+        return self.pressure_ratio() >= 1.0
+
+    def _note_pressure_md(self, md) -> None:
+        """Scan RPC trailing metadata for the pressure advertisement
+        (cheap: absent on healthy peers, one small pair otherwise)."""
+        if not md:
+            return
+        for key, value in md:
+            if key == PRESSURE_METADATA_KEY:
+                try:
+                    self.note_pressure(float(value))
+                except (TypeError, ValueError):
+                    pass
+                return
+
+    def _on_circuit_transition(
+        self, old: CircuitState, new: CircuitState
+    ) -> None:
+        if self.metrics is not None:
+            self.metrics.circuit_state.labels(
+                peerAddr=self.peer_info.grpc_address
+            ).set(int(new))
+            fr = getattr(self.metrics, "flightrec", None)
+            if fr is not None:
+                fr.record(
+                    "circuit",
+                    peer=self.peer_info.grpc_address,
+                    frm=old.name.lower(),
+                    to=new.name.lower(),
+                )
+
+    def _shed(self, reason: str) -> PeerNotReadyError:
+        """Count a pre-RPC shed (`peer_shed_total{reason}`) and build
+        the PeerNotReadyError for the caller to raise.  Sheds are NOT
+        `_record_error`d: they never reached the peer, so they belong in
+        neither the health window nor the breaker's failure count (an
+        open breaker must not feed itself)."""
+        if self.metrics is not None:
+            self.metrics.peer_shed_total.labels(
+                peerAddr=self.peer_info.grpc_address, reason=reason
+            ).inc()
+        detail = {
+            "queue_full": "batch queue full",
+            "breaker_open": "circuit breaker open",
+        }.get(reason, reason)
+        return PeerNotReadyError(
+            f"peer {self.peer_info.grpc_address} shed request: {detail}"
+        )
+
+    async def _ensure_ready(self) -> float:
+        """Pre-dial gate: on a channel that has never been READY, wait
+        for readiness BEFORE issuing the first RPC (the reference
+        connects first for the same reason, peer_client.go:318).  Fails
+        FAST on the first failed dial attempt (TRANSIENT_FAILURE — e.g.
+        connection refused), matching the latency of an ungated RPC's
+        dial error.  Any failure here raises PeerNotReadyError — provably
+        unsent, since no request has been issued on the channel yet,
+        whatever states the channel may have blinked through.  After the
+        first readiness this is a no-op.
+
+        Returns the seconds left of the `batch_timeout_s` budget: the
+        readiness wait and the caller's RPC deadline share ONE budget,
+        so a slow first connect cannot stretch a call to ~2x the
+        configured timeout."""
+        if self._ever_ready:
+            return self.behavior.batch_timeout_s
+        ch = self._channel
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self.behavior.batch_timeout_s
+        why = "timed out"
+        state = ch.get_state(try_to_connect=True)
+        while state != grpc.ChannelConnectivity.READY:
+            if state in (
+                grpc.ChannelConnectivity.TRANSIENT_FAILURE,
+                grpc.ChannelConnectivity.SHUTDOWN,
+            ):
+                why = f"dial failed ({state.name})"
+                break
+            remaining = deadline - loop.time()
+            if remaining <= 0:
+                break
+            try:
+                await asyncio.wait_for(
+                    ch.wait_for_state_change(state), timeout=remaining
+                )
+            except asyncio.TimeoutError:
+                break
+            state = ch.get_state(try_to_connect=True)
+        else:
+            self._ever_ready = True
+            return max(deadline - loop.time(), 0.001)
+        # A failed first dial is a peer error like any other: the health
+        # check's rolling window must see it even though no RPC was ever
+        # issued on the channel.
+        msg = (
+            f"peer {self.peer_info.grpc_address} never connected: {why}"
+        )
+        self._record_error(msg)
+        raise PeerNotReadyError(msg)
+
+    # -- connection ------------------------------------------------------
+    async def _connect(self) -> grpc_api.PeersV1Stub:
+        """Lazy dial; also spawns the batcher on first use
+        (peer_client.go:96-159)."""
+        if self._stub is not None:
+            return self._stub
+        async with self._connect_lock:
+            if self._stub is not None:
+                return self._stub
+            if self._shutdown:
+                raise PeerNotReadyError(
+                    f"peer {self.peer_info.grpc_address} is shut down"
+                )
+            if self._creds is not None:
+                self._channel = grpc.aio.secure_channel(
+                    self.peer_info.grpc_address, self._creds
+                )
+            else:
+                self._channel = grpc.aio.insecure_channel(
+                    self.peer_info.grpc_address
+                )
+            self._stub = grpc_api.PeersV1Stub(self._channel)
+            # Raw-bytes method for the compiled routing lane (payloads are
+            # pre-encoded byte splices; a pb round-trip here would undo
+            # the zero-copy forward).
+            self._raw_get_peer_rate_limits = self._channel.unary_unary(
+                f"/{grpc_api.PEERS_SERVICE}/GetPeerRateLimits"
+            )
+            self._batcher_task = asyncio.ensure_future(self._run_batcher())
+            return self._stub
+
+    # -- public API ------------------------------------------------------
+    async def get_peer_rate_limit(self, req: RateLimitReq) -> RateLimitResp:
+        """Forward one check to this peer, batched unless the request (or a
+        sub-window batch-wait of 0) opts out (peer_client.go:168-192)."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            # Fast-fail: an open breaker sheds at the enqueue gate —
+            # no dial, no deadline burned against a dead channel.
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            if has_behavior(req.behavior, Behavior.NO_BATCHING):
+                resps = await self._call_get_peer_rate_limits([req])
+                return resps[0]
+            # Connect BEFORE enqueueing: a failed dial must not leave an
+            # orphaned request for a later batcher to ship after the
+            # caller already saw the failure (peer_client.go:318 connects
+            # first for the same reason).
+            await self._connect()
+            loop = asyncio.get_running_loop()
+            fut: asyncio.Future = loop.create_future()
+            try:
+                self._queue.put_nowait((req, fut))
+            except asyncio.QueueFull as e:
+                raise self._shed("queue_full") from e
+            return await fut
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            if e.code() in (
+                grpc.StatusCode.UNAVAILABLE,
+                grpc.StatusCode.CANCELLED,
+            ):
+                raise PeerNotReadyError(str(e)) from e
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def get_peer_rate_limits_batch(
+        self, reqs: List[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        """One pre-assembled batch as a single RPC, bypassing the window
+        batcher — the GLOBAL/multi-region flush path (global.go:124-164).
+        Tracked for shutdown drain and the health-check error window."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            return await self._call_get_peer_rate_limits(reqs)
+        except grpc.aio.AioRpcError as e:
+            # NO PeerNotReadyError conversion here: callers of the batch
+            # path (the GLOBAL flush) decide retry-safety via
+            # provably_unsent(), and a blanket UNAVAILABLE conversion would
+            # make a mid-RPC socket reset look retry-safe (double count).
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def get_peer_rate_limits_raw(self, payload: bytes) -> bytes:
+        """One pre-encoded GetPeerRateLimitsReq as a raw-bytes RPC — the
+        compiled router's zero-copy forward.  Same shutdown/error
+        accounting as the batch path; retry-safety stays with the caller
+        (the router falls back to the object path's ownership-retry loop
+        per request on failure)."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            # Cross-peer attribution: the client span covers the whole
+            # forward (readiness gate included) and its context rides
+            # the RPC as w3c `traceparent` metadata, so the owner
+            # daemon's server span joins this trace (docs/tracing.md).
+            with tracing.span(
+                "peer.forward", require_parent=True,
+                peer=self.peer_info.grpc_address,
+                method="GetPeerRateLimits",
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address,
+                            "GetPeerRateLimits",
+                        )
+                    call = self._raw_get_peer_rate_limits(
+                        payload, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                    out = await call
+                    self._note_pressure_md(await call.trailing_metadata())
+                except asyncio.CancelledError:
+                    self._record_cancelled("GetPeerRateLimits[raw]")
+                    raise
+            self._record_success()
+            return out
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def update_peer_globals(
+        self, globals_: List[UpdatePeerGlobal]
+    ) -> None:
+        """Owner->peer authoritative GLOBAL status push
+        (peer_client.go:245-268)."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            stub = await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            with tracing.span(
+                "peer.broadcast", require_parent=True,
+                peer=self.peer_info.grpc_address,
+                method="UpdatePeerGlobals",
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address,
+                            "UpdatePeerGlobals",
+                        )
+                    req = peers_pb2.UpdatePeerGlobalsReq(
+                        globals=[
+                            grpc_api.global_to_pb(g) for g in globals_
+                        ]
+                    )
+                    await stub.UpdatePeerGlobals(
+                        req, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                except asyncio.CancelledError:
+                    self._record_cancelled("UpdatePeerGlobals")
+                    raise
+            self._record_success()
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def lease(
+        self, client_id: str, reqs: List[RateLimitReq]
+    ) -> List[LeaseGrant]:
+        """Forward a lease-grant request to this peer (the owner of the
+        keys in `reqs`) — the edge-daemon half of client-side admission
+        (docs/leases.md).  Same shutdown/breaker/chaos accounting as the
+        broadcast path; grants come back in request order."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            stub = await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            with tracing.span(
+                "peer.lease", require_parent=True,
+                peer=self.peer_info.grpc_address, method="Lease",
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address, "Lease"
+                        )
+                    req = peers_pb2.LeaseReq(
+                        client_id=client_id,
+                        requests=[grpc_api.req_to_pb(r) for r in reqs],
+                    )
+                    call = stub.Lease(
+                        req, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                    resp = await call
+                    self._note_pressure_md(await call.trailing_metadata())
+                except asyncio.CancelledError:
+                    self._record_cancelled("Lease")
+                    raise
+            self._record_success()
+            return [grpc_api.lease_grant_from_pb(g) for g in resp.grants]
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def reconcile(
+        self, client_id: str, items: List[ReconcileItem]
+    ) -> List[LeaseGrant]:
+        """Forward burned-hit reconciliation (and release/renewal) for
+        leases granted by this peer.  NO PeerNotReadyError conversion:
+        like the GLOBAL flush, callers decide retry-safety via
+        provably_unsent() — a mid-RPC failure may have applied the
+        burned hits already."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            stub = await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            with tracing.span(
+                "peer.reconcile", require_parent=True,
+                peer=self.peer_info.grpc_address, method="Reconcile",
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address, "Reconcile"
+                        )
+                    req = peers_pb2.ReconcileReq(
+                        client_id=client_id,
+                        items=[
+                            grpc_api.reconcile_item_to_pb(it)
+                            for it in items
+                        ],
+                    )
+                    call = stub.Reconcile(
+                        req, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                    resp = await call
+                    self._note_pressure_md(await call.trailing_metadata())
+                except asyncio.CancelledError:
+                    self._record_cancelled("Reconcile")
+                    raise
+            self._record_success()
+            return [grpc_api.lease_grant_from_pb(g) for g in resp.grants]
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def handoff(
+        self, from_address: str, epoch: int, phase: str,
+        total_rows: int = 0,
+    ):
+        """One live-resharding control RPC (docs/resharding.md): the
+        old owner announces a handoff phase to this peer (the new
+        owner).  Returns (accepted, state).  Same shutdown/breaker/
+        chaos accounting as the broadcast path."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            stub = await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            with tracing.span(
+                "peer.handoff", require_parent=True,
+                peer=self.peer_info.grpc_address, method="Handoff",
+                phase=phase,
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address, "Handoff"
+                        )
+                    req = peers_pb2.HandoffReq(
+                        from_address=from_address, epoch=epoch,
+                        phase=phase, total_rows=total_rows,
+                    )
+                    resp = await stub.Handoff(
+                        req, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                except asyncio.CancelledError:
+                    self._record_cancelled("Handoff")
+                    raise
+            self._record_success()
+            return resp.accepted, resp.state
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def migrate(
+        self, from_address: str, epoch: int, rows, final: bool = False
+    ):
+        """One chunk of packed table rows streamed to this peer during
+        a handoff's TRANSFER phase.  Returns (injected, skipped).
+        Retry-safety belongs to the caller, but is structural here: the
+        receiver injects only where the key is absent, so a replayed
+        chunk can never double-apply."""
+        if self._shutdown:
+            raise PeerNotReadyError(
+                f"peer {self.peer_info.grpc_address} is shut down"
+            )
+        if self.breaker is not None and not self.breaker.would_allow():
+            raise self._shed("breaker_open")
+        self._track_inflight(+1)
+        try:
+            stub = await self._connect()
+            if self.breaker is not None and not self.breaker.allow():
+                raise self._shed("breaker_open")
+            with tracing.span(
+                "peer.migrate", require_parent=True,
+                peer=self.peer_info.grpc_address, method="Migrate",
+                rows=len(rows.key_hash),
+            ):
+                try:
+                    budget = await self._ensure_ready()
+                    if self.chaos is not None:
+                        await self.chaos.on_client(
+                            self.peer_info.grpc_address, "Migrate"
+                        )
+                    req = peers_pb2.MigrateReq(
+                        from_address=from_address, epoch=epoch,
+                        rows=rows, final=final,
+                    )
+                    resp = await stub.Migrate(
+                        req, timeout=budget,
+                        metadata=tracing.grpc_metadata(),
+                    )
+                except asyncio.CancelledError:
+                    self._record_cancelled("Migrate")
+                    raise
+            self._record_success()
+            return resp.injected, resp.skipped
+        except grpc.aio.AioRpcError as e:
+            self._record_error(str(e))
+            raise
+        finally:
+            self._track_inflight(-1)
+
+    async def shutdown(self) -> None:
+        """Stop accepting work, wait for in-flight requests to drain, then
+        close the channel (peer_client.go:512-546)."""
+        self._shutdown = True
+        await self._drained.wait()
+        if self._batcher_task is not None:
+            self._batcher_task.cancel()
+            try:
+                await self._batcher_task
+            except asyncio.CancelledError:
+                pass
+            self._batcher_task = None
+        # Fail anything still queued.
+        while not self._queue.empty():
+            _, fut = self._queue.get_nowait()
+            if not fut.done():
+                fut.set_exception(PeerNotReadyError("peer shut down"))
+        if self._channel is not None:
+            await self._channel.close()
+            self._channel = None
+            self._stub = None
+
+    # -- health ----------------------------------------------------------
+    def last_errors(self) -> List[str]:
+        """Errors seen in the trailing window, for HealthCheck
+        (peer_client.go:271-300)."""
+        cutoff = time.monotonic() - ERROR_WINDOW_S
+        return [msg for ts, msg in self._errors if ts >= cutoff]
+
+    def _record_success(self) -> None:
+        """One successful RPC: marks the channel ever-ready (the
+        provably_unsent structural signal), feeds the breaker, and
+        notifies the heal observer."""
+        self._ever_ready = True
+        if self.breaker is not None:
+            self.breaker.record_success()
+        if self.on_rpc_success is not None:
+            self.on_rpc_success()
+
+    def _record_error(self, msg: str) -> None:
+        self._errors.append((time.monotonic(), msg))
+        if self.breaker is not None:
+            # The breaker's failure feed IS the health window's: every
+            # recorded peer error counts, nothing else does.
+            self.breaker.record_failure()
+        if self.metrics is not None:
+            self.metrics.peer_error_total.labels(
+                peerAddr=self.peer_info.grpc_address
+            ).inc()
+            fr = getattr(self.metrics, "flightrec", None)
+            if fr is not None:
+                fr.record(
+                    "peer_error",
+                    peer=self.peer_info.grpc_address,
+                    error=msg[:200],
+                )
+
+    def _track_inflight(self, delta: int) -> None:
+        self._inflight += delta
+        if self._inflight == 0:
+            self._drained.set()
+        else:
+            self._drained.clear()
+
+    # -- batcher ---------------------------------------------------------
+    async def _run_batcher(self) -> None:
+        """Flush loop: first item opens a `batch_wait` window; the batch
+        ships when the window closes or `batch_limit` items are pending
+        (peer_client.go:373-446, interval.go:29-72 one-shot ticker)."""
+        wait_s = self.behavior.batch_wait_s
+        limit = self.behavior.batch_limit
+        while True:
+            first = await self._queue.get()
+            batch = [first]
+            # From here the batch holds dequeued requests: a cancellation
+            # at any await below must fail their futures, not orphan
+            # callers forever (shutdown() currently drains first, but the
+            # invariant must not depend on that ordering).
+            try:
+                deadline = time.monotonic() + wait_s
+                while len(batch) < limit:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        item = await asyncio.wait_for(
+                            self._queue.get(), timeout=remaining
+                        )
+                    except asyncio.TimeoutError:
+                        break
+                    batch.append(item)
+                await self._send_sem.acquire()
+            except asyncio.CancelledError:
+                err = PeerNotReadyError(
+                    f"peer {self.peer_info.grpc_address} batcher cancelled"
+                )
+                for _, fut in batch:
+                    if not fut.done():
+                        fut.set_exception(err)
+                raise
+            asyncio.ensure_future(self._send_batch(batch))
+
+    async def _send_batch(
+        self, batch: List[Tuple[RateLimitReq, asyncio.Future]]
+    ) -> None:
+        """One RPC for the whole batch; responses map back by position
+        (peer_client.go:450-509)."""
+        reqs = [r for r, _ in batch]
+        start = time.monotonic()
+        if self.metrics is not None:
+            self.metrics.queue_length.labels(
+                peerAddr=self.peer_info.grpc_address
+            ).observe(len(batch))
+        try:
+            await self._send_batch_inner(batch, reqs, start)
+        finally:
+            self._send_sem.release()
+
+    async def _send_batch_inner(self, batch, reqs, start) -> None:
+        try:
+            resps = await self._call_get_peer_rate_limits(reqs)
+            if self.metrics is not None:
+                send_s = time.monotonic() - start
+                self.metrics.batch_send_duration.labels(
+                    peerAddr=self.peer_info.grpc_address
+                ).observe(send_s)
+                fr = getattr(self.metrics, "flightrec", None)
+                if fr is not None:
+                    fr.record_batch(
+                        len(batch), send_s * 1e3,
+                        peer=self.peer_info.grpc_address,
+                        kind="peer_batch_send",
+                    )
+            if len(resps) != len(batch):
+                msg = "peer returned %d responses for %d requests" % (
+                    len(resps), len(batch)
+                )
+                self._record_error(msg)
+                raise PeerNotReadyError(msg)
+            for (_, fut), resp in zip(batch, resps):
+                if not fut.done():
+                    fut.set_result(resp)
+        except Exception as e:  # noqa: BLE001 — propagate to all waiters
+            # PeerNotReadyErrors were already recorded at their source
+            # (the pre-dial gate / the mismatch above) — recording again
+            # would double-count them in the health window.
+            if not isinstance(e, PeerNotReadyError):
+                self._record_error(str(e))
+            err: Exception = e
+            if isinstance(e, grpc.aio.AioRpcError) and e.code() in (
+                grpc.StatusCode.UNAVAILABLE,
+                grpc.StatusCode.CANCELLED,
+            ):
+                err = PeerNotReadyError(str(e))
+            for _, fut in batch:
+                if not fut.done():
+                    fut.set_exception(err)
+
+    def _record_cancelled(self, method: str) -> None:
+        """A breaker-gated RPC torn down by CancelledError — the outer
+        `asyncio.wait_for` on the GLOBAL flush/broadcast paths firing
+        before the gRPC deadline against a hung peer, or a cancelled
+        NO_BATCHING forward.  Must be recorded like any other failure:
+        it is real evidence the peer is not answering (the health window
+        and breaker would otherwise never see a black-holed peer from
+        GLOBAL-plane traffic), and the record returns the half-open
+        probe the attempt consumed (a swallowed outcome would wedge the
+        breaker HALF_OPEN with its probe budget spent forever)."""
+        self._record_error(
+            f"{method} to {self.peer_info.grpc_address} cancelled in "
+            "flight (caller deadline or teardown)"
+        )
+
+    async def _call_get_peer_rate_limits(
+        self, reqs: List[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        stub = await self._connect()
+        if self.breaker is not None and not self.breaker.allow():
+            # The RPC-issue gate: one batched send is one half-open
+            # probe; anything past the probe budget sheds here.
+            raise self._shed("breaker_open")
+        with tracing.span(
+            "peer.forward", require_parent=True,
+            peer=self.peer_info.grpc_address,
+            method="GetPeerRateLimits",
+        ):
+            try:
+                budget = await self._ensure_ready()
+                if self.chaos is not None:
+                    await self.chaos.on_client(
+                        self.peer_info.grpc_address, "GetPeerRateLimits"
+                    )
+                pb_req = peers_pb2.GetPeerRateLimitsReq(
+                    requests=[grpc_api.req_to_pb(r) for r in reqs]
+                )
+                call = stub.GetPeerRateLimits(
+                    pb_req, timeout=budget,
+                    metadata=tracing.grpc_metadata(),
+                )
+                pb_resp = await call
+                self._note_pressure_md(await call.trailing_metadata())
+            except asyncio.CancelledError:
+                self._record_cancelled("GetPeerRateLimits")
+                raise
+        self._record_success()
+        return [grpc_api.resp_from_pb(m) for m in pb_resp.rate_limits]

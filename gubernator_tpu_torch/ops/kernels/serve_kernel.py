@@ -15,7 +15,10 @@ version; `ops/ring.owner_partition` is the plain form of the binning.
 The table is updated IN PLACE (at 2^24 slots a copy would be 1.4 GB) and
 returned.  `claim` is the int32[S] claim-word buffer, all INT32_MAX between
 launches.  A launch on the card needs the caller's buffer (the backend owns
-one); the plain path on the CPU takes none.
+one); the plain path on the CPU takes none.  `scratch` is an optional int32
+buffer of at least `scratch_words(dev, k, B)` words the launch may use for
+its lane lists (a caller that reuses one, in stream order, saves the
+allocation); without one the wrapper allocates it.
 
 Tensors on the CPU take the plain `ring_step`.  Tensors on a CUDA device
 launch the kernel, or raise: there is no fallback.  `launches` counts one
@@ -71,6 +74,15 @@ def owners(dev) -> int:
     return g
 
 
+def scratch_words(dev, k: int, B: int) -> int:
+    """int32 words of scratch one dispatch of k rounds of B lanes needs."""
+    words = library().gub_serve_scratch_words(
+        device_index(torch.device(dev)), k, B)
+    if words < 0:
+        raise RuntimeError(f"serve kernel scratch: cudaError {-words}")
+    return words
+
+
 def new_claim_buffer(num_slots: int, device) -> torch.Tensor:
     return torch.full(
         (num_slots,), INT32_MAX, dtype=torch.int32, device=device
@@ -84,6 +96,7 @@ def persistent_serve_step(
     seq: torch.Tensor,
     ways: int = 8,
     claim: Optional[torch.Tensor] = None,
+    scratch: Optional[torch.Tensor] = None,
 ) -> Tuple[SlotTable, torch.Tensor, torch.Tensor]:
     """Drain k packed rounds; returns (table, int64[k, 9, B], seq + k)."""
     global launches
@@ -119,11 +132,15 @@ def persistent_serve_step(
         return table, resps, seq_out
     lib = library()
     index = device_index(dev)
-    words = lib.gub_serve_scratch_words(index, k, B)
-    if words < 0:
-        raise RuntimeError(f"serve kernel scratch: cudaError {-words}")
+    words = scratch_words(dev, k, B)
     # Lane lists, per-entry scratch and per-(round, bin, owner) sub-lists.
-    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    if scratch is None:
+        scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+    elif (scratch.dtype != torch.int32 or scratch.device != dev
+          or not scratch.is_contiguous() or scratch.numel() < words):
+        raise ValueError(f"scratch: expected a contiguous int32 buffer of "
+                         f">= {words} words on {dev}")
+    words = scratch.numel()
     cols = (ctypes.c_void_p * 12)(*[c.data_ptr() for c in table])
     err = lib.gub_serve_launch(
         index, torch.cuda.current_stream(dev).cuda_stream,

@@ -428,3 +428,55 @@ def apply_batch_packed_q(
     table is updated in place and returned."""
     table, r = apply_batch_impl(table, unpack_batch_q(q), now, ways)
     return table, pack_resp(r)
+
+
+class CachedRows(NamedTuple):
+    """A batch of owner-broadcast statuses (UpdatePeerGlobal rows,
+    peers.proto:52-56): key fingerprint + the authoritative RateLimitResp."""
+
+    key_hash: torch.Tensor    # int64[B]; 0 = inactive lane
+    algo: torch.Tensor        # int32[B]
+    limit: torch.Tensor       # int64[B]
+    remaining: torch.Tensor   # int64[B]
+    status: torch.Tensor      # int32[B]
+    reset_time: torch.Tensor  # int64[B]
+
+
+def store_cached_rows(
+    table: SlotTable,
+    rows: CachedRows,
+    now,
+    ways: int = 8,
+) -> SlotTable:
+    """Broadcast-receive: upsert KIND_CACHED_RESP rows (the GLOBAL replica
+    cache), updating the table in place and returning it.
+
+    The analog of UpdatePeerGlobals -> AddCacheItem (gubernator.go:464-479):
+    the stored item IS the response, with ExpireAt = status.ResetTime.
+    Keys must be unique within the batch.  Lanes that claim no slot are
+    dropped, as the JAX form's scatter with mode="drop" drops them."""
+    h = rows.key_hash
+    now = torch.as_tensor(now, dtype=torch.int64, device=h.device)
+    active = h != 0
+    _, persist, slot, _ = locate_slots(table, h, active, now, ways)
+    do_write = persist & active
+    tgt = slot[do_write]
+
+    def put(col: torch.Tensor, val) -> None:
+        val = torch.as_tensor(val, device=h.device)
+        val = val.expand(do_write.shape) if val.dim() == 0 else val
+        col[tgt] = val[do_write].to(col.dtype)
+
+    put(table.key, h)
+    put(table.algo, rows.algo)
+    put(table.kind, KIND_CACHED_RESP)
+    put(table.limit, rows.limit)
+    put(table.duration, 0)
+    put(table.remaining, rows.remaining)
+    put(table.remaining_f, 0.0)
+    put(table.t0, 0)
+    put(table.status, rows.status)
+    put(table.burst, 0)
+    put(table.expire_at, rows.reset_time)
+    put(table.touched, now)
+    return table

@@ -1,0 +1,2053 @@
+"""The compiled host hot path: raw wire bytes -> device step -> wire bytes.
+
+The object path (pb2 -> RateLimitReq dataclasses -> packer -> device ->
+RateLimitResp -> pb2) costs several microseconds of Python per request,
+which caps a daemon far below what the device kernel does.  The
+reference has no such
+tax: its whole host loop is compiled Go (workers.go:249-314,
+peer_client.go:450-509, generated pb marshalers).
+
+This module is the equivalent compiled lane.  For eligible requests the
+daemon hands the raw gRPC payload straight here:
+
+    C++ parse  (native/gubtpu.cpp gub_parse_reqs2: wire -> columns + XXH64)
+    numpy      (burst defaults, behavior masks, owner routing)
+    C++ pack   (gub_assign_rounds: duplicate-key round/lane assignment)
+    numpy      (scatter columns into fixed-shape DeviceBatch rounds)
+    device     (backend.step_rounds: the same serve kernel as check();
+                sketch-named lanes take one CMS merge instead)
+    numpy      (gather packed responses back to request order)
+    C++ emit   (gub_serialize_resps2: columns -> response wire bytes)
+
+No per-request Python objects exist anywhere on this path.  Concurrent
+RPCs coalesce into shared device steps (the LocalBatcher discipline,
+runtime/service.py) by concatenating their columns before packing.
+
+Eligibility — anything else falls back to the object path, which remains
+the semantic reference:
+  - native library loadable (built at first use, native/__init__.py);
+  - GLOBAL is served HERE — use_cached lanes for non-owned reads, queued
+    hits/updates for the managers; MULTI_REGION serves like a plain lane
+    with owner-side hits queued to the region manager (one decode per
+    unique key);
+  - sketch-tier names are served HERE too: the parser's name_hash
+    column routes them to SketchBackend.check_cols (one CMS merge per
+    drain), with GLOBAL stripped exactly like the object path's
+    routing (service.py) so they count once at the key's owner;
+  - for the client-facing RPC: either single-node, or the columnar
+    router (vectorized ring lookup + zero-copy forwards) when the ring
+    hash matches the device fingerprint hash.
+    Peer-to-peer batches (GetPeerRateLimits) are always local by
+    construction, so the fast lane also serves the owner side of
+    forwarded traffic in a cluster.
+
+This is the JAX package's fast lane without the parts that serve planes
+not ported yet: the Store/Loader seeding and write-through capture
+(ROADMAP queue 1 item 6), the mesh's engine lane and shard grids (item 9),
+and the hot-key, reshard and region routing (the host planes).  The
+service refuses configurations that arm them.
+"""
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from gubernator_tpu_torch import native
+from gubernator_tpu_torch.core.config import MAX_BATCH_SIZE
+from gubernator_tpu_torch.runtime import tracing
+from gubernator_tpu_torch.core.interval import (
+    GregorianError,
+    gregorian_duration,
+    gregorian_expiration,
+)
+from gubernator_tpu_torch.core.types import Behavior
+from gubernator_tpu_torch.ops.batch import DeviceBatch, empty_batch
+
+_ERR_EMPTY_KEY = b"field 'unique_key' cannot be empty"
+_ERR_EMPTY_NAME = b"field 'namespace' cannot be empty"
+_ERR_GREG = 3  # parse err code for host-side Gregorian failures
+
+_GLOBAL = int(Behavior.GLOBAL)
+_MULTI_REGION = int(Behavior.MULTI_REGION)
+
+# The sketch tier's response annotation (object path: metadata
+# {"tier": "sketch"}, runtime/sketch_backend.py).
+_TIER_SKETCH_FRAME = native.meta_frame(b"tier", b"sketch")
+
+
+class _Coalescer:
+    """The drain discipline shared by the machinery and sketch lanes: arrivals accumulate in the queue; each drain takes the WHOLE
+    queue as one merge (bigger merges amortize the per-merge device
+    round-trip).  `process` runs on a pool thread with the drained entry
+    list; results deliver through each entry's future.
+
+    Two-stage pipeline (so the device->host response fetch of merge N
+    does not serialize behind merge N+1's dispatch):
+
+      dispatch stage — serialized (`max_inflight`, default 1).  `process`
+        packs and dispatches the device step (holding the backend lock)
+        and returns a zero-arg FETCH CONTINUATION instead of results.
+        The table-update chain already serializes on the backend's one
+        stream, so merge N+1 may dispatch the moment merge N's dispatch
+        returns.
+      fetch stage — depth-`pipeline_depth` (GUBER_PIPELINE_DEPTH).  The
+        continuation syncs the response to host and unmarshals; out-of-
+        order completion is safe because results flow through per-entry
+        futures.  A fetch SLOT is taken before dispatching, so at most
+        `pipeline_depth` merges are outstanding end-to-end; the time a
+        ready drain spends waiting for a slot is the pipeline's bubble
+        (tracked in `bubble_s` + the bubble metrics).
+
+    Steady-state throughput moves from B/(dispatch+fetch) toward
+    B/max(dispatch, fetch).  Maximal merges are preserved — this
+    pipelines ACROSS merges, it never splits one.  `process` may also
+    return a
+    plain result list (single-phase; the fetch stage is then a no-op) —
+    tests and simple lanes use that form.
+
+    Adaptive sparse overlap (`sparse_limit` > 0) is the depth-k special
+    case of the same mechanism: a drain no bigger than `sparse_limit`
+    requests that finds every base fetch slot busy may take one of
+    OVERLAP_SLOTS sparse fetch slots instead of waiting — at low load a
+    small arrival then costs ~1 device round-trip even when the pipeline
+    is full (the reference's batcher fires its window early when sparse,
+    peer_client.go:373-446).  Under
+    load drains exceed the limit and the maximal-merge discipline holds.
+    """
+
+    OVERLAP_SLOTS = 3
+
+    def __init__(self, pool, process, max_inflight: int = 1,
+                 sparse_limit: int = 0, size_of=None,
+                 pipeline_depth: int = 1, metrics=None,
+                 lane: str = "") -> None:
+        if pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {pipeline_depth}"
+            )
+        self._pool = pool
+        self._process = process
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._task: Optional[asyncio.Task] = None
+        self._dispatch_sem = asyncio.Semaphore(max_inflight)
+        self._fetch = asyncio.Semaphore(pipeline_depth)
+        self._overlap = asyncio.Semaphore(self.OVERLAP_SLOTS)
+        self._sparse_limit = sparse_limit
+        self._size_of = size_of or (lambda e: 1)
+        self._dispatches: set = set()
+        self._closed = False
+        self.pipeline_depth = pipeline_depth
+        self._metrics = metrics
+        self._lane = lane
+        # Observability: total drains / drains that rode a sparse fetch
+        # slot / drains that had to wait for a fetch slot (each wait is
+        # one pipeline bubble; bubble_s accumulates the idle time).
+        self.drains = 0
+        self.overlap_drains = 0
+        self.waited_drains = 0
+        self.bubble_s = 0.0
+        # Cumulative stage wall time (the bench artifact's dispatch vs
+        # fetch budget split; mirrors fastpath_stage_duration sums).
+        self.dispatch_s = 0.0
+        self.fetch_s = 0.0
+        # Merges currently in flight (dispatch or fetch stage) and the
+        # peak ever observed — the pipeline-occupancy view.
+        self.inflight = 0
+        self.max_inflight_seen = 0
+
+    def debug_vars(self) -> dict:
+        """The /debug/vars view of this lane's drain discipline."""
+        return {
+            "drains": self.drains,
+            "overlap_drains": self.overlap_drains,
+            "waited_drains": self.waited_drains,
+            "bubble_ms_total": round(self.bubble_s * 1e3, 3),
+            "dispatch_ms_total": round(self.dispatch_s * 1e3, 3),
+            "fetch_ms_total": round(self.fetch_s * 1e3, 3),
+            "inflight": self.inflight,
+            "max_inflight_seen": self.max_inflight_seen,
+            "pipeline_depth": self.pipeline_depth,
+        }
+
+    def _count_drain(self, kind: str) -> None:
+        m = self._metrics
+        if m is not None:
+            m.fastpath_drains.labels(lane=self._lane, kind=kind).inc()
+
+    def _note_stage(self, stage: str, dt_s: float) -> None:
+        if stage == "dispatch":
+            self.dispatch_s += dt_s
+        else:
+            self.fetch_s += dt_s
+        m = self._metrics
+        if m is not None:
+            m.fastpath_stage_duration.labels(
+                lane=self._lane, stage=stage
+            ).observe(dt_s)
+
+    def _note_bubble(self, dt_s: float) -> None:
+        self.bubble_s += dt_s
+        m = self._metrics
+        if m is not None:
+            m.fastpath_bubble_seconds.labels(lane=self._lane).inc(dt_s)
+            fr = getattr(m, "flightrec", None)
+            if fr is not None:
+                fr.record_bubble(self._lane, dt_s * 1e3)
+
+    async def do(self, entry):
+        """Submit an entry and await its result."""
+        if self._closed:
+            raise RuntimeError("fastpath closed")
+        entry.fut = asyncio.get_running_loop().create_future()
+        if tracing.enabled():
+            # Carry the request's trace context across the coalescer
+            # seam: the merge dispatch runs on a pool thread where the
+            # submitting task's contextvars are invisible.
+            try:
+                entry.trace_ctx = tracing.current_context()
+            except AttributeError:
+                pass  # foreign entry types (tests) without the slot
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+        await self._queue.put(entry)
+        return await entry.fut
+
+    def _drain_into(self, entries: list) -> None:
+        while True:
+            try:
+                entries.append(self._queue.get_nowait())
+            except asyncio.QueueEmpty:
+                return
+
+    async def _acquire_fetch_slot(self, entries: list):
+        """Take a fetch slot for one merge BEFORE its dispatch (bounds
+        outstanding merges to pipeline_depth + sparse slots).  Returns
+        the semaphore to release when the merge's fetch completes."""
+        if not self._fetch.locked():
+            await self._fetch.acquire()  # immediate
+            return self._fetch
+        if (
+            self._sparse_limit > 0
+            and not self._overlap.locked()
+            and sum(self._size_of(e) for e in entries)
+            <= self._sparse_limit
+        ):
+            # Sparse drain while the pipeline is full: overlap on a
+            # sparse slot instead of waiting out a fetch.
+            await self._overlap.acquire()
+            self.overlap_drains += 1
+            self._count_drain("overlap")
+            return self._overlap
+        # Loaded: hold for a slot (the pipeline bubble); arrivals keep
+        # accumulating and ship as ONE bigger merge.
+        self.waited_drains += 1
+        self._count_drain("waited")
+        t0 = time.monotonic()
+        await self._fetch.acquire()
+        self._note_bubble(time.monotonic() - t0)
+        self._drain_into(entries)
+        return self._fetch
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            first = await self._queue.get()
+            entries = [first]
+            self._drain_into(entries)
+            self.drains += 1
+            self._count_drain("total")
+            fetch_sem = None
+            try:
+                fetch_sem = await self._acquire_fetch_slot(entries)
+                # Dispatch serialization: the previous merge's dispatch
+                # stage is short (no response sync), so this rarely
+                # blocks; any arrivals during a wait still merge in.
+                if self._dispatch_sem.locked():
+                    await self._dispatch_sem.acquire()
+                    self._drain_into(entries)
+                else:
+                    await self._dispatch_sem.acquire()
+            except asyncio.CancelledError:
+                # Shutdown while holding dequeued entries: fail them
+                # instead of orphaning their awaiting handlers.
+                if fetch_sem is not None:
+                    fetch_sem.release()
+                for en in entries:
+                    if not en.fut.done():
+                        en.fut.set_exception(
+                            RuntimeError("fastpath closed")
+                        )
+                raise
+            self.inflight += 1
+            if self.inflight > self.max_inflight_seen:
+                self.max_inflight_seen = self.inflight
+            m = self._metrics
+            if m is not None:
+                m.fastpath_pipeline_occupancy.labels(
+                    lane=self._lane
+                ).observe(self.inflight)
+            task = asyncio.ensure_future(
+                self._dispatch(loop, entries, fetch_sem)
+            )
+            self._dispatches.add(task)
+            task.add_done_callback(self._dispatches.discard)
+
+    @staticmethod
+    def _once(fn):
+        """At-most-once wrapper for a fetch continuation: the normal
+        path and the orphan resubmit below may both submit it; only the
+        first execution runs the closure."""
+        ran = [False]
+        gate = threading.Lock()
+
+        def run_once():
+            with gate:
+                if ran[0]:
+                    return None
+                ran[0] = True
+            return fn()
+
+        return run_once
+
+    def _merge_span(self, entries):
+        """(merge span, stage parent ctx) for one drained entry list:
+        the span's parent is the first SAMPLED member's context and
+        every other member attaches as a span link — the merge is the
+        join point of N concurrent request traces, and the links are
+        what lets any member's trace find the shared device round.
+        (None, None) when tracing is off or no member carried a
+        context."""
+        if not tracing.enabled():
+            return None, None
+        ctxs = [
+            c for c in (getattr(e, "trace_ctx", None) for e in entries)
+            if c is not None
+        ]
+        if not ctxs:
+            return None, None
+        parent = next((c for c in ctxs if c.sampled), ctxs[0])
+        msp = tracing.start_span(
+            "fastpath.merge", parent,
+            links=[c for c in ctxs if c is not parent],
+            lane=self._lane, entries=len(entries),
+        )
+        if msp is not None:
+            msp.set_attribute(
+                "size", int(sum(self._size_of(e) for e in entries))
+            )
+        return msp, (msp.context if msp is not None else parent)
+
+    async def _dispatch(self, loop, entries, fetch_sem) -> None:
+        """One merge's pipeline: dispatch stage on a pool thread (holds
+        the dispatch slot), then — if `process` returned a continuation —
+        the fetch stage on another pool pass (holds only the fetch slot,
+        so the next merge dispatches concurrently)."""
+        fetch_fn = None
+        msp, stage_ctx = self._merge_span(entries)
+        try:
+            t0 = time.monotonic()
+            try:
+                res = await loop.run_in_executor(
+                    self._pool,
+                    tracing.wrap(
+                        lambda: self._process(entries),
+                        "fastpath.dispatch", stage_ctx, lane=self._lane,
+                    ),
+                )
+            finally:
+                # Dispatch stage over (or failed): the next merge may
+                # dispatch while this one fetches.
+                self._dispatch_sem.release()
+                self._note_stage("dispatch", time.monotonic() - t0)
+            if callable(res):
+                fetch_fn = self._once(res)
+                t0 = time.monotonic()
+                outs = await loop.run_in_executor(
+                    self._pool,
+                    tracing.wrap(
+                        fetch_fn,
+                        "fastpath.fetch", stage_ctx, lane=self._lane,
+                    ),
+                )
+                self._note_stage("fetch", time.monotonic() - t0)
+            else:
+                outs = res  # single-phase process
+        except BaseException as e:  # CancelledError is a BaseException
+            if fetch_fn is not None and isinstance(
+                e, asyncio.CancelledError
+            ):
+                # The dispatch stage already mutated device/store state
+                # (donated table step, write-through ticket); a fetch
+                # continuation that never runs would leak its ticket
+                # and wedge every later Store.on_change delivery in
+                # cond.wait.  Submit it straight to the pool — detached
+                # from this cancelled task; the at-most-once gate makes
+                # this a no-op when the awaited run already started.
+                # FastPath.close() joins the pool, so the side effects
+                # land before teardown.  The entries still fail below.
+                self._pool.submit(fetch_fn)
+            if msp is not None:
+                msp.end(error=repr(e))
+            err = (
+                RuntimeError("fastpath closed")
+                if isinstance(e, asyncio.CancelledError) else e
+            )
+            for en in entries:
+                if not en.fut.done():
+                    en.fut.set_exception(err)
+            if isinstance(e, asyncio.CancelledError):
+                raise
+        else:
+            for en, out in zip(entries, outs):
+                if not en.fut.done():
+                    en.fut.set_result(out)
+        finally:
+            self.inflight -= 1
+            fetch_sem.release()
+            if msp is not None:
+                msp.end()
+
+    async def close(self) -> None:
+        self._closed = True  # new do() calls fail fast, never respawn _run
+        if self._task is not None:
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self._task = None
+        # Let in-flight dispatches finish (their entries get results).
+        if self._dispatches:
+            await asyncio.gather(
+                *list(self._dispatches), return_exceptions=True
+            )
+        # Entries still queued (never dequeued by _run) must fail too.
+        while not self._queue.empty():
+            en = self._queue.get_nowait()
+            if not en.fut.done():
+                en.fut.set_exception(RuntimeError("fastpath closed"))
+
+
+class FastPath:
+    """Per-service compiled lane with a coalescing columnar batcher.
+
+    `max_inflight` bounds concurrent DISPATCH stages (default 1: every
+    drain takes the WHOLE queue as one maximal merge: bigger merges
+    amortize the per-merge device round trip).  `pipeline_depth` bounds
+    OUTSTANDING merges (dispatched, response not yet fetched): the
+    response round-trip that used to serialize behind the next dispatch
+    now overlaps it, so maximal merges pipeline without ever being
+    split (docs/pipeline.md).  Dispatch order is serialized by the
+    backend lock; cascade merges hold that lock across their whole
+    read -> replay -> write-back window, which serializes them against
+    every other mutation path (this lane, the object path, the GLOBAL
+    managers) exactly like any other single-writer section.
+
+    `serve_mode` picks the drain discipline (docs/ring.md): "classic"
+    forces depth 1, "pipelined" is the depth-k overlap above, and
+    "ring" hands plain merges to the serving loop (runtime/ring.py) —
+    packed straight into ring slot layout, fetched by the ring runner off
+    the request path — with locked cascade merges and sketch readbacks
+    riding the runner as FIFO host jobs.  Only a backend without ring
+    support — or a broken ring — falls back to the pipelined
+    discipline."""
+
+    def __init__(self, service, max_inflight: int = 1,
+                 sparse_limit: int = 64,
+                 pipeline_depth: int = 2,
+                 serve_mode: str = "pipelined",
+                 ring_slots: int = 8,
+                 ring_rounds: int = 4,
+                 ring_max_linger_us: float = 200.0) -> None:
+        from gubernator_tpu_torch.core.config import normalize_serve_mode
+
+        if max_inflight < 1:
+            raise ValueError(
+                f"fastpath max_inflight must be >= 1, got {max_inflight}"
+            )
+        if pipeline_depth < 1:
+            raise ValueError(
+                f"fastpath pipeline_depth must be >= 1, "
+                f"got {pipeline_depth}"
+            )
+        serve_mode = normalize_serve_mode(serve_mode)
+        self.s = service
+        metrics = service.metrics
+        # Drain discipline (docs/ring.md): classic = strict depth-1,
+        # pipelined = depth-k fetch overlap, ring = the device-resident
+        # serving loop (runtime/ring.py) with NO blocking fetch on the
+        # request path, megaround = ring plus the adaptive round
+        # accumulator (dispatch amortized across up to
+        # ring_slots x ring_rounds rounds), persistent = the ring
+        # protocol with the serve kernel's build reported.  A backend
+        # without ring support degrades to pipelined, and persistent
+        # degrades to megaround where there is no kernel (the CPU) —
+        # with the probe's reason kept for /debug/vars.
+        self.serve_mode = serve_mode  # requested
+        self._ring = None
+        self.persistent_status = None
+        if serve_mode == "classic":
+            pipeline_depth = 1
+        elif serve_mode in ("ring", "megaround", "persistent"):
+            backend = service.backend
+            persistent = False
+            if serve_mode == "persistent":
+                ok, reason = getattr(
+                    backend, "persistent_serve_supported",
+                    lambda: (
+                        False, "backend has no persistent serve kernel"
+                    ),
+                )()
+                self.persistent_status = {
+                    "supported": bool(ok), "reason": reason,
+                }
+                if ok:
+                    persistent = True
+                else:
+                    # Honest fallback: megaround is the next-best
+                    # dispatch-amortization tier, everywhere.
+                    serve_mode = "megaround"
+            rounds = 1 if serve_mode == "ring" else max(ring_rounds, 1)
+            if getattr(backend, "ring_supported", lambda: False)():
+                from gubernator_tpu_torch.runtime.ring import RingBackend
+
+                self._ring = RingBackend(
+                    backend, slots=ring_slots, metrics=metrics,
+                    rounds=rounds,
+                    max_linger_us=(
+                        ring_max_linger_us if rounds > 1 else 0.0
+                    ),
+                    persistent=persistent,
+                )
+                # The coalescer's fetch stage in ring mode only waits on
+                # a published slot (cheap), so let enough merges be
+                # outstanding to keep the ring runner fed — and in
+                # megaround mode, enough to let a backlog actually form
+                # past the base tier (the accumulator's load signal).
+                pipeline_depth = max(
+                    pipeline_depth, min(ring_slots * rounds, 8)
+                )
+            else:
+                serve_mode = "pipelined"  # docs/ring.md fallback rule
+        self.effective_serve_mode = serve_mode
+        # Blocking device->host fetches performed ON the request path
+        # (a coalescer dispatch/fetch stage), by lane.  The ring
+        # acceptance criterion: steady-state == 0 in ring mode
+        # (scripts/ring_smoke.py; bench_e2e budget split).
+        self.blocking_fetches = {"mach": 0, "sketch": 0}
+        # Worker budget: one thread per concurrent dispatch stage plus
+        # one per outstanding fetch (pipeline depth + sparse overlap
+        # slots) — a fetch blocked on the device (or on a write-through
+        # ticket) must never starve the next merge's dispatch in this
+        # very pool.
+        self._pool = ThreadPoolExecutor(
+            max_workers=max_inflight + pipeline_depth + (
+                _Coalescer.OVERLAP_SLOTS if sparse_limit > 0 else 0
+            ),
+            thread_name_prefix="tpu-fastlane",
+        )
+        self._mach = _Coalescer(
+            self._pool, self._process, max_inflight,
+            sparse_limit=sparse_limit,
+            size_of=lambda e: e.cols.n,
+            pipeline_depth=pipeline_depth,
+            metrics=metrics, lane="mach",
+        )
+        # The sketch lane coalesces cross-RPC into one maximal merge at a
+        # time, on DEDICATED workers so machinery syncs can't starve it
+        # (and vice versa); it pipelines its own dispatch/fetch stages at
+        # the same depth.
+        self._sketch_pool = ThreadPoolExecutor(
+            max_workers=1 + pipeline_depth,
+            thread_name_prefix="tpu-fastlane-sketch",
+        )
+        self._sketch_lane = (
+            _Coalescer(self._sketch_pool, self._sketch_process,
+                       pipeline_depth=pipeline_depth,
+                       metrics=metrics, lane="sketch")
+            if service.sketch_backend is not None else None
+        )
+        self.pipeline_depth = pipeline_depth
+        # Servings since start (observability; also asserted in tests to
+        # prove the fast lane actually ran).
+        self.served = 0
+        self.fallbacks = 0
+        self._owner_frames: Dict[bytes, bytes] = {}
+        # (membership_version, combined hash array) — see _sketch_hashes.
+        self._sk_hashes: Optional[Tuple[int, np.ndarray]] = None
+
+    def debug_vars(self) -> dict:
+        """The /debug/vars view: per-lane drain/pipeline counters."""
+        lanes = {"mach": self._mach.debug_vars()}
+        if self._sketch_lane is not None:
+            lanes["sketch"] = self._sketch_lane.debug_vars()
+        out = {
+            "served": self.served,
+            "fallbacks": self.fallbacks,
+            "pipeline_depth": self.pipeline_depth,
+            "serve_mode": self.serve_mode,
+            "effective_serve_mode": self.effective_serve_mode,
+            "blocking_fetches": dict(self.blocking_fetches),
+            "lanes": lanes,
+        }
+        if self._ring is not None:
+            out["ring"] = self._ring.debug_vars()
+        if self.persistent_status is not None:
+            # Honest capability reporting for GUBER_SERVE_MODE=
+            # persistent: whether the serve kernel armed, and the
+            # probe's reason when it degraded to megaround.
+            out["persistent"] = dict(self.persistent_status)
+        return out
+
+    def _ring_live(self):
+        """The RingBackend, if this merge may enter it (None once the
+        ring broke or closed — the per-merge fallback to pipelined)."""
+        r = self._ring
+        return r if (r is not None and r.available()) else None
+
+    # -- eligibility -----------------------------------------------------
+    def _eligible(self) -> bool:
+        return native.available()
+
+    def _sketch_hashes(self) -> np.ndarray:
+        """XXH64 fingerprints of the sketch-tier names (route key for the
+        parser's name_hash column; the same 64-bit fingerprint stance the
+        slot table takes on full keys).  Runtime-spilled names
+        (SketchBackend.spill_name) append to the configured set; the
+        combined array is cached per membership version — this runs in
+        the per-RPC parse path."""
+        sb = self.s.sketch_backend
+        ver = sb.membership_version
+        if self._sk_hashes is None or self._sk_hashes[0] != ver:
+            base = native.hash_keys(sorted(sb.cfg.names))
+            dyn = sb.dynamic_hashes()
+            combined = (
+                base if len(dyn) == 0 else np.concatenate([base, dyn])
+            )
+            self._sk_hashes = (ver, combined)
+        return self._sk_hashes[1]
+
+    def _owner_frame(self, addr: bytes) -> bytes:
+        f = self._owner_frames.get(addr)
+        if f is None:
+            f = native.meta_frame(b"owner", addr)
+            self._owner_frames[addr] = f
+        return f
+
+    def _single_node(self) -> bool:
+        """True when no request can need a peer forward: an empty picker,
+        or a one-peer picker where that peer is this node."""
+        pick = self.s.local_picker
+        sz = pick.size()
+        if sz == 0:
+            return True
+        if sz > 1:
+            return False
+        return pick.peers()[0].info().is_owner
+
+    # -- entry point -----------------------------------------------------
+    async def check_raw(
+        self, payload: bytes, peer_rpc: bool
+    ) -> Optional[bytes]:
+        """Serve a GetRateLimits(Req) / GetPeerRateLimits(Req) payload on
+        the compiled lane; None = caller must take the object path.
+        Raises ApiError on an oversized batch (same contract as the
+        object path)."""
+        from gubernator_tpu_torch.runtime.service import ApiError
+
+        if not self._eligible():
+            self.fallbacks += 1
+            return None
+        routed = not peer_rpc and not self._single_node()
+        if routed and not self._can_route():
+            self.fallbacks += 1
+            return None
+        if routed and len(self.s.local_picker.ring_arrays()[2]) == 0:
+            # Empty ring: fall back BEFORE any metric side effects so the
+            # object path (which re-runs validation and increments the
+            # same counters) can't double-count.  There is no await
+            # between here and _serve_routed's ring read, so the router
+            # below never sees an empty ring.
+            self.fallbacks += 1
+            return None
+        cols = native.parse_reqs(payload)
+        if cols is None:
+            self.fallbacks += 1
+            return None
+        n = cols.n
+        if n > MAX_BATCH_SIZE:
+            # Metric parity with the object path (service.py rejects with
+            # the same counter on the client RPC, none on the peer RPC).
+            if peer_rpc:
+                raise ApiError(
+                    "OUT_OF_RANGE",
+                    "'PeerRequest.rate_limits' list too large; max size "
+                    "is '%d'" % MAX_BATCH_SIZE,
+                )
+            self.s.metrics.note_check_error("Request too large")
+            raise ApiError(
+                "OUT_OF_RANGE",
+                "Requests.RateLimits list too large; max size is '%d'"
+                % MAX_BATCH_SIZE,
+            )
+        if not peer_rpc and n and cols.err.any():
+            # Metric parity with the object path's client-side validation
+            # rejections (gubernator.go:229, 235).
+            n_inv = int(((cols.err == 1) | (cols.err == 2)).sum())
+            if n_inv:
+                self.s.metrics.note_check_error("Invalid request", n_inv)
+        sk: Optional[np.ndarray] = None
+        if self.s.sketch_backend is not None and n:
+            sk = np.isin(cols.name_hash, self._sketch_hashes()) & (
+                cols.err == 0
+            )
+            if sk.any():
+                # Sketch names don't compose with GLOBAL replication —
+                # strip the flag so they route plainly to the key's owner
+                # and count ONCE there (service.py's routing does the
+                # same on the object path).
+                cols.behavior[sk] &= ~_GLOBAL
+            else:
+                sk = None
+        is_global = (cols.behavior & _GLOBAL) != 0
+        if n == 0:
+            return b""
+        if not peer_rpc:
+            # concurrent_checks parity with service.get_rate_limits.
+            self.s._inflight_checks += 1
+            self.s.metrics.concurrent_checks.observe(
+                self.s._inflight_checks
+            )
+        try:
+            if routed:
+                return await self._serve_routed(
+                    payload, cols, n, is_global, sk
+                )
+            return await self._serve(
+                payload, cols, n, is_global, sk, peer_rpc
+            )
+        finally:
+            if not peer_rpc:
+                self.s._inflight_checks -= 1
+
+    def _prep_greg(self, cols, exclude=None) -> Tuple[
+        np.ndarray, np.ndarray, np.ndarray, Dict[int, bytes]
+    ]:
+        """Host-side Gregorian expiry (rare; only flagged lanes loop).
+        Marks failed lanes in cols.err and zeroes their hashes.
+        `exclude` masks lanes whose tier ignores duration entirely (the
+        sketch tier, which neither computes nor errors on Gregorian —
+        matching SketchBackend.check)."""
+        n = cols.n
+        greg_expire = np.zeros(n, dtype=np.int64)
+        greg_duration = np.zeros(n, dtype=np.int64)
+        is_greg = (
+            cols.behavior & int(Behavior.DURATION_IS_GREGORIAN)
+        ) != 0
+        # Validation errors take precedence: the object path's packer
+        # rejects an empty name/key BEFORE evaluating the Gregorian
+        # duration, so an already-errored lane must keep its error.
+        is_greg &= cols.err == 0
+        if exclude is not None:
+            is_greg &= ~exclude
+        err_extra: Dict[int, bytes] = {}
+        if is_greg.any():
+            now_dt = self.s.clock.now()
+            for i in np.flatnonzero(is_greg):
+                i = int(i)
+                try:
+                    greg_expire[i] = gregorian_expiration(
+                        now_dt, int(cols.duration[i])
+                    )
+                    greg_duration[i] = gregorian_duration(
+                        now_dt, int(cols.duration[i])
+                    )
+                except GregorianError as e:
+                    err_extra[i] = str(e).encode()
+                    cols.err[i] = _ERR_GREG
+                    cols.hash[i] = 0
+        return is_greg, greg_expire, greg_duration, err_extra
+
+    def _error_strings(self, cols, err_extra) -> List[bytes]:
+        """Per-request error bytes (b'' on clean lanes)."""
+        out = [b""] * cols.n
+        if cols.err.any():
+            for i in np.flatnonzero(cols.err):
+                i = int(i)
+                code = int(cols.err[i])
+                out[i] = (
+                    err_extra.get(i, b"")
+                    if code == _ERR_GREG
+                    else (_ERR_EMPTY_KEY if code == 1 else _ERR_EMPTY_NAME)
+                )
+        return out
+
+    async def _serve_cols(
+        self, payload, cols, is_greg, ge, gd, use_cached=None
+    ) -> Tuple[np.ndarray, ...]:
+        """Submit columns to the coalescing batcher; returns the seven
+        response arrays (status, limit, remaining, reset_time, stored,
+        stored_status, cap_ok — the last three feed the GLOBAL broadcast
+        capture).  `payload` is the raw wire bytes the columns were
+        spliced from — the persistence SPI decodes per-unique-key
+        requests from it."""
+        return await self._mach.do(_Entry(
+            payload=payload,
+            cols=cols,
+            is_greg=is_greg,
+            greg_expire=ge,
+            greg_duration=gd,
+            use_cached=(
+                use_cached if use_cached is not None
+                else np.zeros(cols.n, dtype=bool)
+            ),
+        ))
+
+    def _decode_req(self, payload, cols, i: int):
+        """Decode ONE request's spliced wire frame into a RateLimitReq."""
+        from gubernator_tpu_torch.net.grpc_api import req_from_pb
+        from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+        frame = payload[
+            cols.msg_off[i]:cols.msg_off[i] + cols.msg_len[i]
+        ]
+        return req_from_pb(pb.GetRateLimitsReq.FromString(frame).requests[0])
+
+    def _decode_unique(self, payload, cols, idx, last=False):
+        """Yield (req, group_indices) for each UNIQUE key hash among the
+        request indices `idx` — one protobuf decode per unique key (the
+        managers aggregate by key anyway, global.go:87-95).  `last`
+        decodes the group's LAST arrival instead of its first: the
+        update queue is last-write-wins per key (queue_update), and the
+        broadcast's zero-hit re-read uses the queued request's params —
+        first-occurrence params would recreate the bucket differently
+        on an algorithm/burst change within one batch."""
+        if not len(idx):
+            return
+        order = idx[np.argsort(cols.hash[idx], kind="stable")]
+        hs = cols.hash[order]
+        bounds = np.flatnonzero(
+            np.concatenate([[True], hs[1:] != hs[:-1]])
+        )
+        for b_i, lo in enumerate(bounds):
+            hi = bounds[b_i + 1] if b_i + 1 < len(bounds) else len(order)
+            group = order[lo:hi]
+            fi = int(group[-1] if last else group[0])
+            yield self._decode_req(payload, cols, fi), group
+
+    def _queue_global(self, payload, cols, idx) -> None:
+        """Queue GLOBAL hits (non-owner) for the request indices `idx` —
+        the deferred QueueHit of gubernator.go:429-432.  Errored lanes
+        are pre-filtered by the caller: a queued errored hit is dropped
+        by the owner's validation with no state effect anywhere, so the
+        bookkeeping difference from the object path (which queues before
+        validating) is unobservable."""
+        from dataclasses import replace as dc_replace
+
+        if not len(idx):
+            return
+        mgr = self.s.global_mgr
+        for req, group in self._decode_unique(payload, cols, idx):
+            total = int(cols.hits[group].sum())
+            mgr.queue_hit(dc_replace(req, hits=total))
+
+    def _queue_global_updates(self, payload, cols, is_global,
+                              owned=None, peer_rpc=False,
+                              capture=None) -> None:
+        """Queue owner-side broadcast updates for GLOBAL lanes — GREGORIAN-
+        errored lanes included: the reference QueueUpdates before the
+        algorithm runs (gubernator.go:617-619), so with last-write-wins
+        per key an errored occurrence can cancel a valid one's pending
+        broadcast.  The fast lane reproduces that exactly: the LAST
+        arrival per key wins, valid or not.  VALIDATION-errored lanes
+        (empty name/key) queue only on the peer RPC: the client RPC
+        rejects them before routing (gubernator.go:228-237) so they never
+        reach the algorithm, while the peer RPC validates owner-side
+        AFTER QueueUpdate.
+
+        `owned` (routed path) masks node-owned lanes.  Which branch an
+        errored lane takes depends on where its error was detected:
+        validation errors have hash 0 from the parser and route through
+        the decode branch below, with ownership decided from the decoded
+        key string like the object path's routing; Gregorian errors on
+        the ROUTED path keep their true hash in `cols` (only
+        serve_local's subset copy was zeroed), so they group with the
+        valid lanes — same last-write-wins outcome either way.
+
+        `capture` = (stored_status, stored, reset, limit, cap_ok)
+        full-size response columns from this drain: each queued update
+        carries the post-step stored state of its LAST arrival, which the
+        broadcast ships directly instead of re-running a zero-hit read —
+        equal by construction to global.go:205-250's re-read of a bucket
+        row (token reports the sticky stored status; leaky always
+        re-reads UNDER; reset/remaining are the post-step stored values;
+        a lane whose request errored re-captures the error, which the
+        broadcast skips exactly as it skips a failed re-read).  A capture
+        is kept ONLY when `cap_ok` marks the arrival as its key's last
+        mutating occurrence across the WHOLE merged drain (computed in
+        _process over every coalesced RPC — a later occurrence, even from
+        another concurrent call, moves the row past the capture, and the
+        flush-time re-read would then apply the queued request's now
+        stale params to the newer row, a reference quirk the re-read
+        fallback preserves exactly; sketch lanes never reach _process's
+        machinery merge, so their cap_ok stays False).  Later DRAINS
+        degrade captures via _touch_captures.  The only intended
+        divergences from flush-time
+        re-reads: sub-window leaky time-regen (zero under a frozen
+        clock) and no resurrection of keys evicted between drain and
+        flush."""
+        idx = np.flatnonzero(is_global)
+        if not len(idx):
+            return
+        hv = cols.hash[idx]
+        valid = idx[hv != 0]
+        if owned is not None:
+            valid = valid[owned[valid]]
+        best: Dict[str, Tuple[int, object]] = {}
+        for req, group in self._decode_unique(
+            payload, cols, valid, last=True
+        ):
+            best[req.hash_key()] = (int(group[-1]), req)
+        err_lanes = idx[hv == 0]
+        if len(err_lanes) and not peer_rpc:
+            # Client path: only Gregorian failures reached the algorithm;
+            # validation errors were rejected before routing.
+            err_lanes = err_lanes[cols.err[err_lanes] == _ERR_GREG]
+        if len(err_lanes):
+            from gubernator_tpu_torch.runtime.service import PoolEmptyError
+
+            sk_be = self.s.sketch_backend
+            for i in err_lanes:
+                i = int(i)
+                req = self._decode_req(payload, cols, i)
+                if sk_be is not None and sk_be.handles(req):
+                    # The object path strips GLOBAL from sketch names
+                    # unconditionally (errored or not) — a sketch key
+                    # never queues an exact-table broadcast.
+                    continue
+                key = req.hash_key()
+                if owned is not None:
+                    try:
+                        if not self.s.get_peer(key).info().is_owner:
+                            continue
+                    except PoolEmptyError:
+                        continue
+                cur = best.get(key)
+                if cur is None or i > cur[0]:
+                    best[key] = (i, req)
+        mgr = self.s.global_mgr
+        if capture is None:
+            for _, req in best.values():
+                mgr.queue_update(req)
+            return
+        from gubernator_tpu_torch.core.types import RateLimitResp, Status
+
+        sst, sto, rst, lm, cap_ok = capture
+        for i, req in best.values():
+            if cols.err[i] != 0:
+                # Errored last arrival: the re-read would fail the same
+                # way and broadcast nothing — capture a sentinel error so
+                # the broadcast skips this key (last-write-wins cancel,
+                # immune to later mutations: the QUEUED params stay
+                # errored).
+                st: Optional[RateLimitResp] = RateLimitResp(
+                    error="capture: errored lane"
+                )
+            elif not cap_ok[i]:
+                st = None  # a later occurrence moved the row — re-read
+            elif int(cols.behavior[i]) & int(Behavior.RESET_REMAINING):
+                # The flush-time re-read of a RESET_REMAINING request
+                # re-runs the reset (algorithms.go:78-90 precedes the
+                # hits==0 early-out) — a mutating read the capture
+                # cannot represent.
+                st = None
+            elif int(cols.algo[i]) == 1 and int(sto[i]) > int(
+                cols.burst[i] if cols.burst[i] != 0 else cols.limit[i]
+            ):
+                # Leaky row overfilled past burst (negative hits): the
+                # next read — including the flush re-read — clamps and
+                # WRITES remaining back to burst (algorithms.go:372-376).
+                # Another mutating read; keep it.
+                st = None
+            else:
+                st = RateLimitResp(
+                    status=Status(int(sst[i])),
+                    limit=int(lm[i]),
+                    remaining=int(sto[i]),
+                    reset_time=int(rst[i]),
+                )
+            mgr.queue_update(req, st)
+
+    def _touch_captures(self, cols, sk=None) -> None:
+        """Degrade stale captured GLOBAL broadcast rows for every key
+        this drain mutated on the machinery table (a non-GLOBAL request
+        must not let a pending capture ship pre-mutation state — the
+        re-read fallback then sees the post-mutation row, exactly like
+        the reference's flush-time read).  Near-free while no captures
+        are pending; lanes that re-queue an update below simply
+        re-capture fresh state (touch runs first)."""
+        mgr = self.s.global_mgr
+        if not mgr._pending_h:
+            return
+        mask = cols.err == 0
+        if sk is not None:
+            mask &= ~sk
+        if mask.any():
+            mgr.touch_hashes(cols.hash[mask])
+
+    def _queue_multiregion(self, payload, cols, idx) -> None:
+        """Queue owner-side MULTI_REGION hits for the request indices
+        `idx` toward the cross-region manager (the object path's
+        queue_hits call in _check_local, gubernator.go:600-631)."""
+        from dataclasses import replace as dc_replace
+
+        if not len(idx):
+            return
+        mgr = self.s.multi_region_mgr
+        for req, group in self._decode_unique(payload, cols, idx):
+            total = int(cols.hits[group].sum())
+            mgr.queue_hits(dc_replace(req, hits=total))
+
+    async def _serve_split(
+        self, payload, cols, is_greg, ge, gd, use_cached, sk
+    ) -> Tuple[np.ndarray, ...]:
+        """Serve a column set, splitting sketch-named lanes to the CMS
+        merge; the rest rides the exact machinery.  Both branches run
+        concurrently and scatter into full-size response arrays."""
+        if sk is None or not sk.any():
+            return await self._serve_cols(
+                payload, cols, is_greg, ge, gd, use_cached=use_cached
+            )
+        n = cols.n
+        sk_idx = np.flatnonzero(sk)
+        ex_idx = np.flatnonzero(~sk)
+        status = np.zeros(n, dtype=np.int64)
+        out_lim = np.zeros(n, dtype=np.int64)
+        remaining = np.zeros(n, dtype=np.int64)
+        reset = np.zeros(n, dtype=np.int64)
+        # Post-step stored columns (machinery lanes only — sketch lanes
+        # never feed the RPC broadcast capture, so their cap_ok
+        # stays False).
+        stored = np.zeros(n, dtype=np.int64)
+        stored_st = np.zeros(n, dtype=np.int64)
+        cap_ok = np.zeros(n, dtype=bool)
+
+        async def run_sketch() -> None:
+            kh = cols.hash[sk_idx]
+            hh = cols.hits[sk_idx]
+            ll = cols.limit[sk_idx]
+            st, rem, rst = await self._sketch_lane.do(
+                _SketchEntry(kh, hh, ll)
+            )
+            status[sk_idx] = st
+            out_lim[sk_idx] = ll
+            remaining[sk_idx] = rem
+            reset[sk_idx] = rst
+
+        async def run_exact() -> None:
+            sub = cols.subset(ex_idx)
+            st, lm, rem, rst, sto, sst, cok = await self._serve_cols(
+                payload, sub, is_greg[ex_idx], ge[ex_idx], gd[ex_idx],
+                use_cached=(
+                    use_cached[ex_idx] if use_cached is not None else None
+                ),
+            )
+            status[ex_idx] = st
+            out_lim[ex_idx] = lm
+            remaining[ex_idx] = rem
+            reset[ex_idx] = rst
+            stored[ex_idx] = sto
+            stored_st[ex_idx] = sst
+            cap_ok[ex_idx] = cok
+
+        tasks = []
+        if len(sk_idx):
+            tasks.append(run_sketch())
+        if len(ex_idx):
+            tasks.append(run_exact())
+        await asyncio.gather(*tasks)
+        return status, out_lim, remaining, reset, stored, stored_st, cap_ok
+
+    @staticmethod
+    def _sketch_meta(n: int, sk) -> Tuple[Optional[bytes],
+                                          Optional[np.ndarray]]:
+        """(meta_blob, meta_off) tagging sketch lanes tier=sketch."""
+        if sk is None or not sk.any():
+            return None, None
+        metas = [
+            _TIER_SKETCH_FRAME if sk[i] else b"" for i in range(n)
+        ]
+        off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(m) for m in metas], out=off[1:])
+        return b"".join(metas), off
+
+    async def _serve(
+        self, payload, cols, n: int, is_global, sk, peer_rpc=False
+    ) -> bytes:
+        """Single-node / peer-RPC path: everything is local (and owned,
+        so GLOBAL lanes serve authoritatively and queue broadcast
+        updates)."""
+        is_greg, ge, gd, err_extra = self._prep_greg(cols, exclude=sk)
+        status, limit, remaining, reset, stored, stored_st, cap_ok = (
+            await self._serve_split(
+                payload, cols, is_greg, ge, gd, None, sk
+            )
+        )
+        self._touch_captures(cols, sk)
+        if is_global.any():
+            self._queue_global_updates(
+                payload, cols, is_global, peer_rpc=peer_rpc,
+                capture=(stored_st, stored, reset, limit, cap_ok),
+            )
+        mr = (cols.behavior & _MULTI_REGION) != 0
+        if mr.any():
+            self._queue_multiregion(
+                payload, cols, np.flatnonzero(mr & (cols.err == 0))
+            )
+        errs = self._error_strings(cols, err_extra)
+        err_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(e) for e in errs], out=err_off[1:])
+        meta_blob, meta_off = self._sketch_meta(n, sk)
+        self.served += n
+        return native.serialize_resps(
+            status, limit, remaining, reset, b"".join(errs), err_off,
+            meta_blob, meta_off,
+        )
+
+    def _can_route(self) -> bool:
+        """Columnar routing serves every selectable ring hash: xx rings
+        drive the owner lookup straight from the C++ parse fingerprint
+        (XXH64 of the hash-key string); fnv1/fnv1a rings — placement
+        interop with mixed reference/tpu clusters
+        (replicated_hash.go:33) — get a vectorized second hash column
+        from gub_fnv_hashkey_batch."""
+        from gubernator_tpu_torch.core.hashing import fnv1_64, fnv1a_64
+        from gubernator_tpu_torch.net.replicated_hash import xx_64
+
+        return self.s.local_picker.hash_fn in (xx_64, fnv1_64, fnv1a_64)
+
+    async def _serve_routed(
+        self, payload: bytes, cols, n: int, is_global, sk
+    ) -> bytes:
+        """Multi-node client path: vectorized consistent-hash routing with
+        zero-copy forwards.
+
+        One np.searchsorted over the vnode ring maps every request to its
+        owner; locally-owned (and errored) lanes ride the normal columnar
+        lane, while each remote owner receives ONE GetPeerRateLimits RPC
+        whose payload is spliced verbatim from this request's wire bytes —
+        no re-encoding in either direction (the reference's asyncRequests
+        + peer batcher, gubernator.go:327-416, with the per-request python
+        replaced by array ops).  Failed forwards fall back to the object
+        path's ownership-retry loop per request."""
+        picker = self.s.local_picker
+        ring, ring_idx, peers = picker.ring_arrays()
+        # check_raw gated on a non-empty ring with no await in between;
+        # a fallback here would double-count the validation metrics the
+        # caller already incremented, so the invariant must hold.
+        assert peers, "check_raw gates on a non-empty ring"
+        from gubernator_tpu_torch.net.replicated_hash import xx_64
+
+        if picker.hash_fn is xx_64:
+            h_route = cols.hash
+        else:
+            # fnv1/fnv1a interop ring (_can_route admitted it): hash the
+            # spliced hash-key bytes with the ring's own function —
+            # placement stays identical to a reference node's.
+            from gubernator_tpu_torch.core.hashing import fnv1_64
+
+            h_route = native.fnv_hashkey_batch(
+                payload, cols,
+                "fnv1" if picker.hash_fn is fnv1_64 else "fnv1a",
+            )
+        h_u = h_route.view(np.uint64)
+        slot = np.searchsorted(ring, h_u, side="left")
+        slot[slot == len(ring)] = 0
+        owner = ring_idx[slot]  # peer index per request
+        is_owner = np.array(
+            [p.info().is_owner for p in peers], dtype=bool
+        )
+        owned = is_owner[owner]
+        # GLOBAL never forwards: non-owned GLOBAL serves from the local
+        # replica via use_cached lanes (stale-but-fast reads,
+        # gubernator.go:420-460) with the hit queued to the owner.
+        glob_cached = is_global & ~owned & (cols.err == 0)
+        local_mask = (cols.err != 0) | owned | is_global
+        status = np.zeros(n, dtype=np.int64)
+        out_lim = np.zeros(n, dtype=np.int64)
+        remaining = np.zeros(n, dtype=np.int64)
+        reset = np.zeros(n, dtype=np.int64)
+        stored = np.zeros(n, dtype=np.int64)
+        stored_st = np.zeros(n, dtype=np.int64)
+        cap_ok = np.zeros(n, dtype=bool)
+        errs: List[bytes] = [b""] * n
+        metas: List[bytes] = [b""] * n
+
+        async def serve_local(idx: np.ndarray) -> None:
+            sub = cols.subset(idx)
+            sub_sk = sk[idx] if sk is not None else None
+            is_greg, ge, gd, err_extra = self._prep_greg(
+                sub, exclude=sub_sk
+            )
+            # _prep_greg marked Gregorian failures on the subset COPY —
+            # propagate so the GLOBAL queue/metadata block (filtered on
+            # cols.err == 0) never replicates or annotates a failed lane.
+            cols.err[idx] = sub.err
+            st, lm, rem, rst, sto, sst, cok = await self._serve_split(
+                payload, sub, is_greg, ge, gd, glob_cached[idx], sub_sk,
+            )
+            status[idx] = st
+            out_lim[idx] = lm
+            remaining[idx] = rem
+            reset[idx] = rst
+            stored[idx] = sto
+            stored_st[idx] = sst
+            cap_ok[idx] = cok
+            self._touch_captures(sub, sub_sk)
+            sub_errs = self._error_strings(sub, err_extra)
+            for j, i in enumerate(idx):
+                if sub_errs[j]:
+                    errs[int(i)] = sub_errs[j]
+            if sub_sk is not None:
+                for i in idx[sub_sk]:
+                    metas[int(i)] = _TIER_SKETCH_FRAME
+            # Metric parity with the object path's routing: non-owned
+            # GLOBAL reads count as "global", everything else owner-side
+            # counts as "local".
+            n_glob = int(glob_cached[idx].sum())
+            m = self.s.metrics.getratelimit_counter
+            if n_glob:
+                m.labels("global").inc(n_glob)
+            if len(idx) - n_glob:
+                m.labels("local").inc(len(idx) - n_glob)
+
+        async def forward(peer, idx: np.ndarray) -> None:
+            import grpc as grpc_mod
+
+            from gubernator_tpu_torch.net.peer_client import PeerNotReadyError
+
+            addr = peer.info().grpc_address.encode()
+            sub_pay = b"".join(
+                payload[cols.msg_off[i]:cols.msg_off[i] + cols.msg_len[i]]
+                for i in idx
+            )
+            self.s.metrics.getratelimit_counter.labels("forward").inc(
+                len(idx)
+            )
+            try:
+                raw = await peer.get_peer_rate_limits_raw(sub_pay)
+            except Exception as e:  # noqa: BLE001
+                # Retry ONLY the failures the object path retries
+                # (NotReady / UNAVAILABLE / CANCELLED, which _forward
+                # re-resolves with backoff — gubernator.go:382-395).
+                # Anything else may follow a delivered batch, and a
+                # re-send would double-count the hits.
+                retriable = isinstance(e, PeerNotReadyError) or (
+                    isinstance(e, grpc_mod.aio.AioRpcError)
+                    and e.code() in (
+                        grpc_mod.StatusCode.UNAVAILABLE,
+                        grpc_mod.StatusCode.CANCELLED,
+                    )
+                )
+                if retriable:
+                    await forward_fallback(peer, idx)
+                else:
+                    msg = (
+                        "Error while fetching rate limit from peer "
+                        f"'{peer.info().grpc_address}': {e}"
+                    ).encode()
+                    for i in idx:
+                        errs[int(i)] = msg
+                return
+            rc = native.parse_resps(raw)
+            if rc is None or rc.n != len(idx):
+                # A response ARRIVED, so the peer applied the batch —
+                # never re-send; report the protocol error instead.
+                msg = (
+                    "peer '%s' returned %s responses for %d requests"
+                    % (
+                        peer.info().grpc_address,
+                        "unparseable" if rc is None else rc.n,
+                        len(idx),
+                    )
+                ).encode()
+                for i in idx:
+                    errs[int(i)] = msg
+                return
+            status[idx] = rc.status
+            out_lim[idx] = rc.limit
+            remaining[idx] = rc.remaining
+            reset[idx] = rc.reset_time
+            owner_frame = self._owner_frame(addr)
+            for j, i in enumerate(idx):
+                i = int(i)
+                if rc.err_len[j]:
+                    o = int(rc.err_off[j])
+                    errs[i] = raw[o:o + int(rc.err_len[j])]
+                # Splice the owner's metadata frames verbatim (tier tags
+                # etc.), then append this hop's owner annotation.
+                m = b""
+                if rc.meta_len[j] > 0:
+                    o = int(rc.meta_off[j])
+                    m = raw[o:o + int(rc.meta_len[j])]
+                metas[i] = m + owner_frame
+
+        async def forward_fallback(peer, idx: np.ndarray) -> None:
+            """Re-route failed forwards through the object path's retry
+            loop (ownership changes, NotReady backoff — service._forward).
+            """
+            async def one(i: int) -> None:
+                req = self._decode_req(payload, cols, i)
+                resp = await self.s._forward(peer, req, req.hash_key())
+                status[i] = int(resp.status)
+                out_lim[i] = resp.limit
+                remaining[i] = resp.remaining
+                reset[i] = resp.reset_time
+                if resp.error:
+                    errs[i] = resp.error.encode()
+                if resp.metadata:
+                    metas[i] = b"".join(
+                        native.meta_frame(k.encode(), v.encode())
+                        for k, v in resp.metadata.items()
+                    )
+
+            await asyncio.gather(*(one(int(i)) for i in idx))
+
+        tasks = []
+        local_idx = np.flatnonzero(local_mask)
+        if len(local_idx):
+            tasks.append(serve_local(local_idx))
+        remote_idx = np.flatnonzero(~local_mask)
+        if len(remote_idx):
+            for pi in np.unique(owner[remote_idx]):
+                idx = remote_idx[owner[remote_idx] == pi]
+                tasks.append(forward(peers[int(pi)], idx))
+        await asyncio.gather(*tasks)
+
+        if is_global.any():
+            # Deferred GLOBAL replication (gubernator.go:429-432, 617):
+            # non-owned keys queue their hits toward the owner; owned keys
+            # queue broadcast updates.  Owner metadata on the served reads.
+            gc_idx = np.flatnonzero(glob_cached & (cols.err == 0))
+            for i in gc_idx:
+                metas[int(i)] = self._owner_frame(
+                    peers[int(owner[int(i)])].info().grpc_address.encode()
+                )
+            self._queue_global(payload, cols, gc_idx)
+            self._queue_global_updates(
+                payload, cols, is_global, owned=owned,
+                capture=(stored_st, stored, reset, out_lim, cap_ok),
+            )
+
+        mr = (cols.behavior & _MULTI_REGION) != 0
+        if mr.any():
+            # Owner-side queueing only: non-owned lanes were forwarded
+            # (the owner's peer-RPC lane queues them), and non-owned
+            # GLOBAL cached reads don't queue (the object path's
+            # `if cached: continue`, service._check_local).
+            self._queue_multiregion(
+                payload, cols,
+                np.flatnonzero(mr & owned & (cols.err == 0)),
+            )
+
+        err_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(e) for e in errs], out=err_off[1:])
+        meta_off = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum([len(m) for m in metas], out=meta_off[1:])
+        self.served += n
+        return native.serialize_resps(
+            status, out_lim, remaining, reset,
+            b"".join(errs), err_off, b"".join(metas), meta_off,
+        )
+
+    def _note_spill_pressure(self, entries, h_mach, foundv, persv) -> None:
+        """Feed the sketch tier's dynamic-spillover policy with this
+        drain's per-name exact-tier pressure (SketchTierConfig
+        spill_inserts/spill_transients): insert lanes' key fingerprints
+        (the backend's per-name HyperLogLog turns them into a DISTINCT-
+        key estimate, immune to expiry/re-insert churn) and slot-denied
+        transients (full-bucket pressure).  `h_mach` is the machinery
+        hash column (cascade-diverted lanes zeroed — they had no device
+        round).  One sort groups hot lanes by name — no per-name array
+        scans (a name-sweep attack makes U ≈ n) — and name strings
+        decode lazily, only for threshold-crossing names."""
+        if len(entries) == 1:
+            names = entries[0].cols.name_hash
+        else:
+            names = np.concatenate(
+                [e.cols.name_hash for e in entries]
+            )
+        act = h_mach != 0
+        ins = act & (foundv == 0) & (persv != 0)
+        tra = act & (persv == 0)
+        hot = np.flatnonzero(ins | tra)
+        if not len(hot):
+            return
+        order = hot[np.argsort(names[hot], kind="stable")]
+        ns = names[order]
+        bounds = np.flatnonzero(
+            np.concatenate([[True], ns[1:] != ns[:-1]])
+        )
+        items = []
+        first_idx: Dict[int, int] = {}
+        for b_i, lo in enumerate(bounds):
+            hi = bounds[b_i + 1] if b_i + 1 < len(bounds) else len(order)
+            grp = order[lo:hi]
+            nh = int(ns[lo])
+            first_idx[nh] = int(grp[0])
+            items.append((
+                nh,
+                h_mach[grp[ins[grp]]],
+                int(tra[grp].sum()),
+            ))
+
+        def decode_names(nh: int) -> str:
+            i0 = first_idx[nh]
+            off = 0
+            for e in entries:
+                if i0 < off + e.cols.n:
+                    return self._decode_req(
+                        e.payload, e.cols, i0 - off
+                    ).name
+                off += e.cols.n
+            raise AssertionError("index outside drain")
+
+        self.s.sketch_backend.note_exact_pressure_batch(
+            items, decode_names
+        )
+
+    # -- merge processing (runs on _pool threads via _Coalescer) ---------
+    def _sketch_process(self, entries: Sequence["_SketchEntry"]):
+        """One CMS dispatch for a drained sketch-entry list (cross-RPC
+        coalescing; duplicate keys landing in one device chunk share its
+        pre-chunk estimate — the CMS's documented batch-granularity
+        approximation).  Dispatch stage: concat + device dispatch under
+        the sketch lock; the returned closure is the fetch stage."""
+        if len(entries) == 1:
+            kh, hh, ll = entries[0].kh, entries[0].hits, entries[0].limits
+        else:
+            kh = np.concatenate([e.kh for e in entries])
+            hh = np.concatenate([e.hits for e in entries])
+            ll = np.concatenate([e.limits for e in entries])
+        fetch_cols = self.s.sketch_backend.check_cols_begin(kh, hh, ll)
+        wait_cols = None
+        ring = self._ring_live()
+        if ring is not None:
+            # Ring discipline: the CMS readback runs on the ring runner
+            # (sketch state is independent of the slot table, so FIFO
+            # placement is for fetch-offloading, not ordering).
+            from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+            try:
+                wait_cols = ring.submit_host(fetch_cols)
+            except RingClosedError:
+                wait_cols = None
+
+        def fetch() -> List[Tuple[np.ndarray, ...]]:
+            if wait_cols is not None:
+                st, rem, rst = wait_cols()
+            else:
+                self.blocking_fetches["sketch"] += 1
+                st, rem, rst = fetch_cols()
+            outs: List[Tuple[np.ndarray, ...]] = []
+            off = 0
+            for e in entries:
+                k = len(e.kh)
+                outs.append((st[off:off + k], rem[off:off + k],
+                             rst[off:off + k]))
+                off += k
+            return outs
+
+        return fetch
+
+    def _process(self, entries: Sequence["_Entry"]):
+        """Pack -> step for a coalesced entry list (runs on a fast-lane
+        pool thread; everything here is numpy/C++/device).  This is the
+        DISPATCH stage of the pipelined drain: it returns a zero-arg
+        fetch closure (host sync + gather + persistence delivery) that
+        the coalescer runs on its fetch stage, so the next merge's
+        dispatch overlaps this merge's device->host readback.
+
+        Duplicate-heavy batches (Zipfian hot keys) would otherwise explode
+        into one device round PER OCCURRENCE of the hottest key; eligible
+        duplicate groups instead take the host-cascade path (_plan_cascade):
+        one read lane, an exact host-side replay of the per-occurrence
+        algorithm branches, and one effective write-back lane — two rounds
+        total regardless of skew."""
+        B = self.s.backend.cfg.batch_size
+
+        if len(entries) == 1:
+            c = entries[0].cols
+            h, hits, lim, dur = c.hash, c.hits, c.limit, c.duration
+            algo, burst, behavior = c.algo, c.burst, c.behavior
+            is_greg = entries[0].is_greg
+            ge, gd = entries[0].greg_expire, entries[0].greg_duration
+            use_cached = entries[0].use_cached
+        else:
+            h = np.concatenate([e.cols.hash for e in entries])
+            hits = np.concatenate([e.cols.hits for e in entries])
+            lim = np.concatenate([e.cols.limit for e in entries])
+            dur = np.concatenate([e.cols.duration for e in entries])
+            algo = np.concatenate([e.cols.algo for e in entries])
+            burst = np.concatenate([e.cols.burst for e in entries])
+            behavior = np.concatenate([e.cols.behavior for e in entries])
+            is_greg = np.concatenate([e.is_greg for e in entries])
+            ge = np.concatenate([e.greg_expire for e in entries])
+            gd = np.concatenate([e.greg_duration for e in entries])
+            use_cached = np.concatenate([e.use_cached for e in entries])
+        n = len(h)
+
+        burst = np.where(burst == 0, lim, burst)
+        reset_remaining = (behavior & int(Behavior.RESET_REMAINING)) != 0
+
+        plan = _plan_cascade(h, hits, reset_remaining, is_greg,
+                             lim, dur, algo, burst, use_cached)
+
+        from gubernator_tpu_torch.runtime.backend import packed_rounds_to_host
+
+        backend = self.s.backend
+        if plan is None:
+            h_mach, hits_mach = h, hits
+        else:
+            h_mach = h.copy()
+            hits_mach = hits.copy()
+            h_mach[plan.occ] = 0          # divert cascade occurrences
+            h_mach[plan.firsts] = h[plan.firsts]  # keep one READ lane
+            hits_mach[plan.firsts] = 0
+
+        rnd, lane, n_rounds = native.assign_rounds(h_mach, None, 1, B)
+
+        values = dict(
+            key_hash=h_mach, hits=hits_mach, limit=lim, duration=dur,
+            algo=algo, burst=burst, reset_remaining=reset_remaining,
+            is_greg=is_greg, greg_expire=ge, greg_duration=gd,
+            use_cached=use_cached,
+        )
+        # Ring-eligible merge (plain): scatter the parsed columns
+        # STRAIGHT into ring slot layout — no DeviceBatch objects exist
+        # between the C++ parse and the device loop.
+        ring = self._ring_live() if plan is None else None
+        ring_qs = None
+        if ring is not None:
+            ring_qs, order, bounds = _build_rounds_q(
+                values, rnd, lane, n_rounds, backend._tiers,
+            )
+            rounds = [_QRound(ring_qs[i, 10] != 0)
+                      for i in range(n_rounds)]
+        else:
+            rounds, order, bounds = _build_rounds(
+                values, rnd, lane, n_rounds, B
+            )
+
+        status = np.zeros(n, dtype=np.int64)
+        out_lim = np.zeros(n, dtype=np.int64)
+        remaining = np.zeros(n, dtype=np.int64)
+        reset = np.zeros(n, dtype=np.int64)
+        stored = np.zeros(n, dtype=np.int64)
+        cachedv = np.zeros(n, dtype=np.int64)
+        stored_st = np.zeros(n, dtype=np.int64)
+        foundv = np.zeros(n, dtype=np.int64)
+        persv = np.zeros(n, dtype=np.int64)
+
+        def gather(host) -> None:
+            for r_idx in range(n_rounds):
+                sel = order[bounds[r_idx]:bounds[r_idx + 1]]
+                hr = host[r_idx]
+                idx = lane[sel]
+                status[sel] = hr["status"][idx]
+                out_lim[sel] = hr["limit"][idx]
+                remaining[sel] = hr["remaining"][idx]
+                reset[sel] = hr["reset_time"][idx]
+                stored[sel] = hr["stored"][idx]
+                cachedv[sel] = hr["cached"][idx]
+                stored_st[sel] = hr["stored_status"][idx]
+                foundv[sel] = hr["found"][idx]
+                persv[sel] = hr["persisted"][idx]
+
+        t_step0 = time.monotonic()
+        host_box: List = []  # [host] once the response reaches host
+
+        def finish() -> List[Tuple[np.ndarray, ...]]:
+            return self._finish_process(
+                entries, host_box[0], rounds, h, h_mach, foundv, persv,
+                status, out_lim, remaining, reset, stored, stored_st,
+                t_step0,
+            )
+
+        if plan is None:
+            if ring is not None:
+                # Ring merge (docs/ring.md): the pre-packed slots enter
+                # the request ring and the device loop applies them; this
+                # fetch stage only WAITS on the published response slot —
+                # the actual device->host readback happens on the ring
+                # runner, off the request path entirely.
+                from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+                try:
+                    wait_rounds = ring.submit_q(ring_qs)
+                except RingClosedError:
+                    # Broke/closed between the check and the submit,
+                    # with NOTHING enqueued: rebuild DeviceBatch rounds
+                    # and take the pipelined path below (rare; the ring
+                    # never reopens).  A multi-chunk submit that loses
+                    # the ring part-way raises PartialSubmitError
+                    # instead — deliberately NOT caught here: the
+                    # queued chunks' device effects may already have
+                    # landed, so re-dispatching would double-apply
+                    # them; the error propagates and fails the merge.
+                    rounds, order, bounds = _build_rounds(
+                        values, rnd, lane, n_rounds, B
+                    )
+                else:
+                    def fetch_ring() -> List[Tuple[np.ndarray, ...]]:
+                        host_box.append(wait_rounds())
+                        gather(host_box[0])
+                        return finish()
+
+                    return fetch_ring
+            # Plain merge: dispatch under the backend lock; the response
+            # sync rides the coalescer's FETCH stage, so the next
+            # maximal merge dispatches while this one's response syncs
+            # (depth bounded by GUBER_PIPELINE_DEPTH).
+            fetch_host = backend.step_rounds_begin(
+                rounds, add_tally=False
+            )
+
+            def fetch_plain() -> List[Tuple[np.ndarray, ...]]:
+                host_box.append(fetch_host())
+                self.blocking_fetches["mach"] += 1
+                gather(host_box[0])
+                return finish()
+
+            return fetch_plain
+
+        # Cascade merge: the read -> host replay -> write-back window
+        # must not interleave with ANY other step on these keys — from
+        # this lane, the object path, or the GLOBAL managers — so the
+        # whole window runs under the backend lock (the same
+        # single-writer discipline as every other mutation path).  The
+        # write-back itself needs no response sync: the replay already
+        # produced every response, and dispatch order serializes it.
+        def locked_merge() -> None:
+            # The whole locked window, wrapped so the ring discipline can
+            # run it verbatim on the ring runner (submit_host) — its
+            # in-lock host sync then happens off the request path, FIFO
+            # with the ring iterations.
+            with backend._lock:
+                resps = backend._dispatch_rounds_locked(rounds)
+                host_box.append(packed_rounds_to_host(
+                    backend._fetch_later(resps)))
+                gather(host_box[0])
+                wb = _run_cascade(
+                    plan, h, hits, lim, dur, algo, burst,
+                    status, out_lim, remaining, reset, stored, cachedv,
+                    stored_st,
+                )
+                if wb is not None:
+                    (wb_h, wb_hits, wb_lim, wb_dur, wb_algo,
+                     wb_burst) = wb
+                    wrnd, wlane, wn = native.assign_rounds(wb_h, None, 1, B)
+                    m = len(wb_h)
+                    wvals = dict(
+                        key_hash=wb_h, hits=wb_hits, limit=wb_lim,
+                        duration=wb_dur, algo=wb_algo, burst=wb_burst,
+                        reset_remaining=np.zeros(m, dtype=bool),
+                        is_greg=np.zeros(m, dtype=bool),
+                        greg_expire=np.zeros(m, dtype=np.int64),
+                        greg_duration=np.zeros(m, dtype=np.int64),
+                    )
+                    wb_rounds, _, _ = _build_rounds(
+                        wvals, wrnd, wlane, wn, B,
+                    )
+                    backend._dispatch_rounds_locked(wb_rounds)
+
+        ring = self._ring_live()
+        wait_locked = None
+        if ring is not None:
+            # Ring discipline: the locked window (with its in-lock host
+            # sync) runs on the ring runner, FIFO with the ring
+            # iterations — the request path only waits on the result.
+            from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+            try:
+                wait_locked = ring.submit_host(locked_merge)
+            except RingClosedError:
+                ring = None
+        if ring is None:
+            self.blocking_fetches["mach"] += 1
+            locked_merge()
+
+        def fetch_locked_merge() -> List[Tuple[np.ndarray, ...]]:
+            if wait_locked is not None:
+                wait_locked()
+            return finish()
+
+        return fetch_locked_merge
+
+    def _finish_process(
+        self, entries, host, rounds, h, h_mach, foundv, persv,
+        status, out_lim, remaining, reset, stored, stored_st, t_step0,
+    ) -> List[Tuple[np.ndarray, ...]]:
+        """Shared tail of a machinery merge's fetch stage: tallies,
+        flight-recorder record, spill pressure, the GLOBAL capture-
+        validity mask, and the per-entry split."""
+        from gubernator_tpu_torch.runtime.backend import (
+            Tally,
+            tally_from_rounds,
+        )
+
+        backend = self.s.backend
+        n = len(h)
+        # Metric parity: checks/over-limit from the per-REQUEST outputs
+        # (cascade occurrences never had their own device lane); cache
+        # hit/miss + eviction tallies from the device rounds.
+        valid = h != 0
+        t = tally_from_rounds(rounds, host)
+        n_over = int((status[valid] == 1).sum())
+        backend._add_tally(Tally(
+            checks=int(valid.sum()),
+            over_limit=n_over,
+            not_persisted=t.not_persisted,
+            cache_hits=t.cache_hits,
+        ))
+        fr = getattr(self.s.metrics, "flightrec", None)
+        if fr is not None:
+            fr.record_batch(
+                int(valid.sum()), (time.monotonic() - t_step0) * 1e3,
+                over_limit=n_over, kind="fastlane_drain",
+            )
+
+        sb = self.s.sketch_backend
+        if sb is not None and sb.spill_enabled:
+            # h_mach, not h: cascade-diverted duplicate occurrences never
+            # got a device lane — their persv stays 0 and raw h would
+            # count them as fake transients (a healthy hot key would
+            # self-degrade under Zipfian traffic).
+            self._note_spill_pressure(entries, h_mach, foundv, persv)
+
+        # GLOBAL broadcast capture validity, judged over the WHOLE merged
+        # drain (entries are concurrent RPCs; a per-entry view would miss
+        # another RPC's later occurrence of the same key): a lane may
+        # capture only if it is its key's LAST mutating occurrence in the
+        # merge.  Judged here — not at queue time — because entries queue
+        # their updates in COMPLETION order (remote forwards differ in
+        # latency), so a stale earlier occurrence could otherwise
+        # overwrite a fresh capture; with this mask it degrades to
+        # (req, None) instead, and the flush re-reads.  h == 0 lanes
+        # (errored) mutate nothing and never capture.
+        cap_ok = np.zeros(n, dtype=bool)
+        mut_idx = np.flatnonzero(h != 0)
+        if len(mut_idx):
+            last_of: Dict[int, int] = {}
+            for j in mut_idx:
+                last_of[int(h[j])] = int(j)
+            cap_ok[list(last_of.values())] = True
+
+        # Split back per entry (stored/stored_status/cap_ok feed the
+        # GLOBAL broadcast capture; see _queue_global_updates).
+        outs: List[Tuple[np.ndarray, ...]] = []
+        off = 0
+        for e in entries:
+            k = e.cols.n
+            outs.append((
+                status[off:off + k], out_lim[off:off + k],
+                remaining[off:off + k], reset[off:off + k],
+                stored[off:off + k], stored_st[off:off + k],
+                cap_ok[off:off + k],
+            ))
+            off += k
+        return outs
+
+    async def close(self) -> None:
+        # Machinery first (its in-flight dispatches may still fan into
+        # the sketch lane), then the sketch lane; both refuse new work
+        # the moment their close() starts.  The ring closes AFTER the
+        # coalescers: their in-flight fetch stages wait on ring slots,
+        # so the runner must stay alive until they drain (ring.close
+        # then publishes/fails whatever is left).
+        await self._mach.close()
+        if self._sketch_lane is not None:
+            await self._sketch_lane.close()
+        if self._ring is not None:
+            self._ring.close()
+        self._pool.shutdown(wait=True)
+        self._sketch_pool.shutdown(wait=True)
+
+
+class _Entry:
+    """Machinery-lane coalescer entry (fut assigned by _Coalescer.do)."""
+
+    __slots__ = (
+        "payload", "cols", "is_greg", "greg_expire", "greg_duration",
+        "use_cached", "fut", "trace_ctx",
+    )
+
+    def __init__(self, payload, cols, is_greg, greg_expire, greg_duration,
+                 use_cached):
+        self.payload = payload
+        self.cols = cols
+        self.is_greg = is_greg
+        self.greg_expire = greg_expire
+        self.greg_duration = greg_duration
+        self.use_cached = use_cached
+        self.fut = None
+        self.trace_ctx = None
+
+
+class _SketchEntry:
+    """Sketch-lane coalescer entry (fut assigned by _Coalescer.do)."""
+
+    __slots__ = ("kh", "hits", "limits", "fut", "trace_ctx")
+
+    def __init__(self, kh, hits, limits):
+        self.kh = kh
+        self.hits = hits
+        self.limits = limits
+        self.fut = None
+        self.trace_ctx = None
+
+
+def _build_rounds(values, rnd, lane, n_rounds, B):
+    """Scatter columnar values into fixed-shape DeviceBatch rounds.
+    Returns (rounds, order, bounds) — order/bounds group request indices
+    by round for the response gather."""
+    ok = np.flatnonzero(rnd >= 0)
+    order = ok[np.argsort(rnd[ok], kind="stable")]
+    bounds = np.searchsorted(rnd[order], np.arange(n_rounds + 1))
+    rounds: List[DeviceBatch] = []
+    for r_idx in range(n_rounds):
+        db = empty_batch(B)
+        sel = order[bounds[r_idx]:bounds[r_idx + 1]]
+        l_m = lane[sel]
+        for f, v in values.items():
+            getattr(db, f)[l_m] = v[sel]
+        db.active[l_m] = True
+        rounds.append(db)
+    return rounds, order, bounds
+
+
+# Ring slot row order == DeviceBatch field order == unpack_batch_q rows.
+_Q_ROW = {
+    f: i for i, f in enumerate((
+        "key_hash", "hits", "limit", "duration", "algo", "burst",
+        "reset_remaining", "is_greg", "greg_expire", "greg_duration",
+        "active", "use_cached",
+    ))
+}
+
+
+class _QRound:
+    """tally_from_rounds-compatible view of one prepacked ring slot
+    (only `.active` is ever read on the ring path)."""
+
+    __slots__ = ("active",)
+
+    def __init__(self, active: np.ndarray) -> None:
+        self.active = active
+
+
+def _build_rounds_q(values, rnd, lane, n_rounds, tiers):
+    """Scatter columnar values STRAIGHT into ring slot layout — one
+    int64[k, 12, tb] stacked request block (pack_batch_q row order) —
+    skipping DeviceBatch assembly entirely.  Returns (qs, order, bounds)
+    with order/bounds exactly as _build_rounds computes them."""
+    ok = np.flatnonzero(rnd >= 0)
+    order = ok[np.argsort(rnd[ok], kind="stable")]
+    bounds = np.searchsorted(rnd[order], np.arange(n_rounds + 1))
+    # Lanes fill contiguously from 0 per round (assign_rounds), so the
+    # max assigned lane bounds the highest used one — the same tier rule
+    # as backend.tier_of.
+    occ = int(lane[ok].max()) + 1 if len(ok) else 0
+    tb = next((t for t in tiers if occ <= t), tiers[-1])
+    qs = np.zeros((n_rounds, 12, tb), dtype=np.int64)
+    for r_idx in range(n_rounds):
+        sel = order[bounds[r_idx]:bounds[r_idx + 1]]
+        l_m = lane[sel]
+        q = qs[r_idx]
+        for f, v in values.items():
+            q[_Q_ROW[f], l_m] = v[sel]
+        q[_Q_ROW["active"], l_m] = 1
+    return qs, order, bounds
+
+
+class _CascadePlan:
+    __slots__ = ("occ", "firsts", "groups", "inv", "first_idx")
+
+    def __init__(self, occ, firsts, groups, inv, first_idx):
+        self.occ = occ          # bool[n]: occurrence is in a cascade group
+        self.firsts = firsts    # int[-]: first-occurrence index per group
+        self.groups = groups    # int[-]: group ids (into inv's codomain)
+        self.inv = inv          # int[n]: np.unique inverse (key group id)
+        self.first_idx = first_idx    # int[nb]: first occurrence per group
+
+
+def _plan_cascade(h, hits, reset_remaining, is_greg, lim, dur, algo, burst,
+                  use_cached):
+    """Pick duplicate-key groups the host can serve without one device
+    round per occurrence.
+
+    Exact-cascade groups: >1 occurrence of a key where every occurrence
+    has positive hits, no RESET_REMAINING, no Gregorian duration, and
+    identical limit/duration/algorithm/burst.  use_cached (GLOBAL
+    non-owner) groups qualify too when the flag is UNIFORM across the
+    group — the replay branches on the read lane's `cached` flag: a
+    verbatim broadcast-row serve copies to every occurrence (the device
+    mutates nothing on such reads), while a pre-broadcast bucket runs
+    the standard lattice replay.  The per-occurrence branch order of
+    the kernel (over-at-zero / exact / over-more / under) is a pure
+    function of the running remaining, replayable on host from the
+    read lane's post-step `stored` value.
+
+    Mixed cached/uncached groups (ownership changed mid-stream) and
+    everything else keep the round-per-occurrence machinery."""
+    uniq, first_idx, inv, counts = np.unique(
+        h, return_index=True, return_inverse=True, return_counts=True
+    )
+    dup = (counts > 1) & (uniq != 0)
+    if not dup.any():
+        return None
+    nb = len(uniq)
+    same = np.ones(nb, dtype=bool)
+    for arr in (lim, dur, burst, algo.astype(np.int64)):
+        diff = arr != arr[first_idx][inv]
+        same &= np.bincount(
+            inv, weights=diff.astype(np.float64), minlength=nb
+        ) == 0
+    cached_mixed = (
+        use_cached != use_cached[first_idx][inv]
+    )
+    same &= np.bincount(
+        inv, weights=cached_mixed.astype(np.float64), minlength=nb
+    ) == 0
+
+    bad_occ = (hits <= 0) | reset_remaining | is_greg
+    grp_bad = np.bincount(
+        inv, weights=bad_occ.astype(np.float64), minlength=nb
+    ) > 0
+    casc = dup & ~grp_bad & same
+
+    if not casc.any():
+        return None
+    return _CascadePlan(
+        occ=casc[inv],
+        firsts=first_idx[casc],
+        groups=np.flatnonzero(casc),
+        inv=inv,
+        first_idx=first_idx,
+    )
+
+
+def _run_cascade(plan, h, hits, lim, dur, algo, burst,
+                 status, out_lim, remaining, reset, stored, cachedv,
+                 stored_st=None):
+    """Replay each cascade group's occurrences on host, writing their
+    responses in place, and build the effective write-back columns.
+
+    The replay is bit-exact against the kernel for eligible groups:
+    token (algorithms.go:162-195) and leaky (algorithms.go:395-426) share
+    the branch lattice over the running remaining, and leaky's float
+    fraction is invariant under integer-hit subtraction so the integer
+    `stored` seed suffices.  A read lane answered VERBATIM from a live
+    broadcast row (`cachedv`, the GLOBAL non-owner steady state) copies
+    its response to every occurrence with no write-back — the device
+    mutates nothing on such reads, so each occurrence would read the
+    identical row.  Two deliberate, documented divergences:
+    the table's sticky Status field holds the write-back's value rather
+    than the last occurrence's, and a fully-drained leaky group's expiry
+    refresh rides an over-limit touch lane."""
+    wb_h: List[int] = []
+    wb_hits: List[int] = []
+    wb_lim: List[int] = []
+    wb_dur: List[int] = []
+    wb_algo: List[int] = []
+    wb_burst: List[int] = []
+
+    # Occurrence lists per group, in arrival order, via one argsort.
+    order = np.argsort(plan.inv, kind="stable")
+    sorted_inv = plan.inv[order]
+    for g in plan.groups:
+        lo = np.searchsorted(sorted_inv, g)
+        hi = np.searchsorted(sorted_inv, g, side="right")
+        occ = order[lo:hi]
+        fi = occ[0]
+        if cachedv[fi]:
+            # Verbatim broadcast-row serve: share, mutate nothing.
+            rest = occ[1:]
+            status[rest] = status[fi]
+            out_lim[rest] = out_lim[fi]
+            remaining[rest] = remaining[fi]
+            reset[rest] = reset[fi]
+            continue
+        lim0 = int(lim[fi])
+        algo0 = int(algo[fi])
+        reset0 = int(reset[fi])
+        r0 = int(stored[fi])
+        leaky = algo0 == 1
+        rate_i = int(float(dur[fi]) / float(lim0)) if (leaky and lim0) else 0
+        # Token status is STICKY: under/exact occurrences report the
+        # STORED status (te_resp_status = s_status in the kernel), which
+        # only flips to OVER on an over-at-zero hit.  The read lane's
+        # response status IS the stored status.  Leaky reports fresh.
+        st0 = int(status[fi])
+        flip = False  # an over-at-zero occurred (token stored -> OVER)
+        r = r0
+        for i in occ:
+            hc = int(hits[i])
+            if r == 0:
+                if not leaky and not flip:
+                    flip = True  # sticky stored-status transition
+                    st0 = 1
+                st, rr = 1, r
+            elif r == hc:
+                r = 0
+                st, rr = (0 if leaky else st0), 0
+            elif hc > r:
+                st, rr = 1, r
+            else:
+                r -= hc
+                st, rr = (0 if leaky else st0), r
+            status[i] = st
+            out_lim[i] = lim0
+            remaining[i] = rr
+            reset[i] = reset0 + (r0 - rr) * rate_i if leaky else reset0
+        # Post-replay stored columns (the GLOBAL broadcast capture reads
+        # the LAST occurrence): running remaining, and the sticky token
+        # status st0 with replay flips applied (leaky stores UNDER).
+        stored[occ] = r
+        if stored_st is not None:
+            stored_st[occ] = 0 if leaky else st0
+
+        def wb_lane(h_val: int) -> None:
+            wb_h.append(int(h[fi]))
+            wb_hits.append(h_val)
+            wb_lim.append(lim0)
+            wb_dur.append(int(dur[fi]))
+            wb_algo.append(algo0)
+            wb_burst.append(int(burst[fi]))
+
+        eff = r0 - r
+        if eff > 0:
+            wb_lane(eff)
+        elif leaky:
+            # Over-limit "touch": refreshes the sliding expiry the way
+            # every nonzero-hit occurrence does, mutating nothing else.
+            wb_lane(int(burst[fi]) + 1)
+        if flip:
+            # Reproduce the stored-status flip on device: after the eff
+            # lane drained the bucket to 0, one more hit is over-at-zero
+            # — it stores OVER and mutates nothing else (a later batch's
+            # under-branch response reports this stored status, so
+            # skipping it would diverge from the object path).
+            wb_lane(1)
+    if not wb_h:
+        return None
+    return (
+        np.array(wb_h, dtype=np.int64),
+        np.array(wb_hits, dtype=np.int64),
+        np.array(wb_lim, dtype=np.int64),
+        np.array(wb_dur, dtype=np.int64),
+        np.array(wb_algo, dtype=np.int32),
+        np.array(wb_burst, dtype=np.int64),
+    )

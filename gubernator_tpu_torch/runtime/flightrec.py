@@ -1,0 +1,471 @@
+"""Flight recorder: bounded in-memory telemetry + breach-triggered dumps.
+
+The serving path's black box.  Three jobs, all bounded-memory and
+off the hot path:
+
+1. **Ring buffer** — recent request/batch records (device-step wall
+   time, batch size, outcome mix, peer batch sends, loop stalls) in a
+   fixed-size deque.  Producers are the layers that already hold the
+   Metrics bundle (runtime/backend.py, parallel/sharded.py,
+   net/peer_client.py, the daemon's stats interceptor); a record is a
+   dict append under a cheap threading lock — safe from both the event
+   loop and the device-executor threads.
+
+2. **SLO evaluation** — a rolling window of gRPC request latencies
+   feeds p50/p99 gauges (`gubernator_slo_p50_seconds` /
+   `_p99_seconds`) every sampler tick; a window whose p99 exceeds the
+   configured target (GUBER_SLO_P99_MS, north star p99 < 2ms)
+   increments `gubernator_slo_breach_total` and — outside a cooldown —
+   dumps a JSON snapshot to disk.  A check-error storm (error count in
+   the trailing window over `error_storm`) triggers the same dump.
+
+3. **Event-loop lag sampling** — the production port of raceguard's
+   stall detector (testing/raceguard.py times Handle._run by patching
+   asyncio internals; a daemon cannot).  Here a periodic task measures
+   how late its own wakeup fires: `lag = now - (t0 + interval)`.  Any
+   single callback that hogs the loop delays the wakeup by its runtime,
+   so the sample is a faithful lower bound on the worst stall in the
+   tick — with zero patching and one timer per daemon.  Exposed as
+   `gubernator_event_loop_lag_seconds`; samples over `stall_ms` land in
+   the ring.
+
+On breach it can also start a time-boxed `torch.profiler` trace
+(`profile_secs` > 0, written as a Chrome trace) so the host-side records
+line up with the device kernels — runtime/tracing.py's
+device_step_annotation marks the device steps inside them.
+
+Discipline (gubguard-enforced): nothing here touches a device array
+(host-sync), dump writes and profiler start/stop run in an executor
+(async-blocking), and `_lock` is registered last in the global lock
+ranking (tools/gubguard/lockorder.py) — recorder calls may run under
+`backend._lock` but never take another lock while holding their own.
+"""
+from __future__ import annotations
+
+import asyncio
+import collections
+import json
+import logging
+import os
+import threading
+import time
+from typing import Callable, Deque, Dict, List, Optional, Tuple
+
+from gubernator_tpu_torch.runtime import tracing
+
+log = logging.getLogger("gubernator_tpu_torch.flightrec")
+
+DEFAULT_SLO_P99_MS = 2.0  # BASELINE.json north star: p99 < 2ms
+DEFAULT_RING = 512
+DEFAULT_WINDOW_S = 10.0
+DEFAULT_SAMPLE_INTERVAL_S = 0.25
+
+
+def _quantiles(values: List[float]) -> Tuple[float, float]:
+    """(p50, p99) by nearest-rank on a sorted copy — same convention as
+    bench_e2e._percentiles up to interpolation, cheap enough to run
+    every sampler tick on a bounded window."""
+    if not values:
+        return 0.0, 0.0
+    s = sorted(values)
+    n = len(s)
+    p50 = s[min(n - 1, int(0.50 * (n - 1) + 0.5))]
+    p99 = s[min(n - 1, int(0.99 * (n - 1) + 0.5))]
+    return p50, p99
+
+
+class FlightRecorder:
+    """Bounded ring of recent serving records + SLO breach detection."""
+
+    def __init__(
+        self,
+        metrics=None,
+        slo_p99_ms: float = DEFAULT_SLO_P99_MS,
+        dump_dir: str = "flightrec-dumps",
+        ring_size: int = DEFAULT_RING,
+        window_s: float = DEFAULT_WINDOW_S,
+        min_samples: int = 20,
+        error_storm: int = 100,
+        stall_ms: float = 50.0,
+        cooldown_s: float = 30.0,
+        sample_interval_s: float = DEFAULT_SAMPLE_INTERVAL_S,
+        profile_secs: float = 0.0,
+    ) -> None:
+        self.metrics = metrics
+        self.slo_p99_ms = slo_p99_ms
+        self.dump_dir = dump_dir
+        self.window_s = window_s
+        self.min_samples = min_samples
+        self.error_storm = error_storm
+        self.stall_ms = stall_ms
+        self.cooldown_s = cooldown_s
+        self.sample_interval_s = sample_interval_s
+        self.profile_secs = profile_secs
+        self._lock = threading.Lock()
+        self._ring: Deque[Dict] = collections.deque(maxlen=ring_size)
+        # (monotonic ts, latency seconds) request samples; sized so a
+        # window at high rate still bounds memory — percentiles are over
+        # the trailing window_s INTERSECTED with this cap.
+        self._lat: Deque[Tuple[float, float]] = collections.deque(
+            maxlen=8192
+        )
+        self._errors: Deque[float] = collections.deque(maxlen=8192)
+        # Mirrors of the Prometheus counters (the artifact is readable
+        # without a scrape; tests assert both agree).
+        self.breaches = 0
+        self.dumps = 0
+        self.last_p50_ms = 0.0
+        self.last_p99_ms = 0.0
+        self.last_lag_ms = 0.0
+        self.max_lag_ms = 0.0
+        self.last_dump_path: Optional[str] = None
+        self._last_dump_mono: float = -1e9
+        # Pressure signal (docs/hotkeys.md): monotonic timestamp of the
+        # first evaluation of the CURRENT unbroken run of p99 breaches,
+        # None while healthy.  Drives hot-key promotion scores, the
+        # owner's pressure advertisement on RPC trailing metadata
+        # (daemon.py), and SLO shedding (service.shed_level).
+        self._pressure_since: Optional[float] = None
+        self.pressure_events = 0
+        self._profiling = False
+        self._task: Optional[asyncio.Task] = None
+        self._started_wall = time.time()
+        # Extra snapshot blocks: name -> zero-arg provider returning a
+        # JSON-able value (or None to skip).  The daemon registers the
+        # gubstat table census here so every breach/SIGUSR2 dump carries
+        # the last device-table state alongside the ring.  Providers
+        # must never raise into a dump — failures drop the block.
+        self.extras: Dict[str, Callable[[], object]] = {}
+
+    # -- producers (any thread) ------------------------------------------
+    def record(self, kind: str, **fields) -> None:
+        """Append one record to the ring.  Called from the loop AND from
+        device-executor threads; must never block beyond the dict append.
+
+        When the producer runs inside a sampled trace (the span plane
+        binds its context on whichever thread executes a stage — the
+        coalescer's fetch stage, the ring runner, the event loop), the
+        record carries the trace/span ids, so a breach dump's ring can
+        be joined against the trace behind its p99 bucket."""
+        rec = {"ts": time.time(), "kind": kind}
+        if tracing.enabled():
+            ctx = tracing.current_context()
+            if ctx is not None and ctx.sampled:
+                rec["trace_id"] = ctx.trace_id_hex()
+                rec["span_id"] = ctx.span_id_hex()
+        rec.update(fields)
+        with self._lock:
+            self._ring.append(rec)
+
+    def record_batch(
+        self,
+        size: int,
+        step_ms: float,
+        over_limit: int = 0,
+        errors: int = 0,
+        peer: str = "",
+        kind: str = "device_step",
+        rounds_per_dispatch: float = None,
+    ) -> None:
+        """One device step / peer batch: batch size, outcome mix, peer,
+        step wall time.  Ring records
+        (kind="ring_iter") carry the running dispatch-amortization
+        factor so a breach dump shows whether megaround was actually
+        amortizing when the tail spiked (docs/ring.md)."""
+        self.record(
+            kind, size=int(size), step_ms=round(step_ms, 3),
+            over_limit=int(over_limit), errors=int(errors),
+            **({"peer": peer} if peer else {}),
+            **(
+                {"rounds_per_dispatch": float(rounds_per_dispatch)}
+                if rounds_per_dispatch is not None else {}
+            ),
+        )
+
+    def record_bubble(self, lane: str, wait_ms: float) -> None:
+        """One pipelined-drain bubble (runtime/fastpath.py): a ready
+        merge stalled `wait_ms` waiting for a fetch slot while the
+        dispatch stage sat idle.  Sustained bubbles with saturated
+        pipeline occupancy are the signal to raise
+        GUBER_PIPELINE_DEPTH."""
+        self.record(
+            "fastlane_bubble", lane=lane, wait_ms=round(wait_ms, 3)
+        )
+
+    def observe_request(
+        self, duration_s: float, trace_id: Optional[str] = None
+    ) -> None:
+        """One served request's latency into the rolling SLO window;
+        `trace_id` (hex) tags the sample as an exemplar, so a breach
+        dump can name the slowest traces in its window."""
+        self._lat.append((time.monotonic(), duration_s, trace_id))
+
+    def note_error(self, n: int = 1) -> None:
+        now = time.monotonic()
+        for _ in range(min(n, 64)):  # storm detection, not exact counting
+            self._errors.append(now)
+
+    # -- evaluation ------------------------------------------------------
+    def percentiles(self) -> Tuple[float, float, int]:
+        """(p50_ms, p99_ms, n) over the trailing window."""
+        cutoff = time.monotonic() - self.window_s
+        window = [d for ts, d, _t in list(self._lat) if ts >= cutoff]
+        p50, p99 = _quantiles(window)
+        return p50 * 1e3, p99 * 1e3, len(window)
+
+    def slow_exemplars(self, limit: int = 8) -> List[Dict]:
+        """The slowest trace-tagged samples in the trailing window —
+        the OpenMetrics-exemplar view of the SLO histogram, readable
+        straight from a dump: each entry names a trace id an operator
+        (or trace_smoke) can pull from the span plane."""
+        cutoff = time.monotonic() - self.window_s
+        tagged = [
+            (d, t) for ts, d, t in list(self._lat)
+            if ts >= cutoff and t
+        ]
+        tagged.sort(reverse=True)
+        return [
+            {"ms": round(d * 1e3, 3), "trace_id": t}
+            for d, t in tagged[:limit]
+        ]
+
+    def error_rate(self) -> int:
+        cutoff = time.monotonic() - self.window_s
+        return sum(1 for ts in list(self._errors) if ts >= cutoff)
+
+    # -- pressure (docs/hotkeys.md) --------------------------------------
+    def pressure_ratio(self) -> float:
+        """Rolling p99 over the SLO target (1.0 = exactly at target);
+        the multiplier in the hot-key promotion score and the value the
+        owner advertises while pressured.  0 with no samples."""
+        if self.slo_p99_ms <= 0:
+            return 0.0
+        return self.last_p99_ms / self.slo_p99_ms
+
+    def pressure_active(self) -> bool:
+        """True while the CURRENT run of breach evaluations is unbroken
+        (an evaluation back under target clears it — including the
+        window draining empty after traffic stops)."""
+        return self._pressure_since is not None
+
+    def pressure_sustained_s(self) -> float:
+        """Seconds the current breach run has lasted (0 when healthy) —
+        the shedding plane's escalation clock."""
+        if self._pressure_since is None:
+            return 0.0
+        return max(0.0, time.monotonic() - self._pressure_since)
+
+    def evaluate(self) -> Optional[str]:
+        """One SLO evaluation: refresh the gauges, return a dump reason
+        ('slo_breach' / 'error_storm') when a trigger fired outside the
+        cooldown, else None.  Sync + lock-free on the hot structures so
+        tests can drive it directly."""
+        p50, p99, n = self.percentiles()
+        self.last_p50_ms, self.last_p99_ms = p50, p99
+        m = self.metrics
+        if m is not None:
+            m.slo_p50.set(p50 / 1e3)
+            m.slo_p99.set(p99 / 1e3)
+        reason: Optional[str] = None
+        breaching = n >= self.min_samples and p99 > self.slo_p99_ms
+        if breaching:
+            self.breaches += 1
+            if m is not None:
+                m.slo_breach_total.inc()
+            reason = "slo_breach"
+        # Pressure transitions (docs/hotkeys.md): the sustained-breach
+        # clock the hot-key and shedding planes key off.
+        if breaching and self._pressure_since is None:
+            self._pressure_since = time.monotonic()
+            self.pressure_events += 1
+            self.record("pressure", state="start", p99_ms=round(p99, 3))
+        elif not breaching and self._pressure_since is not None:
+            self._pressure_since = None
+            self.record("pressure", state="clear", p99_ms=round(p99, 3))
+        if self.error_storm and self.error_rate() >= self.error_storm:
+            reason = reason or "error_storm"
+        if reason is None:
+            return None
+        if time.monotonic() - self._last_dump_mono < self.cooldown_s:
+            return None
+        return reason
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self) -> None:
+        """Arm the sampler on the running loop (Daemon.start)."""
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self._task = None
+        self._stop_profiler()
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        interval = self.sample_interval_s
+        while True:
+            t0 = loop.time()
+            await asyncio.sleep(interval)
+            lag = max(0.0, loop.time() - t0 - interval)
+            lag_ms = lag * 1e3
+            self.last_lag_ms = lag_ms
+            self.max_lag_ms = max(self.max_lag_ms, lag_ms)
+            if self.metrics is not None:
+                self.metrics.loop_lag.set(lag)
+            if lag_ms > self.stall_ms:
+                self.record("loop_stall", lag_ms=round(lag_ms, 1))
+            reason = self.evaluate()
+            if reason is not None:
+                try:
+                    await self.dump(reason)
+                except Exception as e:  # noqa: BLE001 — keep sampling
+                    log.error("flight recorder dump failed: %s", e)
+
+    # -- dumps -----------------------------------------------------------
+    def snapshot(self, limit: Optional[int] = None) -> Dict:
+        """The dump payload (also served by /debug/flightrec)."""
+        with self._lock:
+            ring = list(self._ring)
+        if limit is not None:
+            ring = ring[-limit:]
+        p50, p99, n = self.percentiles()
+        out = {
+            "version": 1,
+            "pid": os.getpid(),
+            "started": self._started_wall,
+            "now": time.time(),
+            "slo_p99_ms": self.slo_p99_ms,
+            "window_s": self.window_s,
+            "rolling": {
+                "p50_ms": round(p50, 3),
+                "p99_ms": round(p99, 3),
+                "samples": n,
+                "errors_in_window": self.error_rate(),
+            },
+            "slow_exemplars": self.slow_exemplars(),
+            "loop_lag_ms": {
+                "last": round(self.last_lag_ms, 2),
+                "max": round(self.max_lag_ms, 2),
+            },
+            "breaches": self.breaches,
+            "dumps": self.dumps,
+            "pressure": {
+                "active": self.pressure_active(),
+                "sustained_s": round(self.pressure_sustained_s(), 2),
+                "ratio": round(self.pressure_ratio(), 3),
+                "events": self.pressure_events,
+            },
+            "ring": ring,
+        }
+        for name, provider in self.extras.items():
+            try:
+                val = provider()
+            except Exception:
+                continue
+            if val is not None:
+                out[name] = val
+        return out
+
+    async def dump(self, reason: str) -> str:
+        """Write a JSON snapshot; optionally start a time-boxed
+        torch.profiler trace.  File I/O runs in an executor — the loop
+        serves traffic while the black box writes."""
+        self._last_dump_mono = time.monotonic()
+        self.dumps += 1
+        if self.metrics is not None:
+            self.metrics.flightrec_dump_total.labels(reason=reason).inc()
+        payload = self.snapshot()
+        payload["reason"] = reason
+        # Trace-tagged dump: every trace id the window knows about —
+        # ring records tagged by the span plane, plus the slowest
+        # exemplars — pulls its full in-process span tree into the
+        # artifact, so the dump CONTAINS the trace behind the breach
+        # instead of merely naming it.
+        trace_ids = {
+            r["trace_id"] for r in payload["ring"] if "trace_id" in r
+        } | {e["trace_id"] for e in payload["slow_exemplars"]}
+        payload["traces"] = tracing.recent_spans_for(trace_ids)
+        path = os.path.join(
+            self.dump_dir,
+            "flightrec-%d-%d-%s.json" % (os.getpid(), self.dumps, reason),
+        )
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self._write, path, payload)
+        self.last_dump_path = path
+        self.record("dump", reason=reason, path=path)
+        log.warning("flight recorder dump (%s): %s", reason, path)
+        if self.profile_secs > 0:
+            await loop.run_in_executor(None, self._start_profiler)
+            if self._profiling:
+                loop.call_later(self.profile_secs, self._schedule_stop)
+        return path
+
+    @staticmethod
+    def _write(path: str, payload: Dict) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(payload, f, indent=1)
+        os.replace(tmp, path)
+
+    # -- profiler (best effort, time-boxed) ------------------------------
+    def _start_profiler(self) -> None:
+        if self._profiling:
+            return
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            trace_dir = os.path.join(self.dump_dir, "profile")
+            os.makedirs(trace_dir, exist_ok=True)
+            acts = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.start()
+            self._prof = prof
+            self._trace_path = os.path.join(
+                trace_dir, "trace-%d-%d.json" % (os.getpid(), self.dumps)
+            )
+            self._profiling = True
+            log.warning(
+                "flight recorder started a %.1fs torch.profiler trace "
+                "into %s", self.profile_secs, self._trace_path,
+            )
+        except Exception as e:  # noqa: BLE001 — profiling is optional
+            log.warning("could not start torch.profiler trace: %s", e)
+
+    def _schedule_stop(self) -> None:
+        # call_later callback: never block the loop on trace writing.
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self._stop_profiler()
+            return
+        loop.run_in_executor(None, self._stop_profiler)
+
+    def _stop_profiler(self) -> None:
+        if not self._profiling:
+            return
+        self._profiling = False
+        try:
+            self._prof.stop()
+            self._prof.export_chrome_trace(self._trace_path)
+        except Exception as e:  # noqa: BLE001
+            log.warning("could not stop torch.profiler trace: %s", e)
+
+
+def recorder_from_config(conf, metrics) -> Optional[FlightRecorder]:
+    """Build a recorder from a DaemonConfig (None when disarmed)."""
+    if not getattr(conf, "flightrec", False):
+        return None
+    return FlightRecorder(
+        metrics=metrics,
+        slo_p99_ms=conf.slo_p99_ms,
+        dump_dir=conf.flightrec_dir or "flightrec-dumps",
+        ring_size=conf.flightrec_ring,
+        profile_secs=conf.flightrec_profile_s,
+    )

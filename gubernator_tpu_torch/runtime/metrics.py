@@ -1,0 +1,790 @@
+"""Prometheus metrics — full parity with the reference catalog
+(reference prometheus.md:17-36; definitions gubernator.go:59-113,
+lrucache.go:48-59, global.go:48-57, grpc_stats.go:51-63), plus engine
+gauges for the device table (slot occupancy, device step latency).
+
+All collectors live on a private registry (like the daemon's private
+prometheus registry, daemon.go:85-99) so multiple daemons can share one
+process in tests — the in-process cluster fixture depends on this.
+
+DIVERGENCE from the reference: every hot-path timing is a **Histogram**,
+not a Summary.  The Go client's Summary exports quantiles; the python
+client's exports only _count/_sum, which made the p99 < 2ms SLO
+(BASELINE.json) unobservable in production — the whole point of the LX
+telemetry plane.  Buckets are shared (`LATENCY_BUCKETS`) and tuned for
+the µs→ms serving regime with an exact boundary at the 2ms SLO target;
+`estimate_quantile` turns a scrape's cumulative bucket counts back into
+a latency estimate (the PromQL histogram_quantile interpolation).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+from prometheus_client import (
+    CollectorRegistry,
+    Counter,
+    Gauge,
+    Histogram,
+    Summary,
+    generate_latest,
+)
+
+# Shared latency buckets (seconds), 50µs .. 2.5s.  2e-3 is a bucket
+# boundary on purpose: the north-star SLO is p99 < 2ms, so breach
+# accounting from a scrape never interpolates across the target.
+LATENCY_BUCKETS: Tuple[float, ...] = (
+    50e-6, 100e-6, 250e-6, 500e-6,
+    1e-3, 2e-3, 4e-3, 8e-3, 16e-3, 32e-3, 64e-3,
+    0.128, 0.256, 0.512, 1.024, 2.5,
+)
+
+
+def estimate_quantile(
+    buckets: Sequence[float], counts: Sequence[int], q: float
+) -> float:
+    """Latency estimate for quantile `q` from CUMULATIVE histogram bucket
+    counts — the client-side analog of PromQL's histogram_quantile():
+    find the bucket where the target rank lands, then interpolate
+    linearly inside it.  `buckets` are the upper bounds (no +Inf entry);
+    `counts[i]` is the cumulative count <= buckets[i], and an extra
+    final entry (the +Inf count) is allowed.  Returns the upper bound of
+    the last finite bucket when the rank lands in +Inf."""
+    if not counts:
+        return 0.0
+    total = counts[-1]
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    prev_bound = 0.0
+    prev_count = 0
+    for i, bound in enumerate(buckets):
+        c = counts[i]
+        if rank <= c:
+            span = c - prev_count
+            frac = 1.0 if span <= 0 else (rank - prev_count) / span
+            return prev_bound + (bound - prev_bound) * frac
+        prev_bound, prev_count = bound, c
+    return float(buckets[-1])
+
+
+class HdrRecorder:
+    """Exact log-linear (HDR) latency recorder for the open-loop load
+    harness (gubernator_tpu_torch/loadgen; docs/loadgen.md).
+
+    Values are quantized to 1µs units and bucketed log-linearly: 256
+    sub-buckets per power of two, so every recorded value lands in a
+    bucket whose width is at most value/128 and the bucket-midpoint
+    estimate is within 1/256 (~0.4%) of the true value — comfortably
+    inside the advertised ~1% relative error at any percentile.  Unlike
+    the daemon's fixed LATENCY_BUCKETS histograms (16 buckets, built
+    for cheap hot-path observation), this recorder is built for
+    *reporting*: p999 of a million samples never interpolates across a
+    4x-wide bucket.
+
+    Merging is elementwise count addition, so it is commutative and
+    associative: shards recorded by independent workers merge to the
+    same state in any order (the schedule-determinism contract in
+    tests/test_loadgen.py), and `to_dict`/`from_dict` round-trip the
+    state across process boundaries for multi-worker runs.
+
+    Thread-safe: `record` may be called from any worker thread.  The
+    lock is a leaf (registered as loadgen.hdr._lock in the gubguard
+    lock ranking) — nothing else is ever acquired while holding it.
+    """
+
+    UNIT_S = 1e-6           # 1µs resolution
+    _SUB_BITS = 8           # 256 sub-buckets per power of two
+    _SUB = 1 << _SUB_BITS
+    _SUB_HALF = _SUB >> 1
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counts: Dict[int, int] = {}
+        self._total = 0
+
+    # -- recording ----------------------------------------------------
+
+    @classmethod
+    def _index(cls, units: int) -> int:
+        bucket = max(0, units.bit_length() - cls._SUB_BITS)
+        sub = units >> bucket
+        return (bucket + 1) * cls._SUB_HALF + (sub - cls._SUB_HALF)
+
+    @classmethod
+    def _value_s(cls, index: int) -> float:
+        """Midpoint of the bucket `index`, in seconds."""
+        if index < cls._SUB:
+            bucket, sub = 0, index
+        else:
+            bucket = (index >> (cls._SUB_BITS - 1)) - 1
+            sub = cls._SUB_HALF + (index & (cls._SUB_HALF - 1))
+        low = sub << bucket
+        return (low + (1 << bucket) * 0.5) * cls.UNIT_S
+
+    def record(self, value_s: float) -> None:
+        """One latency sample in seconds (values < 1µs clamp to 1µs)."""
+        units = max(1, int(value_s / self.UNIT_S + 0.5))
+        idx = self._index(units)
+        with self._lock:
+            self._counts[idx] = self._counts.get(idx, 0) + 1
+            self._total += 1
+
+    # -- reading ------------------------------------------------------
+
+    @property
+    def count(self) -> int:
+        return self._total
+
+    def percentile(self, q: float) -> float:
+        """Value at quantile `q` in [0, 1], in seconds (0.0 if empty)."""
+        with self._lock:
+            items = sorted(self._counts.items())
+            total = self._total
+        if total == 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        for idx, n in items:
+            cum += n
+            if cum >= rank:
+                return self._value_s(idx)
+        return self._value_s(items[-1][0])
+
+    def percentiles(self, qs: Iterable[float]) -> Tuple[float, ...]:
+        return tuple(self.percentile(q) for q in qs)
+
+    # -- merging / serialization --------------------------------------
+
+    def merge(self, other: "HdrRecorder") -> "HdrRecorder":
+        with other._lock:
+            snap = dict(other._counts)
+        with self._lock:
+            for idx, n in snap.items():
+                self._counts[idx] = self._counts.get(idx, 0) + n
+                self._total += n
+        return self
+
+    def to_dict(self) -> Dict:
+        with self._lock:
+            return {
+                "unit_s": self.UNIT_S,
+                "sub_bits": self._SUB_BITS,
+                "counts": {str(k): v for k, v in self._counts.items()},
+            }
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "HdrRecorder":
+        if d.get("sub_bits") != cls._SUB_BITS:
+            raise ValueError(
+                f"HdrRecorder layout mismatch: sub_bits "
+                f"{d.get('sub_bits')} != {cls._SUB_BITS}"
+            )
+        h = cls()
+        for k, v in (d.get("counts") or {}).items():
+            h._counts[int(k)] = int(v)
+            h._total += int(v)
+        return h
+
+
+class Metrics:
+    """One bundle of collectors per daemon."""
+
+    def __init__(self, registry: Optional[CollectorRegistry] = None) -> None:
+        self.registry = registry or CollectorRegistry()
+        r = self.registry
+        # Flight recorder hook (runtime/flightrec.py): when a daemon arms
+        # one, the layers already holding this bundle (backend, peers,
+        # interceptor) feed it without new plumbing.
+        self.flightrec = None
+
+        # -- request path (gubernator.go:59-113) -------------------------
+        self.check_counter = Counter(
+            "gubernator_check_counter",
+            "The number of rate limits checked.",
+            registry=r,
+        )
+        self.check_error_counter = Counter(
+            "gubernator_check_error_counter",
+            "The number of errors while checking rate limits.",
+            ["error"],
+            registry=r,
+        )
+        self.over_limit_counter = Counter(
+            "gubernator_over_limit_counter",
+            "The number of rate limit checks that are over the limit.",
+            registry=r,
+        )
+        self.getratelimit_counter = Counter(
+            "gubernator_getratelimit_counter",
+            "The count of getRateLimit() calls.",
+            ["calltype"],  # local | forward | global
+            registry=r,
+        )
+        self.concurrent_checks = Summary(
+            "gubernator_concurrent_checks_counter",
+            "Concurrent rate checks in flight.",
+            registry=r,
+        )
+        self.func_duration = Histogram(
+            "gubernator_func_duration",
+            "Timings of key functions in seconds.",
+            ["name"],
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.asyncrequest_retries = Counter(
+            "gubernator_asyncrequest_retries",
+            "Retries in forwarding a request to another peer.",
+            ["name"],
+            registry=r,
+        )
+
+        # -- batching / peer traffic (peer_client, workers) ---------------
+        self.batch_send_duration = Histogram(
+            "gubernator_batch_send_duration",
+            "Timings of batch sends to a remote peer.",
+            ["peerAddr"],
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.queue_length = Summary(
+            "gubernator_queue_length",
+            "Remote-batch queue length at send time.",
+            ["peerAddr"],
+            registry=r,
+        )
+        self.pool_queue_length = Summary(
+            "gubernator_pool_queue_length",
+            "Local device-batch sizes per step (the worker-pool queue "
+            "analog).",
+            registry=r,
+        )
+        self.peer_error_window = Gauge(
+            "gubernator_peer_error_window",
+            "Errors in a peer's rolling health window (refreshed at "
+            "scrape from PeerClient.last_errors).",
+            ["peerAddr"],
+            registry=r,
+        )
+        self.peer_error_total = Counter(
+            "gubernator_peer_error_total",
+            "Errors recorded against a peer since daemon start.",
+            ["peerAddr"],
+            registry=r,
+        )
+        self.peer_shed_total = Counter(
+            "gubernator_peer_shed_total",
+            "Requests shed before any device or peer work, by reason: "
+            "queue_full / breaker_open (peer-client enqueue gates, "
+            "peerAddr = the peer) and pressure (SLO-driven adaptive "
+            "shedding on this node, peerAddr = 'local').",
+            ["peerAddr", "reason"],
+            registry=r,
+        )
+        self.circuit_state = Gauge(
+            "gubernator_circuit_state",
+            "Per-peer circuit-breaker state (0=closed, 1=open, "
+            "2=half_open); refreshed at scrape and on transition.",
+            ["peerAddr"],
+            registry=r,
+        )
+        self.degraded_total = Counter(
+            "gubernator_degraded_total",
+            "Responses served by the degraded-mode ownership fallback "
+            "while the owner peer was unreachable, by mode.",
+            ["mode"],  # fail_closed | fail_open | local_shadow
+            registry=r,
+        )
+
+        # -- hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md) --
+        self.hotkey_hot_keys = Gauge(
+            "gubernator_hotkey_hot_keys",
+            "Keys currently in the exact hot-set (promoted by the "
+            "pressure-gated hot-key detector).",
+            registry=r,
+        )
+        self.hotkey_promotions = Counter(
+            "gubernator_hotkey_promotions_total",
+            "Keys promoted into the hot-set (pressure score past "
+            "GUBER_HOTKEY_THRESHOLD for promote_windows consecutive "
+            "windows).",
+            registry=r,
+        )
+        self.hotkey_demotions = Counter(
+            "gubernator_hotkey_demotions_total",
+            "Keys demoted from the hot-set (score below threshold for "
+            "demote_windows consecutive windows).",
+            registry=r,
+        )
+        self.hotkey_mirror_served = Counter(
+            "gubernator_hotkey_mirror_served_total",
+            "Hot-key checks served from this node's local mirror "
+            "allowance (fraction x limit) while the key's owner "
+            "advertised SLO pressure.",
+            registry=r,
+        )
+
+        # -- client-side admission leases (runtime/lease.py; docs/leases.md)
+        self.lease_grants = Counter(
+            "gubernator_lease_grants_total",
+            "Lease grant decisions by outcome: granted, or refused_* "
+            "(behavior / pressure / holders / exhausted / error).",
+            ["outcome"],
+            registry=r,
+        )
+        self.lease_active_grants = Gauge(
+            "gubernator_lease_active_grants",
+            "Unexpired lease holders across keys on this owner "
+            "(refreshed on grant/reconcile/sweep).",
+            registry=r,
+        )
+        self.lease_reconciled_hits = Counter(
+            "gubernator_lease_reconciled_hits_total",
+            "Holder-burned hits reconciled into authoritative rows "
+            "(at-most-once through the GLOBAL async-hit machinery).",
+            registry=r,
+        )
+        self.lease_revocations = Counter(
+            "gubernator_lease_revocations_total",
+            "Lease grants revoked, by reason (release / expiry); the "
+            "carve slot drops once a key's last holder is gone.",
+            ["reason"],
+            registry=r,
+        )
+
+        # -- live resharding (runtime/reshard.py; docs/resharding.md) -----
+        self.reshard_state = Gauge(
+            "gubernator_reshard_state",
+            "Per-peer handoff phase (1 prepare, 2 drain, 3 transfer, "
+            "4 cutover, 5 released, 6 aborted); label removed when the "
+            "handoff record expires.",
+            ["peerAddr", "direction"],
+            registry=r,
+        )
+        self.reshard_handoffs = Counter(
+            "gubernator_reshard_handoffs_total",
+            "Completed/aborted/self_cutover handoffs by direction "
+            "(outbound = this node sent rows, inbound = received).",
+            ["direction", "outcome"],
+            registry=r,
+        )
+        self.reshard_rows = Counter(
+            "gubernator_reshard_rows_total",
+            "Migrated table rows by direction: sent, injected, "
+            "skipped (already resident at the receiver), lost "
+            "(undeliverable before the handoff deadline).",
+            ["direction"],
+            registry=r,
+        )
+        self.reshard_window_duration = Histogram(
+            "gubernator_reshard_window_duration",
+            "Outbound handoff window duration in seconds "
+            "(prepare -> cutover acked).",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.reshard_shadow_served = Counter(
+            "gubernator_reshard_shadow_served_total",
+            "Covered-key checks served from the bounded "
+            ".handoff-shadow carve (handoff_fraction x limit) during "
+            "a handoff window.",
+            registry=r,
+        )
+
+        # -- GLOBAL replication (global.go:48-57) -------------------------
+        self.async_durations = Histogram(
+            "gubernator_async_durations",
+            "Timings of GLOBAL async sends in seconds.",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.broadcast_durations = Histogram(
+            "gubernator_broadcast_durations",
+            "Timings of GLOBAL broadcasts to peers in seconds.",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+
+        # -- region carve plane (runtime/multiregion.py;
+        #    docs/multiregion.md) --------------------------------------
+        self.region_drift = Gauge(
+            "gubernator_region_drift_hits",
+            "Un-reconciled carve burns queued toward remote home "
+            "regions (the bounded-divergence backlog; capped by "
+            "GUBER_REGION_DRIFT_MAX).",
+            registry=r,
+        )
+        self.region_carve_served = Counter(
+            "gubernator_region_carve_served_total",
+            "Checks served from a local .region-carve slot for a "
+            "remote-homed key.",
+            registry=r,
+        )
+        self.region_reconcile_lag = Histogram(
+            "gubernator_region_reconcile_lag_seconds",
+            "Queue-to-delivery latency of carve burns reconciling to "
+            "their home region over the WAN lane.",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.region_rehomes = Counter(
+            "gubernator_region_rehomes_total",
+            "Completed region re-home pipelines (REGION_PREPARE -> "
+            "TRANSFER -> CUTOVER after a WAN heal).",
+            registry=r,
+        )
+        self.region_degraded = Counter(
+            "gubernator_region_degraded_total",
+            "Region links marked degraded (WAN lane provably down; "
+            "carve keeps serving local_shadow semantics).",
+            registry=r,
+        )
+
+        # -- cache / device table (lrucache.go:48-59) ---------------------
+        self.cache_access_count = Counter(
+            "gubernator_cache_access_count",
+            "Slot-table accesses during rate checks.",
+            ["type"],  # hit | miss
+            registry=r,
+        )
+        self.cache_size = Gauge(
+            "gubernator_cache_size",
+            "Live items in the device slot table.",
+            registry=r,
+        )
+        self.unexpired_evictions = Counter(
+            "gubernator_unexpired_evictions_count",
+            "Live items evicted early (victim claim over a live slot).",
+            registry=r,
+        )
+        self.sketch_spillover = Counter(
+            "gubernator_sketch_spillover_count",
+            "Limit names degraded from the exact tier to the count-min "
+            "sketch tier under cardinality/occupancy pressure.",
+            registry=r,
+        )
+
+        # -- gRPC server (grpc_stats.go:51-63) ----------------------------
+        self.grpc_request_counts = Counter(
+            "gubernator_grpc_request_counts",
+            "The count of gRPC requests.",
+            ["method", "failed"],
+            registry=r,
+        )
+        self.grpc_request_duration = Histogram(
+            "gubernator_grpc_request_duration",
+            "Timings of gRPC requests in seconds.",
+            ["method"],
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+
+        # -- SLO / flight recorder (runtime/flightrec.py) -----------------
+        self.slo_p50 = Gauge(
+            "gubernator_slo_p50_seconds",
+            "Rolling p50 of gRPC request latency over the flight "
+            "recorder's trailing window.",
+            registry=r,
+        )
+        self.slo_p99 = Gauge(
+            "gubernator_slo_p99_seconds",
+            "Rolling p99 of gRPC request latency over the flight "
+            "recorder's trailing window.",
+            registry=r,
+        )
+        self.slo_breach_total = Counter(
+            "gubernator_slo_breach_total",
+            "Evaluation windows whose rolling p99 exceeded the "
+            "GUBER_SLO_P99_MS target.",
+            registry=r,
+        )
+        self.loop_lag = Gauge(
+            "gubernator_event_loop_lag_seconds",
+            "Latest event-loop lag sample (scheduling delay of the "
+            "flight recorder's periodic tick).",
+            registry=r,
+        )
+        self.flightrec_dump_total = Counter(
+            "gubernator_flightrec_dump_total",
+            "Flight-recorder snapshots dumped to disk, by trigger.",
+            ["reason"],  # slo_breach | error_storm | signal | http
+            registry=r,
+        )
+        self.tracing_spans = Gauge(
+            "gubernator_tracing_spans",
+            "Tracing span counters (runtime/tracing.py) since process "
+            "start, refreshed at scrape: started (sampled spans "
+            "created), exported (handed to an exporter), dropped "
+            "(export failed).",
+            ["state"],  # started | exported | dropped
+            registry=r,
+        )
+
+        # -- compiled fast lane: pipelined drain (runtime/fastpath.py) ----
+        self.fastpath_drains = Counter(
+            "gubernator_fastpath_drains_total",
+            "Fast-lane coalescer drains by lane (mach/sketch/engine) and "
+            "kind: total = every drain, overlap = rode a sparse fetch "
+            "slot, waited = stalled for a fetch slot (one pipeline "
+            "bubble each).",
+            ["lane", "kind"],
+            registry=r,
+        )
+        self.fastpath_stage_duration = Histogram(
+            "gubernator_fastpath_stage_duration",
+            "Wall time of one pipelined-drain stage in seconds: "
+            "dispatch (pack + device dispatch, serialized) vs fetch "
+            "(device->host readback + unmarshal, depth "
+            "GUBER_PIPELINE_DEPTH).",
+            ["lane", "stage"],
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.fastpath_pipeline_occupancy = Histogram(
+            "gubernator_fastpath_pipeline_occupancy",
+            "Merges in flight (dispatch or fetch stage) when a drain "
+            "entered its pipeline, by lane — sustained occupancy near "
+            "the configured depth means a deeper pipeline may help.",
+            ["lane"],
+            buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0),
+            registry=r,
+        )
+        self.fastpath_bubble_seconds = Counter(
+            "gubernator_fastpath_bubble_seconds_total",
+            "Cumulative time a ready drain spent stalled waiting for a "
+            "fetch slot (dispatch idle — the pipeline bubble), by lane.",
+            ["lane"],
+            registry=r,
+        )
+
+        # -- ring drain discipline (runtime/ring.py; docs/ring.md) --------
+        self.fastpath_ring_occupancy = Histogram(
+            "gubernator_fastpath_ring_occupancy",
+            "Request-ring rounds consumed per device-loop iteration "
+            "(before padding to the compiled slot tier) — sustained "
+            "occupancy at GUBER_RING_SLOTS with nonzero slot-wait means "
+            "a bigger ring may help.",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0),
+            registry=r,
+        )
+        self.fastpath_ring_slot_wait = Histogram(
+            "gubernator_fastpath_ring_slot_wait",
+            "Time a merge spent blocked waiting for free request-ring "
+            "slots (ring-full backpressure) in seconds.",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.fastpath_ring_loop_lag = Gauge(
+            "gubernator_fastpath_ring_loop_lag_seconds",
+            "Latest gap between consecutive ring device-loop dispatches "
+            "— the serving loop's heartbeat (large values while traffic "
+            "queues mean the runner is stuck on a host job or fetch).",
+            registry=r,
+        )
+        self.ring_rounds_per_dispatch = Gauge(
+            "gubernator_ring_rounds_per_dispatch",
+            "Running dispatch-amortization factor: real (un-padded) "
+            "rounds served per device dispatch since the ring armed.  "
+            "Megaround serving (GUBER_RING_ROUNDS > 1) exists to raise "
+            "this under load; ~1.0 under saturating traffic means every "
+            "round still pays its own dispatch (docs/ring.md).",
+            registry=r,
+        )
+
+        # -- the device engine --------------------------------------------
+        self.device_step_duration = Histogram(
+            "gubernator_tpu_device_step_duration",
+            "Wall time of one device batch dispatch in seconds.",
+            buckets=LATENCY_BUCKETS,
+            registry=r,
+        )
+        self.device_occupancy = Gauge(
+            "gubernator_tpu_slot_occupancy",
+            "Occupied slots in the device table.",
+            registry=r,
+        )
+        self.global_cache_occupancy = Gauge(
+            "gubernator_tpu_global_cache_occupancy",
+            "Occupied slots in the GLOBAL replicated serving table "
+            "(mesh GlobalEngine; sized by global_cache_slots).",
+            registry=r,
+        )
+        # Per-shard mesh observability (docs/architecture.md mesh
+        # deployment mode): the aggregate occupancy hides skew — a
+        # production key set piling onto one shard is visible only
+        # per-shard, and a lagging per-shard ring sequence word means
+        # that shard's loop dropped or replayed a block.
+        self.shard_occupancy = Gauge(
+            "gubernator_shard_occupancy",
+            "Occupied slots per mesh shard (mesh backends only; skewed "
+            "shards show here while the aggregate looks healthy).",
+            ["shard"],
+            registry=r,
+        )
+        self.shard_ring_seq = Gauge(
+            "gubernator_shard_ring_seq",
+            "Per-shard ring sequence word at the last fetched iteration "
+            "(ring mode; every shard must match the host mirror — see "
+            "docs/ring.md's sequence protocol).",
+            ["shard"],
+            registry=r,
+        )
+
+        # -- gubstat: device-table census (runtime/gubstat.py;
+        #    docs/observability.md).  All refreshed on the sampler's
+        #    cadence (GUBER_STATS_INTERVAL), not at scrape — the census
+        #    is a device kernel, never run on the scrape path.
+        self.table_occupancy = Gauge(
+            "gubernator_table_occupancy",
+            "Resident slots in the device table at the last gubstat "
+            "census (live + expired-but-unreclaimed).",
+            registry=r,
+        )
+        self.table_live = Gauge(
+            "gubernator_table_live",
+            "Unexpired resident slots at the last gubstat census.",
+            registry=r,
+        )
+        self.table_expired_resident = Gauge(
+            "gubernator_table_expired_resident",
+            "Expired slots still resident (reclaimable by the next "
+            "victim claim) at the last gubstat census.",
+            registry=r,
+        )
+        self.table_bucket_fill = Gauge(
+            "gubernator_table_bucket_fill",
+            "Buckets with exactly `fill` resident slots (0..ways) — the "
+            "probe-length histogram; mass near `ways` means bucket "
+            "exhaustion and early evictions.",
+            ["fill"],
+            registry=r,
+        )
+        self.table_slot_age = Gauge(
+            "gubernator_table_slot_age",
+            "Live slots by age since creation (t0) at the last census.",
+            ["bucket"],  # le_1s | le_10s | le_1m | le_10m | le_1h | inf
+            registry=r,
+        )
+        self.table_ttl_remaining = Gauge(
+            "gubernator_table_ttl_remaining",
+            "Live slots by time remaining until TTL expiry.",
+            ["bucket"],  # le_1s | le_10s | le_1m | le_10m | le_1h | inf
+            registry=r,
+        )
+        self.table_remaining_fraction = Gauge(
+            "gubernator_table_remaining_fraction",
+            "Live slots by remaining/limit eighth (bucket 0 = nearly "
+            "exhausted, 7 = nearly full), per algorithm.",
+            ["algo", "bucket"],  # token | leaky; 0..7
+            registry=r,
+        )
+        self.table_shadow_slots = Gauge(
+            "gubernator_table_shadow_slots",
+            "Resident live slots per shadow plane (hot-mirror, "
+            "lease-grant, degraded-shadow, handoff-shadow, "
+            "region-carve) matched against the enumerated derived-key "
+            "fingerprints.",
+            ["plane"],
+            registry=r,
+        )
+        self.table_stats_samples = Counter(
+            "gubernator_table_stats_samples_total",
+            "Gubstat census samples taken since daemon start.",
+            registry=r,
+        )
+
+        # -- Guberberg two-tier key table (runtime/coldtier.py) -----------
+        self.tier_cold_residents = Gauge(
+            "gubernator_tier_cold_residents",
+            "Rows resident in the host-RAM cold tier (demoted from HBM, "
+            "promotable on access).",
+            registry=r,
+        )
+        self.tier_capacity_drops = Gauge(
+            "gubernator_tier_capacity_drops",
+            "Demoted rows dropped because the cold tier was at its "
+            "configured capacity — each costs at most one bounded "
+            "over-admission window (docs/tiering.md).",
+            registry=r,
+        )
+        self.tier_promotes = Counter(
+            "gubernator_tier_promotes_total",
+            "Cold-tier rows promoted back into the device table.",
+            registry=r,
+        )
+        self.tier_demotes = Counter(
+            "gubernator_tier_demotes_total",
+            "Device-table rows demoted to the cold tier by watermark "
+            "pressure.",
+            registry=r,
+        )
+        self.tier_cold_hits = Counter(
+            "gubernator_tier_cold_hits_total",
+            "Served keys found cold-resident (each schedules a "
+            "promote; the serving round itself used a fresh row).",
+            registry=r,
+        )
+        self.tier_promote_latency = Gauge(
+            "gubernator_tier_promote_latency",
+            "Cumulative promote-latency histogram on the shared "
+            "LATENCY_BUCKETS (seconds from cold hit to merged inject).",
+            ["le"],
+            registry=r,
+        )
+
+        # -- gubload: open-loop scenario harness (loadgen/;
+        #    docs/loadgen.md).  Set by the harness's phase tracker when
+        #    a scenario drives this node in-process; labels are removed
+        #    at phase exit so an idle daemon exports nothing here.
+        self.load_active = Gauge(
+            "gubernator_load_active",
+            "A gubload scenario phase currently driving this node "
+            "(1 while the phase is active; the label pair is removed "
+            "at phase exit).",
+            ["scenario", "phase"],
+            registry=r,
+        )
+
+        # -- gubstat: per-tenant admission accounting ---------------------
+        self.tenant_hits = Gauge(
+            "gubernator_tenant_hits",
+            "Hits served locally per limit name and outcome (allowed / "
+            "denied / shed) for the current top-K tenants; labels for "
+            "tenants that fall out of the top-K are removed at refresh.",
+            ["name", "outcome"],
+            registry=r,
+        )
+        self.tenant_over_admitted = Gauge(
+            "gubernator_tenant_over_admitted",
+            "Hits admitted through a shadow plane's bounded carve "
+            "(mirror / lease / degraded / handoff) per top-K tenant — "
+            "the live view of the limit x (1 + fraction) admission "
+            "bound.",
+            ["name", "plane"],
+            registry=r,
+        )
+
+    def note_check_error(self, error: str, n: int = 1) -> None:
+        """Count a check error AND feed the flight recorder's
+        error-storm window — the one call every rejection path uses so
+        storm detection can't drift from the counter."""
+        self.check_error_counter.labels(error=error).inc(n)
+        fr = self.flightrec
+        if fr is not None:
+            fr.note_error(n)
+
+    def render(self) -> bytes:
+        """Text exposition for the /metrics endpoint."""
+        return generate_latest(self.registry)
+
+    def render_openmetrics(self) -> bytes:
+        """OpenMetrics exposition — the format that renders the
+        trace-id exemplars the SLO histograms record (the classic text
+        format silently omits them).  Served by /metrics when the
+        scraper's Accept header asks for it."""
+        from prometheus_client.openmetrics.exposition import (
+            generate_latest as om_generate_latest,
+        )
+
+        return om_generate_latest(self.registry)

@@ -1,0 +1,712 @@
+"""The ring drain discipline: a device-loop runner that takes host
+fetches off the request path (GUBER_SERVE_MODE=ring, megaround,
+persistent).
+
+The classic and pipelined disciplines (runtime/fastpath._Coalescer) pay
+one device->host fetch per merge on the request path.  The ring
+discipline moves the fetch off it:
+
+  request ring   — producers (fast-lane pool threads) pack a merge's
+                   rounds into ring slots (`submit_rounds`/`submit_q`) and
+                   return immediately with a wait handle; a full ring
+                   blocks the producer (backpressure, measured as
+                   slot-wait).
+  device loop    — ONE runner thread drains queued slots into one
+                   dispatch of the serve kernel (K1 on the card, the plain
+                   `ops/ring.ring_step` on the CPU): up to GUBER_RING_SLOTS
+                   rounds an iteration, a fresh sequence word per dispatch.
+                   Double-buffered: iteration N+1 dispatches before
+                   iteration N's responses are fetched.
+  response ring  — each dispatch copies its responses and its sequence word
+                   into pinned host memory behind its own CUDA event
+                   (backend.PendingFetch); the runner waits on that event
+                   only, verifies the word advanced exactly by the
+                   consumed slot count, and publishes each round's packed
+                   response to its waiting slot.
+
+Merges that must fetch inside the backend lock (the host-cascade replay,
+fastpath._process's locked branch) ride the same runner as HOST JOBS
+(`submit_host`): the work runs verbatim on the runner thread, FIFO with
+the ring iterations.
+
+Failure containment: a dispatch error marks the ring BROKEN and fails its
+jobs; the fast lane checks `available()` per merge and falls back to the
+pipelined discipline.  `close()` finishes the in-flight iteration (its
+device effects already happened), fails never-started jobs, and joins the
+runner.
+
+MEGAROUND (GUBER_RING_ROUNDS > 1): capacity multiplies to slots x rounds
+and the runner becomes an ADAPTIVE ROUND ACCUMULATOR — a shallow queue
+(<= the base slot tier) dispatches immediately, while a backlog past the
+base tier widens the block to the mega tiers (one dispatch of up to
+slots x rounds rounds, `backend.ring_mega_dispatch`), lingering at most
+GUBER_RING_MAX_LINGER_US for the block to fill.
+
+PERSISTENT (GUBER_SERVE_MODE=persistent): every block goes through the
+backend's `persistent_serve_dispatch`; the fast lane arms it only when
+`persistent_serve_supported()` reports the kernel built (on the CPU it
+degrades to megaround).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+
+from gubernator_tpu_torch.ops.ring import (
+    resolve_mega_tiers,
+    resolve_ring_tiers,
+    ring_tier_of,
+)
+from gubernator_tpu_torch.runtime import tracing
+from gubernator_tpu_torch.runtime.tracing import device_step_annotation
+
+
+class _Job:
+    """One submitted unit: either `qs` (an int64[k, 12, B] request block
+    already in ring slot layout) or `fn` (a host job run verbatim on the
+    runner thread).  `trace_ctx` is the submitter's trace context,
+    carried explicitly because the runner is a plain thread — ring
+    iterations and host jobs re-attach to the request's trace through
+    it."""
+
+    __slots__ = (
+        "ring", "qs", "fn", "event", "result", "error", "trace_ctx",
+    )
+
+    def __init__(self, ring: "RingBackend", qs=None, fn=None) -> None:
+        self.ring = ring
+        self.qs = qs
+        self.fn = fn
+        self.event = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+        self.trace_ctx = tracing.current_context()
+
+    def publish(self, result=None, error=None) -> None:
+        self.result = result
+        self.error = error
+        self.event.set()
+
+    def wait(self):
+        """Bounded wait: a wedged runner (e.g. a host job stuck on a
+        slow Store call) must not hang waiters forever — that would
+        wedge the coalescer fetch stages and with them FastPath.close().
+        Two escapes: the ring turned defunct (close() gave up on the
+        runner) with this job unresolved, or the per-job timeout
+        expired, in which case the ring is marked broken so every later
+        merge falls back to the pipelined discipline."""
+        ring = self.ring
+        deadline = time.monotonic() + ring.job_timeout_s
+        while not self.event.wait(timeout=0.5):
+            if ring.defunct:
+                raise RingClosedError(
+                    "ring shut down with this job unresolved"
+                )
+            if time.monotonic() >= deadline:
+                ring._mark_broken()
+                raise RingClosedError(
+                    f"ring job timed out after {ring.job_timeout_s:.0f}s"
+                    " (runner wedged?)"
+                )
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+class RingClosedError(RuntimeError):
+    pass
+
+
+class PartialSubmitError(RuntimeError):
+    """A multi-chunk submit_q lost the ring after at least one chunk was
+    already queued — and possibly dispatched, i.e. its device effects
+    may have landed.  Deliberately NOT a RingClosedError subclass:
+    callers handle THAT by falling back to another drain path and
+    re-dispatching the merge, which here would apply the queued chunks'
+    hits twice.  The only safe handling is to fail the merge."""
+
+
+class RingBackend:
+    """Request/response rings + the persistent device-loop runner."""
+
+    # Ceiling on one job's wait for its published result — a liveness
+    # backstop against a wedged runner, far above any legitimate
+    # iteration or host-job latency (see _Job.wait).
+    JOB_TIMEOUT_S = 120.0
+
+    def __init__(
+        self, backend, slots: int = 8, metrics=None,
+        job_timeout_s: float = JOB_TIMEOUT_S,
+        rounds: int = 1, max_linger_us: float = 0.0,
+        persistent: bool = False,
+    ) -> None:
+        if slots < 1:
+            raise ValueError(f"ring slots must be >= 1, got {slots}")
+        if rounds < 1:
+            raise ValueError(f"ring rounds must be >= 1, got {rounds}")
+        if max_linger_us < 0:
+            raise ValueError(
+                f"ring max_linger_us must be >= 0, got {max_linger_us}"
+            )
+        if not getattr(backend, "ring_supported", lambda: False)():
+            raise ValueError(
+                f"{type(backend).__name__} does not support the ring "
+                "drain discipline"
+            )
+        if persistent and not hasattr(
+            backend, "persistent_serve_dispatch"
+        ):
+            raise ValueError(
+                f"{type(backend).__name__} has no persistent serve "
+                "dispatch (caller must gate on "
+                "persistent_serve_supported())"
+            )
+        self._backend = backend
+        self.slots = slots
+        # Megaround serving (docs/ring.md): `rounds` multiplies the
+        # ring capacity to slots x rounds and arms mega dispatch tiers
+        # — ONE dispatch per up-to-capacity block.  The adaptive
+        # accumulator (_maybe_linger_locked + _take_block_locked)
+        # dispatches base tiers immediately while the queue is shallow
+        # and widens to the mega tiers only under backlog, lingering at
+        # most max_linger_us for the block to fill.
+        self.rounds = rounds
+        self.capacity = slots * rounds
+        self.max_linger_s = max_linger_us * 1e-6
+        # persistent: route every block through the backend's
+        # persistent serve dispatch (GUBER_SERVE_MODE=persistent; the
+        # caller verified capability).
+        self.persistent = persistent
+        self._tiers = resolve_ring_tiers(slots)
+        self._mega_tiers = resolve_mega_tiers(slots, rounds)
+        self._all_tiers = self._tiers + self._mega_tiers
+        self._metrics = metrics
+        self._cond = threading.Condition()
+        self._queue: deque = deque()
+        self._pending_rounds = 0  # queued, not yet taken by the runner
+        self._closed = False
+        self.broken = False
+        # True once close() has drained/failed everything it can reach:
+        # any still-unresolved job can never resolve, so its waiters
+        # stop spinning (see _Job.wait).
+        self.defunct = False
+        self.job_timeout_s = job_timeout_s
+        # Host mirror of the device sequence word (ops/ring.py): advances
+        # by the consumed TIER (padding slots included) per iteration;
+        # the fetch verifies the device word agrees; the latest fetched
+        # word is kept for /debug/vars.
+        self.seq = 0
+        self.seq_mismatches = 0
+        self.seq_shards: list = []
+        # Observability (debug_vars + the ring metrics).
+        self.iterations = 0
+        self.rounds_consumed = 0
+        self.padded_rounds = 0
+        self.host_jobs = 0
+        self.slot_wait_s = 0.0
+        self.slot_waits = 0
+        self.loop_lag_s = 0.0  # latest gap between consecutive dispatches
+        self.max_block = 0
+        # Megaround accounting: iterations served at a mega tier, and
+        # the adaptive accumulator's linger waits (count + total time —
+        # every wait is bounded by max_linger_us).
+        self.mega_iterations = 0
+        self.lingers = 0
+        self.linger_s = 0.0
+        self._last_dispatch = None
+        self._seq_dev = backend.ring_seq_init()
+        self._runner = threading.Thread(
+            target=self._run, name="tpu-ring-runner", daemon=True
+        )
+        self._runner.start()
+
+    # -- producer side ----------------------------------------------------
+    def available(self) -> bool:
+        """May a merge enter the ring?  False once closed or broken —
+        the fast lane then falls back to the pipelined discipline."""
+        return not self._closed and not self.broken
+
+    def submit_rounds(self, rounds: Sequence) -> Callable[[], list]:
+        """Convenience form of submit_q for DeviceBatch rounds (tests,
+        generic callers): pack them into ring slot layout first.  The
+        fast lane scatters its columns straight into the layout instead
+        (fastpath._build_rounds_q) — no DeviceBatch objects exist on
+        that path."""
+        from gubernator_tpu_torch.runtime.backend import tier_of
+
+        be = self._backend
+        if not rounds:
+            return lambda: []
+        tb = max(tier_of(db.active, be._tiers) for db in rounds)
+        return self.submit_q(
+            np.stack([be.ring_pack_round(db, tb) for db in rounds])
+        )
+
+    def submit_q(self, qs: np.ndarray) -> Callable[[], list]:
+        """Queue one merge's request block — int64[k, 12, B] rounds
+        already in ring slot layout — into `k` ring slots; returns a zero-arg wait
+        producing the per-round host response dicts
+        (packed_rounds_to_host shape).  Blocks while the ring is full —
+        the backpressure the slot-wait metrics measure.
+
+        A merge WIDER than the ring (a duplicate-heavy batch whose
+        zero/negative-hit occurrences exploded into many sequential
+        rounds) splits into capacity-sized chunks submitted in order:
+        the FIFO queue + the in-order dispatches keep the rounds' effects
+        sequential across chunk boundaries, and the machinery lane's
+        serialized dispatch stage keeps other merges from interleaving
+        mid-merge submissions out of order.
+
+        Raises RingClosedError only while NOTHING has been enqueued
+        (safe for the caller to fall back and re-dispatch elsewhere);
+        losing the ring between chunks raises PartialSubmitError — the
+        queued chunks' device effects may already have landed, so the
+        caller must fail the merge instead."""
+        n = int(qs.shape[0])
+        if n == 0:
+            return lambda: []
+        if n > self.capacity:
+            n_chunks = -(-n // self.capacity)
+            waits = []
+            for lo in range(0, n, self.capacity):
+                try:
+                    waits.append(
+                        self._submit_chunk(qs[lo:lo + self.capacity])
+                    )
+                except RingClosedError as e:
+                    if not waits:
+                        raise
+                    raise PartialSubmitError(
+                        f"ring rejected chunk {len(waits) + 1}/{n_chunks}"
+                        f" with {len(waits)} chunks already queued; "
+                        "their device effects may have landed — fail "
+                        "the merge, do not re-dispatch it"
+                    ) from e
+
+            def wait_all() -> list:
+                out: list = []
+                for w in waits:
+                    out.extend(w())
+                return out
+
+            return wait_all
+        return self._submit_chunk(qs)
+
+    def _submit_chunk(self, qs: np.ndarray) -> Callable[[], list]:
+        n = int(qs.shape[0])
+        job = _Job(self, qs=qs)
+        t0 = time.monotonic()
+        waited = False
+        with self._cond:
+            while (
+                self._pending_rounds + n > self.capacity
+                and not self._closed
+                and not self.broken
+            ):
+                waited = True
+                self._cond.wait(timeout=0.5)
+            if self._closed or self.broken:
+                raise RingClosedError(
+                    "ring closed" if self._closed else "ring broken"
+                )
+            self._pending_rounds += n
+            self._queue.append(job)
+            self._cond.notify_all()
+        if waited:
+            dt = time.monotonic() - t0
+            self.slot_wait_s += dt
+            self.slot_waits += 1
+            m = self._metrics
+            if m is not None:
+                m.fastpath_ring_slot_wait.observe(dt)
+        return job.wait
+
+    def submit_host(self, fn: Callable[[], object]) -> Callable[[], object]:
+        """Queue a host job (e.g. a locked cascade/store merge or a
+        sketch fetch) to run verbatim on the runner thread, FIFO with
+        the ring iterations; returns a zero-arg wait for fn's result.
+        Host jobs occupy no ring slots — their device work is their
+        own."""
+        job = _Job(self, fn=fn)
+        with self._cond:
+            if self._closed or self.broken:
+                raise RingClosedError(
+                    "ring closed" if self._closed else "ring broken"
+                )
+            self._queue.append(job)
+            self._cond.notify_all()
+        return job.wait
+
+    def rounds_per_dispatch(self) -> float:
+        """The dispatch-amortization factor: real (un-padded) rounds
+        served per device dispatch — the number megaround exists to
+        raise (gubernator_ring_rounds_per_dispatch; docs/ring.md)."""
+        return self.rounds_consumed / max(self.iterations, 1)
+
+    def debug_vars(self) -> dict:
+        return {
+            "slots": self.slots,
+            "rounds": self.rounds,
+            "capacity": self.capacity,
+            "max_linger_us": round(self.max_linger_s * 1e6, 1),
+            "persistent": self.persistent,
+            "seq": self.seq,
+            "seq_shards": list(self.seq_shards),
+            "seq_mismatches": self.seq_mismatches,
+            "iterations": self.iterations,
+            "mega_iterations": self.mega_iterations,
+            "rounds_consumed": self.rounds_consumed,
+            "rounds_per_dispatch": round(self.rounds_per_dispatch(), 3),
+            "padded_rounds": self.padded_rounds,
+            "host_jobs": self.host_jobs,
+            "slot_waits": self.slot_waits,
+            "slot_wait_ms_total": round(self.slot_wait_s * 1e3, 3),
+            "lingers": self.lingers,
+            "linger_ms_total": round(self.linger_s * 1e3, 3),
+            "loop_lag_ms": round(self.loop_lag_s * 1e3, 3),
+            "max_block": self.max_block,
+            "broken": self.broken,
+        }
+
+    def warmup(self) -> None:
+        """Launch every (slot tier x batch tier) ring block shape once —
+        mega tiers included — so the kernel's scratch is sized for the
+        largest block before any client merge arrives (nothing compiles
+        per shape).  All-zero blocks are inactive no-ops — the table is
+        untouched, only the sequence word advances."""
+        pending = None
+        for tb in self._backend._tiers:
+            for t in self._all_tiers:
+                qs = np.zeros(
+                    (t,) + tuple(self._backend.ring_q_shape(tb)),
+                    dtype=np.int64,
+                )
+                nows = np.zeros(t, dtype=np.int64)
+                pending, _mega = self._dispatch_raw(qs, nows)
+                self.seq += t
+        if pending is not None:
+            pending.wait()  # the last warmup block has landed
+
+    # -- runner side ------------------------------------------------------
+    def _maybe_linger_locked(self) -> None:
+        """The adaptive round accumulator's bounded wait (megaround
+        only): a SHALLOW queue (<= the base slot capacity) dispatches
+        immediately — megaround must never add latency to light
+        traffic — but a backlog already past the base tier is the
+        under-load signal, so the runner lingers up to max_linger_us
+        for the mega block to fill toward capacity before dispatching.
+        Caller holds `_cond`; producers' notify_all wakes the wait as
+        rounds arrive."""
+        if self.rounds <= 1 or self.max_linger_s <= 0.0:
+            return
+        if not self._queue or self._queue[0].fn is not None:
+            return
+        if self._pending_rounds <= self.slots:
+            return  # shallow: dispatch now
+        if self._pending_rounds >= self.capacity:
+            return  # already full: nothing to wait for
+        t0 = time.monotonic()
+        deadline = t0 + self.max_linger_s
+        while (
+            self._pending_rounds < self.capacity
+            and not self._closed
+            and not self.broken
+        ):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            self._cond.wait(timeout=remaining)
+        self.lingers += 1
+        self.linger_s += time.monotonic() - t0
+
+    def _take_block_locked(self) -> Optional[List[_Job]]:
+        """Pop the next FIFO unit: a host job alone, or every queued
+        rounds-job up to the adaptive capacity as one block — the base
+        slot tier while the queue is shallow, the mega capacity
+        (slots x rounds) once the backlog is past the base tier (the
+        under-load half of the accumulator).  Caller holds `_cond`."""
+        if not self._queue:
+            return None
+        if self._queue[0].fn is not None:
+            return [self._queue.popleft()]
+        cap = (
+            self.capacity if self._pending_rounds > self.slots
+            else self.slots
+        )
+        block: List[_Job] = []
+        taken = 0
+        while self._queue and self._queue[0].fn is None:
+            n = int(self._queue[0].qs.shape[0])
+            if block and taken + n > cap:
+                break
+            block.append(self._queue.popleft())
+            taken += n
+        self._pending_rounds -= taken
+        self._cond.notify_all()  # wake producers blocked on capacity
+        return block
+
+    def _dispatch_raw(self, qs: np.ndarray, nows: np.ndarray):
+        """Route one padded [tier, ...] block to the armed dispatch: the
+        persistent serve dispatch when armed, the megaround dispatch for
+        tiers past the base slot capacity, the base ring dispatch
+        otherwise.  Returns (PendingFetch of (responses, sequence word),
+        mega flag — True when the block went out as an (r, s) round
+        grid)."""
+        be = self._backend
+        tier = int(qs.shape[0])
+        if self.persistent:
+            pending, self._seq_dev = be.persistent_serve_dispatch(
+                qs, nows, self._seq_dev, fetch=True
+            )
+            return pending, False
+        if tier > self.slots:
+            r = tier // self.slots
+            pending, self._seq_dev = be.ring_mega_dispatch(
+                qs.reshape((r, self.slots) + qs.shape[1:]),
+                nows.reshape(r, self.slots),
+                self._seq_dev,
+                fetch=True,
+            )
+            return pending, True
+        pending, self._seq_dev = be.ring_step_dispatch(
+            qs, nows, self._seq_dev, fetch=True
+        )
+        return pending, False
+
+    def _dispatch_block(self, block: List[_Job]):
+        """Assemble a jobs-block into one [tier, 12, B] request-ring
+        array and dispatch it (the backend serializes against every other
+        table mutation under its own lock).  Returns the fetch token
+        (block, PendingFetch, expected seq, t0, mega flag, trace
+        context)."""
+        be = self._backend
+        k = sum(int(job.qs.shape[0]) for job in block)
+        tier = ring_tier_of(k, self._all_tiers)
+        # Slot layout is backend-defined (ring_q_shape): [12, B].  The
+        # inner dims are constant across jobs; only the trailing batch
+        # tier varies.
+        tb = max(int(job.qs.shape[-1]) for job in block)
+        inner = tuple(block[0].qs.shape[1:-1])
+        qs = np.zeros((tier,) + inner + (tb,), dtype=np.int64)
+        off_q = 0
+        for job in block:
+            jk = int(job.qs.shape[0])
+            jtb = int(job.qs.shape[-1])
+            # Narrower jobs pad with zero lanes (inactive by layout).
+            qs[off_q:off_q + jk, ..., :jtb] = job.qs
+            off_q += jk
+        now = np.int64(be.clock.millisecond_now())
+        nows = np.full(tier, now, dtype=np.int64)
+        # One iteration span per device round: parented on the first
+        # sampled job's context with every other job's context attached
+        # as a span link — a request's trace pins the exact ring
+        # iteration it rode, and the monotone sequence word (set below,
+        # once consumed) names the device round.
+        isp = None
+        if tracing.enabled():
+            ctxs = [j.trace_ctx for j in block if j.trace_ctx is not None]
+            if ctxs:
+                parent = next((c for c in ctxs if c.sampled), ctxs[0])
+                isp = tracing.start_span(
+                    "ring.iteration", parent,
+                    links=[c for c in ctxs if c is not parent],
+                )
+        t0 = time.monotonic()
+        if self._last_dispatch is not None:
+            self.loop_lag_s = t0 - self._last_dispatch
+            m = self._metrics
+            if m is not None:
+                m.fastpath_ring_loop_lag.set(self.loop_lag_s)
+        self._last_dispatch = t0
+        # The profiler annotation makes ring rounds visible in
+        # torch.profiler captures, so the ring loop-lag gauges line up
+        # with the device timeline.
+        with tracing.use_context(isp.context if isp is not None else None):
+            with device_step_annotation("gubernator_ring_step"):
+                pending, mega = self._dispatch_raw(qs, nows)
+        self.iterations += 1
+        if mega or (self.persistent and tier > self.slots):
+            self.mega_iterations += 1
+        self.rounds_consumed += k
+        self.padded_rounds += tier - k
+        self.seq += tier
+        if k > self.max_block:
+            self.max_block = k
+        if isp is not None:
+            isp.set_attribute("ring.seq", self.seq)
+            isp.set_attribute("ring.rounds", k)
+            isp.set_attribute("ring.tier", tier)
+            isp.end()
+        m = self._metrics
+        if m is not None:
+            m.fastpath_ring_occupancy.observe(k)
+            m.ring_rounds_per_dispatch.set(self.rounds_per_dispatch())
+        # The PendingFetch carries THIS iteration's own sequence word,
+        # copied behind its own event before the next iteration
+        # dispatches with it.
+        return (
+            block, pending, self.seq, t0, mega,
+            isp.context if isp is not None else None,
+        )
+
+    def _fetch_publish(self, token) -> None:
+        """The response-ring side: wait on the iteration's own copy event
+        (responses + sequence word), then per-job publication.  Runs only
+        on the runner thread — never on the request path."""
+        block, pending, want_seq, t0, _mega, it_ctx = token
+        fsp = tracing.start_span(
+            "ring.fetch_publish", it_ctx, **{"ring.seq": want_seq}
+        )
+        try:
+            with tracing.use_context(
+                fsp.context if fsp is not None else it_ctx
+            ):
+                self._fetch_publish_inner(block, pending, want_seq, t0)
+        finally:
+            if fsp is not None:
+                fsp.end()
+
+    def _fetch_publish_inner(self, block, pending, want_seq, t0) -> None:
+        from gubernator_tpu_torch.runtime.backend import _packed_resp_dict
+
+        try:
+            host, seq_host = pending.wait()
+        except Exception as e:  # noqa: BLE001 — device fault: break ring
+            self._mark_broken()
+            for job in block:
+                job.publish(error=e)
+            return
+        seq_words = np.asarray(seq_host).reshape(-1)
+        self.seq_shards = [int(w) for w in seq_words]
+        if (seq_words != want_seq).any():
+            # The device loop and the host mirror disagree — responses
+            # may be misattributed.  Record loudly; the differential
+            # suite asserts this never fires.
+            self.seq_mismatches += 1
+        off = 0
+        for job in block:
+            n = int(job.qs.shape[0])
+            # Slice each job's rows back to ITS OWN batch tier: the
+            # block dispatched at the max tier across coalesced jobs,
+            # but the submitter's active masks and lane indices are
+            # built at the job's tier (tally_from_rounds would
+            # broadcast-fail on wider rows; the padded lanes are
+            # inactive by construction, so nothing real is dropped).
+            w = int(job.qs.shape[-1])
+            job.publish(result=[
+                _packed_resp_dict(host[off + i][..., :w])
+                for i in range(n)
+            ])
+            off += n
+        m = self._metrics
+        fr = getattr(m, "flightrec", None) if m is not None else None
+        if fr is not None:
+            fr.record_batch(
+                off, (time.monotonic() - t0) * 1e3, kind="ring_iter",
+                rounds_per_dispatch=round(self.rounds_per_dispatch(), 3),
+            )
+
+    def _mark_broken(self) -> None:
+        with self._cond:
+            self.broken = True
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        inflight = None  # dispatched, responses not yet fetched
+        while True:
+            with self._cond:
+                while (
+                    not self._queue
+                    and not self._closed
+                    and inflight is None
+                ):
+                    self._cond.wait()
+                if self._closed and not self._queue and inflight is None:
+                    return
+                self._maybe_linger_locked()
+                unit = self._take_block_locked()
+                dead = self._closed or self.broken
+                dead_msg = "ring closed" if self._closed else "ring broken"
+            if unit is None:
+                # Idle (or draining at close) with an iteration in
+                # flight: fetch and publish it now.
+                self._fetch_publish(inflight)
+                inflight = None
+                continue
+            if dead:
+                # Close/break raced in after these jobs queued: their
+                # effects have NOT happened yet (host jobs never ran,
+                # rounds never dispatched) — fail them uniformly
+                # rather than execute behind a closing daemon or
+                # dispatch against a backend that just faulted.  The
+                # in-flight iteration's effects DID land, so it is
+                # still fetched and published first.
+                if inflight is not None:
+                    self._fetch_publish(inflight)
+                    inflight = None
+                for job in unit:
+                    job.publish(error=RingClosedError(dead_msg))
+                continue
+            if unit[0].fn is not None:
+                # Host job: drain the pending fetch first (its buffers
+                # are a cheap sync away; the job may hold the backend
+                # lock for a while), then run the job verbatim.
+                if inflight is not None:
+                    self._fetch_publish(inflight)
+                    inflight = None
+                job = unit[0]
+                self.host_jobs += 1
+                # A FIFO host job re-attaches to its submitter's trace
+                # (locked cascade/store merges, sketch readbacks): the
+                # span brackets the whole runner-side execution, so a
+                # trace shows exactly how long the job held the runner.
+                run = tracing.wrap(
+                    job.fn, "ring.host_job", job.trace_ctx
+                )
+                try:
+                    job.publish(result=run())
+                except BaseException as e:  # noqa: BLE001 — fail the job
+                    job.publish(error=e)
+                continue
+            try:
+                token = self._dispatch_block(unit)
+            except BaseException as e:  # noqa: BLE001 — break the ring
+                self._mark_broken()
+                for job in unit:
+                    job.publish(error=e)
+                continue
+            # Double buffer: the PREVIOUS iteration's fetch overlaps this
+            # one's device execution.
+            if inflight is not None:
+                self._fetch_publish(inflight)
+            inflight = token
+
+    def close(self) -> None:
+        """Stop the runner: the in-flight iteration is fetched and
+        published (its device effects already landed); queued-but-never-
+        started jobs — host jobs included — fail with RingClosedError."""
+        with self._cond:
+            if self._closed:
+                return
+            self._closed = True
+            self._cond.notify_all()
+        self._runner.join(timeout=30.0)
+        # Belt and braces: anything the runner left behind must resolve.
+        with self._cond:
+            leftovers = list(self._queue)
+            self._queue.clear()
+            self._pending_rounds = 0
+        for job in leftovers:
+            if not job.event.is_set():
+                job.publish(error=RingClosedError("ring closed"))
+        if self._runner.is_alive():
+            # Join timed out: the runner is wedged inside a job it
+            # already popped.  Mark broken so nothing new is accepted;
+            # `defunct` below makes that job's waiters stop spinning
+            # (bounded _Job.wait) instead of hanging shutdown.
+            self._mark_broken()
+        self.defunct = True

@@ -1,0 +1,1469 @@
+"""The service instance: per-request routing over the cluster.
+
+This is the analog of the reference's V1Instance (gubernator.go:46-824) — the
+"brain" that decides, for every rate-limit check, whether to answer from the
+local device engine, serve a GLOBAL key from replicated cache, or forward to
+the owning peer.  One deliberate device-first difference: where the reference
+dispatches each request to a worker goroutine individually
+(gubernator.go:222-300), this service partitions a client batch ONCE and
+applies all locally-owned checks in a single device step — the request fan
+becomes vector lanes, not goroutines.
+
+Routing per request (gubernator.go:222-300):
+  - validation errors answer inline (handled by the packer);
+  - owner == us      -> local device batch;
+  - GLOBAL, not ours -> local device batch with the use_cached lane flag
+                        (stale-but-fast read, gubernator.go:420-460) + hit
+                        queued to the global manager; metadata["owner"] set;
+  - otherwise        -> forwarded to the owner through the batching peer
+                        client with <=5 retries on ownership change
+                        (gubernator.go:327-416).
+
+The GlobalManager re-implements global.go:33-254 on asyncio: an async-hits
+loop aggregating (key -> summed hits) flushed to owners every
+`global_sync_wait`, and a broadcast loop pushing owner-authoritative statuses
+to every peer with the GLOBAL flag cleared to avoid loops (global.go:214-215).
+
+The MultiRegionManager implements the cross-region tier the reference leaves
+stubbed (multiregion.go:96-98 "Does nothing for now"): hits aggregate per key
+and flush to the key's owner in every OTHER region with the MULTI_REGION flag
+cleared (same loop-prevention trick as GLOBAL broadcasts), giving each region
+an eventually-consistent view of cross-region hit pressure over DCN.
+
+This is the JAX package's service without the mesh backend and its
+collective GlobalEngine (ROADMAP queue 1 item 9), the Store/Loader (item 6)
+and the host planes (hot keys and shedding, leases, resharding, regions,
+gubstat, the cold tier).  A config that arms any of them raises a
+ValueError naming its ROADMAP item; the planes' peer RPCs answer as the JAX
+service answers them with the planes disabled.
+"""
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from gubernator_tpu_torch.core import clock as clock_mod
+from gubernator_tpu_torch.core.config import Config, MAX_BATCH_SIZE
+from gubernator_tpu_torch.core.interval import GregorianError, gregorian_expiration
+from gubernator_tpu_torch.core.types import (
+    Behavior,
+    HealthCheckResp,
+    LeaseGrant,
+    PeerInfo,
+    RateLimitReq,
+    RateLimitResp,
+    Status,
+    UpdatePeerGlobal,
+    has_behavior,
+)
+from gubernator_tpu_torch.net.peer_client import (
+    PeerClient,
+    PeerNotReadyError,
+    provably_unsent,
+)
+from gubernator_tpu_torch.net.replicated_hash import (
+    HASH_FUNCTIONS,
+    PoolEmptyError,
+    RegionPicker,
+    ReplicatedConsistentHash,
+)
+from gubernator_tpu_torch.runtime import tracing
+from gubernator_tpu_torch.runtime.backend import TorchBackend
+
+log = logging.getLogger("gubernator_tpu_torch.service")
+
+
+def refuse_unported(cfg) -> None:
+    """Raise for any part of `cfg` this port does not serve yet, naming
+    the ROADMAP item that brings it (a silently ignored knob would serve
+    different semantics than the operator configured)."""
+    if cfg.store is not None or cfg.loader is not None:
+        raise ValueError(
+            "Store/Loader persistence is not ported yet (ROADMAP queue 1 "
+            "item 6, persistence and the GLOBAL cache rows)"
+        )
+    planes = (
+        ("hotkey", "the hot-key survival plane and SLO shedding"),
+        ("lease", "client-side admission leases"),
+        ("reshard", "elastic membership and live slot migration"),
+        ("region", "planet-scale regions"),
+        ("stats", "gubstat state-plane introspection"),
+        ("tier", "the two-tier cold table"),
+    )
+    for field, what in planes:
+        if getattr(cfg, field).enabled:
+            raise ValueError(
+                f"{field}.enabled: {what} is not ported yet (ROADMAP "
+                "queue 1 item 7, the state-plane kernels and their host "
+                f"planes); set GUBER_{field.upper()}_ENABLED=false"
+            )
+
+HEALTHY = "healthy"
+UNHEALTHY = "unhealthy"
+
+ASYNC_RETRIES = 5  # forwarded-request ownership-change retries (gubernator.go:350)
+
+# The shadow slot's key suffix: a degraded local_shadow check serves
+# from `<unique_key>` + this suffix, so shadow admission state never
+# collides with the real key's authoritative or cached rows.
+SHADOW_SUFFIX = ".degraded-shadow"
+
+def forward_backoff_s(
+    attempt: int, cap_s: float, rng: random.Random
+) -> float:
+    """Backoff before ownership-retry `attempt` (1-based) of the
+    forwarded-request loop: equal-jittered exponential —
+    uniform over [base/2, base] with base = 10ms * 2^(attempt-1) —
+    capped at `cap_s` (the batch timeout, so the retry loop's total
+    added latency stays within one RPC budget).  Jitter decorrelates
+    the retry stampede a dying owner otherwise sees from every
+    forwarder at once (the coordination failure arXiv:1909.08969
+    measures).  Pure function of (attempt, cap, rng) so tests pin the
+    schedule with a seeded rng."""
+    base = min(0.01 * (2 ** max(attempt - 1, 0)), cap_s)
+    lo = base / 2.0
+    return min(lo + rng.random() * (base - lo), cap_s)
+
+
+class ApiError(Exception):
+    """Service-level error with a gRPC status-code name."""
+
+    def __init__(self, code: str, message: str) -> None:
+        super().__init__(message)
+        self.code = code
+
+
+class Service:
+    """The per-node service instance."""
+
+    def __init__(
+        self,
+        cfg: Optional[Config] = None,
+        backend: Optional[TorchBackend] = None,
+        clock: Optional[clock_mod.Clock] = None,
+        peer_credentials=None,
+        metrics=None,
+    ) -> None:
+        from gubernator_tpu_torch.runtime.metrics import Metrics
+
+        self.cfg = cfg or Config()
+        refuse_unported(self.cfg)
+        self.clock = clock or clock_mod.default_clock()
+        self.metrics = metrics or Metrics()
+        if backend is not None:
+            self.backend = backend
+        else:
+            self.backend = TorchBackend(
+                self.cfg.device, clock=self.clock, metrics=self.metrics,
+            )
+        self._inflight_checks = 0
+        self._peer_credentials = peer_credentials
+        # Degraded-mode ownership fallback (docs/resilience.md).
+        self._rng = random.Random()
+        self.degraded_served = 0
+        # owner addr -> {shadow hash_key: the RESET_REMAINING req that
+        # drops the shadow slot once the owner heals}.
+        self._shadow: Dict[str, Dict[str, RateLimitReq]] = {}
+        self._shadow_tasks: set = set()
+        # Cached label child: the hot path must not pay a labels() dict
+        # lookup per call (reference funcTimeMetric, gubernator.go:118).
+        self._fd_get_rate_limits = self.metrics.func_duration.labels(
+            "V1Instance.GetRateLimits"
+        )
+
+        def picker_hash(name: str, which: str):
+            # Named error over a bare KeyError (config.go:403-425
+            # validates the same knob).
+            try:
+                return HASH_FUNCTIONS[name]
+            except KeyError:
+                raise ValueError(
+                    f"invalid {which} picker hash {name!r}; choose one "
+                    f"of {sorted(HASH_FUNCTIONS)}"
+                ) from None
+
+        hash_fn = picker_hash(self.cfg.local_picker_hash, "local")
+        self.local_picker: ReplicatedConsistentHash[PeerClient] = (
+            ReplicatedConsistentHash(hash_fn)
+        )
+        self.region_picker: RegionPicker[PeerClient] = RegionPicker(
+            ReplicatedConsistentHash(
+                picker_hash(self.cfg.region_picker_hash, "region")
+            )
+        )
+        self._peer_lock = asyncio.Lock()
+        # Single-thread executor serializes blocking device work off the loop
+        # (the whole-table single-writer discipline, workers.go:19-37).
+        self._dev_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tpu-step"
+        )
+        self._local_batcher = LocalBatcher(self)
+        # Approximate tier for configured limit names (runtime/sketch_backend),
+        # on the exact tier's device and stream.  A names-less config still
+        # instantiates when dynamic spillover is armed — membership then
+        # grows at runtime (spill_name).
+        self.sketch_backend = None
+        if self.cfg.sketch is not None and (
+            self.cfg.sketch.names
+            or self.cfg.sketch.spill_inserts is not None
+            or self.cfg.sketch.spill_transients is not None
+        ):
+            from gubernator_tpu_torch.runtime.sketch_backend import (
+                SketchBackend,
+            )
+
+            self.sketch_backend = SketchBackend(
+                self.cfg.sketch, clock=self.clock,
+                device=self.backend.device, stream=self.backend.stream,
+            )
+            # Every actual spill — policy-driven or operator-called —
+            # hits the Prometheus counter.
+            self.sketch_backend.on_spill = self.metrics.sketch_spillover.inc
+        self.global_mgr = GlobalManager(self)
+        self.multi_region_mgr = MultiRegionManager(self)
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._closed = False
+        self._started = False
+
+    async def start(self) -> None:
+        """Start the background replication loops; requires a running event
+        loop (the analog of NewV1Instance spawning the manager goroutines,
+        gubernator.go:137-138)."""
+        if self._started:
+            return
+        self._started = True
+        self._loop = asyncio.get_running_loop()
+        self.global_mgr.start()
+        self.multi_region_mgr.start()
+        # Load the kernels and launch each batch tier once, so the first
+        # client request pays for no build or module load inside an RPC
+        # deadline.
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(self._dev_executor, self.backend.warmup)
+        if self.sketch_backend is not None:
+            await loop.run_in_executor(
+                self._dev_executor, self.sketch_backend.warmup
+            )
+
+    # ------------------------------------------------------------------
+    # peer management
+    # ------------------------------------------------------------------
+    async def set_peers(self, peer_info: Sequence[PeerInfo]) -> None:
+        """Atomically swap in a new peer set and drain removed peers
+        (gubernator.go:634-717).  The lock spans the whole rebuild so
+        concurrent discovery updates (fire-and-forget on_update tasks)
+        serialize instead of interleaving across awaits; readers run on
+        the same loop and see either the old or the new picker."""
+        async with self._peer_lock:
+            local = self.local_picker.new()
+            region = self.region_picker.new()
+            for info in peer_info:
+                if info.data_center != self.cfg.data_center:
+                    peer = self.region_picker.get_by_address(
+                        info.grpc_address
+                    )
+                    if peer is None:
+                        peer = self._new_peer(info)
+                    region.add(peer, info.data_center)
+                else:
+                    peer = self.local_picker.get_by_address(
+                        info.grpc_address
+                    )
+                    if peer is None:
+                        peer = self._new_peer(info)
+                    else:
+                        peer.peer_info = info  # refresh is_owner flag
+                    local.add(peer)
+
+            old_local, old_region = self.local_picker, self.region_picker
+            self.local_picker, self.region_picker = local, region
+
+        shutdown: List[PeerClient] = []
+        for peer in old_local.peers():
+            if local.get_by_address(peer.info().grpc_address) is None:
+                shutdown.append(peer)
+        for picker in old_region.pickers().values():
+            for peer in picker.peers():
+                if region.get_by_address(peer.info().grpc_address) is None:
+                    shutdown.append(peer)
+        if shutdown:
+            await asyncio.gather(
+                *(p.shutdown() for p in shutdown), return_exceptions=True
+            )
+            log.debug(
+                "peers shutdown: %s",
+                [p.info().grpc_address for p in shutdown],
+            )
+
+    def _new_peer(self, info: PeerInfo) -> PeerClient:
+        peer = PeerClient(
+            info,
+            behavior=self.cfg.behaviors,
+            channel_credentials=self._peer_credentials,
+            metrics=self.metrics,
+            circuit=self.cfg.circuit,
+            pressure_ttl_s=self.cfg.hotkey.pressure_ttl_s,
+        )
+        # Heal detection for the degraded-mode fallback: ANY successful
+        # RPC to the peer (object path, compiled raw lane, GLOBAL
+        # flush/broadcast) drops its shadow admission state.
+        addr = info.grpc_address
+        peer.on_rpc_success = lambda: self._drop_shadow(addr)
+        return peer
+
+    def get_peer(self, key: str) -> PeerClient:
+        """Owning peer for a hash key (gubernator.go:719-731)."""
+        return self.local_picker.get(key)
+
+    def peer_list(self) -> List[PeerClient]:
+        return self.local_picker.peers()
+
+    async def handoff(
+        self, from_addr: str, epoch: int, phase: str, total_rows: int
+    ) -> Tuple[bool, str]:
+        """Peer-facing Handoff receive: resharding is not ported, so every
+        handoff is refused as the JAX service refuses it with the plane
+        disabled."""
+        return False, "resharding disabled"
+
+    async def migrate(
+        self, from_addr: str, epoch: int, rows, final: bool
+    ) -> Tuple[int, int]:
+        """Peer-facing Migrate receive: refused (resharding disabled)."""
+        raise ApiError("FAILED_PRECONDITION", "resharding disabled")
+
+    def _strip_sketch_global(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> Sequence[RateLimitReq]:
+        """Sketch-tier names don't compose with GLOBAL replication (the
+        sketch is not broadcast); strip the flag so such requests route
+        plainly to the key's owner and are counted ONCE there instead of
+        locally-plus-forwarded (double counting).  Applied on both the
+        client routing path and the peer RPC (zero-copy forwards splice
+        the client's original bytes, so the owner re-strips)."""
+        if self.sketch_backend is None:
+            return reqs
+        from dataclasses import replace as dc_replace
+
+        return [
+            dc_replace(
+                r,
+                behavior=Behavior(int(r.behavior) & ~int(Behavior.GLOBAL)),
+            )
+            if (
+                has_behavior(r.behavior, Behavior.GLOBAL)
+                and self.sketch_backend.handles(r)
+            )
+            else r
+            for r in reqs
+        ]
+
+    # ------------------------------------------------------------------
+    # client API
+    # ------------------------------------------------------------------
+    async def get_rate_limits(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        """The hot path (gubernator.go:194-310)."""
+        if len(reqs) > MAX_BATCH_SIZE:
+            self.metrics.note_check_error("Request too large")
+            raise ApiError(
+                "OUT_OF_RANGE",
+                "Requests.RateLimits list too large; max size is '%d'"
+                % MAX_BATCH_SIZE,
+            )
+        self._inflight_checks += 1
+        self.metrics.concurrent_checks.observe(self._inflight_checks)
+        start = time.monotonic()
+        try:
+            with tracing.span(
+                "V1Instance.GetRateLimits", num_items=len(reqs)
+            ):
+                return await self._get_rate_limits(reqs)
+        finally:
+            self._inflight_checks -= 1
+            self._fd_get_rate_limits.observe(time.monotonic() - start)
+
+    async def _get_rate_limits(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        n = len(reqs)
+        responses: List[Optional[RateLimitResp]] = [None] * n
+
+        local_idx: List[int] = []
+        local_cached: List[bool] = []
+        local_owner_meta: List[Optional[str]] = []
+        forwards: List[Tuple[int, PeerClient, RateLimitReq, str]] = []
+
+        reqs = self._strip_sketch_global(reqs)
+
+        single_node = self.local_picker.size() == 0
+        for i, req in enumerate(reqs):
+            # Client-side validation BEFORE routing (gubernator.go:228-237):
+            # an invalid request answers inline — it is never forwarded (no
+            # owner metadata on its error) and never queues GLOBAL updates
+            # or MULTI_REGION hits.  The peer RPC keeps the owner-side
+            # packer validation with QueueUpdate-before-algorithm semantics.
+            if not req.unique_key:
+                self.metrics.note_check_error("Invalid request")
+                responses[i] = RateLimitResp(
+                    error="field 'unique_key' cannot be empty"
+                )
+                continue
+            if not req.name:
+                self.metrics.note_check_error("Invalid request")
+                responses[i] = RateLimitResp(
+                    error="field 'namespace' cannot be empty"
+                )
+                continue
+            key = req.hash_key()
+            if single_node:
+                local_idx.append(i)
+                local_cached.append(False)
+                local_owner_meta.append(None)
+                continue
+            try:
+                peer = self.get_peer(key)
+            except PoolEmptyError as e:
+                responses[i] = RateLimitResp(
+                    error=f"Error in GetPeer, looking up peer that owns "
+                    f"rate limit '{key}': {e}"
+                )
+                continue
+            if peer.info().is_owner:
+                self.metrics.getratelimit_counter.labels("local").inc()
+                local_idx.append(i)
+                local_cached.append(False)
+                local_owner_meta.append(None)
+            elif has_behavior(req.behavior, Behavior.GLOBAL):
+                self.metrics.getratelimit_counter.labels("global").inc()
+                # Serve locally from replicated cache; queue the hit for the
+                # owner (gubernator.go:272-283, 420-460).
+                local_idx.append(i)
+                local_cached.append(True)
+                local_owner_meta.append(peer.info().grpc_address)
+                self.global_mgr.queue_hit(req)
+            else:
+                forwards.append((i, peer, req, key))
+
+        tasks = [
+            asyncio.ensure_future(self._forward(peer, req, key))
+            for (_, peer, req, key) in forwards
+        ]
+
+        try:
+            if local_idx:
+                local_resps = await self._check_local(
+                    [reqs[i] for i in local_idx], local_cached
+                )
+                for j, i in enumerate(local_idx):
+                    resp = local_resps[j]
+                    if local_owner_meta[j] is not None and not resp.error:
+                        resp.metadata = {"owner": local_owner_meta[j]}
+                    responses[i] = resp
+        finally:
+            # Always await in-flight forwards — a local-check failure must
+            # not orphan tasks whose hits were already applied on peers.
+            if tasks:
+                results = await asyncio.gather(*tasks, return_exceptions=True)
+                for (i, _, _, key), resp in zip(forwards, results):
+                    if isinstance(resp, BaseException):
+                        responses[i] = RateLimitResp(
+                            error=f"Error while fetching rate limit "
+                            f"'{key}' from peer: {resp}"
+                        )
+                    else:
+                        responses[i] = resp
+
+        return [r if r is not None else RateLimitResp() for r in responses]
+
+    async def _check_local(
+        self,
+        reqs: Sequence[RateLimitReq],
+        use_cached: Optional[Sequence[bool]] = None,
+    ) -> List[RateLimitResp]:
+        """Apply checks on the local device engine; queue GLOBAL owner
+        updates and MULTI_REGION hits (getRateLimit, gubernator.go:600-631).
+
+        Concurrent callers COALESCE: their requests merge into one device
+        step through the local batcher instead of serializing one step per
+        RPC — the device analog of the reference's many-workers
+        concurrency, and the main p99 lever under concurrent small calls.
+        """
+        for r, cached in zip(
+            reqs, use_cached or [False] * len(reqs)
+        ):
+            if cached:
+                continue  # non-owner read path — not authoritative
+            if has_behavior(r.behavior, Behavior.GLOBAL):
+                self.global_mgr.queue_update(r)
+            if has_behavior(r.behavior, Behavior.MULTI_REGION):
+                self.multi_region_mgr.queue_hits(r)
+        loop = asyncio.get_running_loop()
+        if self.sketch_backend is not None:
+            # Split off approximate-tier names; merge answers back in order.
+            sk_idx = [
+                i for i, r in enumerate(reqs)
+                if self.sketch_backend.handles(r)
+            ]
+            if sk_idx:
+                sk_set = set(sk_idx)
+                ex_idx = [i for i in range(len(reqs)) if i not in sk_set]
+                sk_resps = await loop.run_in_executor(
+                    self._dev_executor,
+                    lambda: self.sketch_backend.check(
+                        [reqs[i] for i in sk_idx]
+                    ),
+                )
+                ex_resps = (
+                    await self._local_batcher.check(
+                        [reqs[i] for i in ex_idx],
+                        [
+                            use_cached[i] if use_cached else False
+                            for i in ex_idx
+                        ],
+                    )
+                    if ex_idx
+                    else []
+                )
+                out: List[Optional[RateLimitResp]] = [None] * len(reqs)
+                for j, i in enumerate(sk_idx):
+                    out[i] = sk_resps[j]
+                for j, i in enumerate(ex_idx):
+                    out[i] = ex_resps[j]
+                self._touch_global_captures(
+                    [reqs[i] for i in ex_idx],
+                    [use_cached[i] for i in ex_idx] if use_cached else None,
+                )
+                return out  # type: ignore[return-value]
+        resps = await self._local_batcher.check(reqs, use_cached)
+        self._touch_global_captures(reqs, use_cached)
+        return resps
+
+    def _touch_global_captures(
+        self,
+        reqs: Sequence[RateLimitReq],
+        use_cached: Optional[Sequence[bool]] = None,
+    ) -> None:
+        """Object-path mutations must degrade any stale captured GLOBAL
+        broadcast rows for the touched keys (GlobalManager.touch_hashes).
+        No-op unless captures are pending."""
+        if not self.global_mgr._pending_h or not reqs:
+            return
+        from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+        keys = [
+            r.hash_key()
+            for r, cached in zip(
+                reqs, use_cached or [False] * len(reqs)
+            )
+            if not cached
+        ]
+        if keys:
+            self.global_mgr.touch_hashes(bulk_key_hash64(keys))
+
+    async def _forward(
+        self, peer: PeerClient, req: RateLimitReq, key: str
+    ) -> RateLimitResp:
+        """Forward to the owning peer; on NotReady re-resolve the owner (it
+        may now be us) up to 5 times (asyncRequests, gubernator.go:327-416).
+        When the owner's breaker is open, or the retry loop exhausts, the
+        configured GUBER_DEGRADED_MODE policy decides the answer
+        (docs/resilience.md).
+        """
+        attempts = 0
+        last_err: Optional[Exception] = None
+        cap_s = self.cfg.behaviors.batch_timeout_s
+        degraded = self.cfg.degraded_mode != "error"
+        while True:
+            if attempts > ASYNC_RETRIES:
+                return await self._degraded_response(req, key, peer, last_err)
+            if attempts != 0 and peer.info().is_owner:
+                resps = await self._check_local([req])
+                return resps[0]
+            if degraded and peer.circuit_open():
+                # The owner is known-dead (breaker open, backoff running):
+                # re-resolving the ring would hand back the same peer, so
+                # serve the degraded policy without burning the retry loop.
+                return await self._degraded_response(
+                    req, key, peer,
+                    last_err or PeerNotReadyError(
+                        f"circuit open for {peer.info().grpc_address}"
+                    ),
+                )
+            try:
+                self.metrics.getratelimit_counter.labels("forward").inc()
+                resp = await peer.get_peer_rate_limit(req)
+                # The reference replaces metadata wholesale with the owner
+                # annotation (gubernator.go:281,406), but its responses
+                # never carry other metadata, so merging is observably
+                # identical there — and it preserves the sketch tier's
+                # "tier" tag (no reference analog) across forwards.
+                md = dict(resp.metadata) if resp.metadata else {}
+                md["owner"] = peer.info().grpc_address
+                resp.metadata = md
+                # (Shadow drop on heal rides peer.on_rpc_success — it
+                # fires for this success and every other RPC path.)
+                return resp
+            except PeerNotReadyError as e:
+                last_err = e
+                attempts += 1
+                self.metrics.asyncrequest_retries.labels(req.name).inc()
+                if attempts > ASYNC_RETRIES:
+                    continue  # exhausted — no pointless final backoff
+                # Back off before re-resolving: immediate retries against a
+                # dying peer all complete before any discovery update can
+                # land (the reference retries after the peer's reconnect
+                # backoff).  Equal-jittered exponential (10ms.. doubling,
+                # capped at the batch timeout) keeps total added latency
+                # within one RPC budget while decorrelating the retry
+                # stampede across forwarders.
+                await asyncio.sleep(
+                    forward_backoff_s(attempts, cap_s, self._rng)
+                )
+                try:
+                    peer = self.get_peer(key)
+                except PoolEmptyError as pe:
+                    return RateLimitResp(
+                        error="Error finding peer that owns rate limit "
+                        f"'{key}': {pe}"
+                    )
+            except Exception as e:  # noqa: BLE001
+                return RateLimitResp(
+                    error=f"Error while fetching rate limit '{key}' "
+                    f"from peer: {e}"
+                )
+
+    def _resolve_reset_ms(self, req: RateLimitReq) -> int:
+        """reset_time for a synthesized (degraded / mirror-denied)
+        answer.  req.duration under DURATION_IS_GREGORIAN is a
+        calendar-interval id (0-5), NOT milliseconds — resolve it
+        through the same expansion the algorithm layer uses, or omit
+        reset_time when the id is invalid (the authoritative path would
+        error on it anyway)."""
+        now_ms = int(self.clock.now_ns() // 1_000_000)
+        if has_behavior(req.behavior, Behavior.DURATION_IS_GREGORIAN):
+            try:
+                return gregorian_expiration(
+                    self.clock.now(), int(req.duration)
+                )
+            except GregorianError:
+                return 0
+        return now_ms + max(int(req.duration), 0)
+
+    # ------------------------------------------------------------------
+    # degraded-mode ownership fallback (docs/resilience.md)
+    # ------------------------------------------------------------------
+    async def _degraded_response(
+        self,
+        req: RateLimitReq,
+        key: str,
+        peer: PeerClient,
+        last_err: Optional[Exception],
+    ) -> RateLimitResp:
+        """The answer while the owner is gone, per GUBER_DEGRADED_MODE:
+
+        error        the legacy strict contract — an error response, the
+                     client decides (reference gubernator.go:358-366);
+        fail_closed  deny: OVER_LIMIT, remaining=0 (an outage admits
+                     nothing extra, at the price of rejecting legitimate
+                     traffic);
+        fail_open    admit: UNDER_LIMIT at the full limit (availability
+                     over enforcement — unbounded over-admission while
+                     degraded);
+        local_shadow serve from a LOCAL shadow slot in the device table
+                     at `shadow_fraction` of the limit: each non-owner
+                     admits at most fraction*limit per window, bounding
+                     cluster-wide over-admission to peers * fraction *
+                     limit while keeping per-client fairness.  Shadow
+                     state is reset when the owner heals.
+
+        All degraded answers tag `metadata["degraded"]` so clients and
+        tests can distinguish them from authoritative decisions."""
+        mode = self.cfg.degraded_mode
+        if mode == "error":
+            return RateLimitResp(
+                error="GetPeer() keeps returning peers that are not "
+                f"connected for '{key}': {last_err}"
+            )
+        owner = peer.info().grpc_address
+        self.degraded_served += 1
+        self.metrics.degraded_total.labels(mode=mode).inc()
+        fr = getattr(self.metrics, "flightrec", None)
+        if fr is not None:
+            fr.record("degraded", mode=mode, key=key, owner=owner)
+        reset_ms = self._resolve_reset_ms(req)
+        if mode == "fail_closed":
+            return RateLimitResp(
+                status=Status.OVER_LIMIT,
+                limit=req.limit,
+                remaining=0,
+                reset_time=reset_ms,
+                metadata={"degraded": mode, "owner": owner},
+            )
+        if mode == "fail_open":
+            return RateLimitResp(
+                status=Status.UNDER_LIMIT,
+                limit=req.limit,
+                remaining=max(req.limit - req.hits, 0),
+                reset_time=reset_ms,
+                metadata={"degraded": mode, "owner": owner},
+            )
+        # local_shadow
+        if req.limit <= 0:
+            # A deny-all key must stay deny-all while degraded: the
+            # max(1, ...) floor below exists to keep a small positive
+            # limit serviceable, not to fail-open an explicit zero.
+            return RateLimitResp(
+                status=Status.OVER_LIMIT,
+                limit=req.limit,
+                remaining=0,
+                reset_time=reset_ms,
+                metadata={"degraded": mode, "owner": owner},
+            )
+        from dataclasses import replace as dc_replace
+
+        shadow_limit = max(1, int(req.limit * self.cfg.shadow_fraction))
+        shadow = dc_replace(
+            req,
+            unique_key=req.unique_key + SHADOW_SUFFIX,
+            limit=shadow_limit,
+            burst=min(req.burst, shadow_limit) if req.burst else 0,
+            behavior=Behavior(
+                int(req.behavior)
+                & ~int(Behavior.GLOBAL)
+                & ~int(Behavior.MULTI_REGION)
+            ),
+        )
+        resps = await self._check_local([shadow])
+        resp = resps[0]
+        if not resp.error:
+            md = dict(resp.metadata) if resp.metadata else {}
+            md["degraded"] = mode
+            md["owner"] = owner
+            resp.metadata = md
+            # Remember how to drop this shadow slot on heal: a zero-hit
+            # RESET_REMAINING removes a token-bucket row outright
+            # (algorithms.go:78-90) and re-fills a leaky one — either
+            # way no stale shadow admission state survives the owner
+            # becoming authoritative again.
+            self._shadow.setdefault(owner, {})[shadow.hash_key()] = (
+                dc_replace(
+                    shadow,
+                    hits=0,
+                    behavior=Behavior(
+                        int(shadow.behavior)
+                        | int(Behavior.RESET_REMAINING)
+                    ),
+                )
+            )
+        return resp
+
+    def _drop_shadow(self, addr: str) -> None:
+        """The owner healed: reset its shadow slots (fire-and-forget —
+        the healed forward that triggered this must not wait on it)."""
+        pending = self._shadow.pop(addr, None)
+        if not pending:
+            return
+        resets = list(pending.values())
+
+        async def reset() -> None:
+            try:
+                await self._check_local(resets)
+                fr = getattr(self.metrics, "flightrec", None)
+                if fr is not None:
+                    fr.record("shadow_drop", owner=addr, keys=len(resets))
+            except Exception as e:  # noqa: BLE001 — slots expire anyway
+                log.warning(
+                    "shadow reset after owner %s healed failed: %s",
+                    addr, e,
+                )
+
+        t = asyncio.ensure_future(reset())
+        self._shadow_tasks.add(t)
+        t.add_done_callback(self._shadow_tasks.discard)
+
+    # ------------------------------------------------------------------
+    # the planes' peer RPCs, answered as the JAX daemon answers them with
+    # the planes disabled
+    # ------------------------------------------------------------------
+    async def lease(
+        self, client_id: str, reqs: Sequence[RateLimitReq]
+    ) -> List[LeaseGrant]:
+        """Lease grants: the plane is not ported, so every grant is
+        refused as the JAX service refuses it with leases disabled."""
+        return [
+            LeaseGrant(
+                key=r.hash_key(), limit=r.limit,
+                refusal="leases disabled",
+            )
+            for r in reqs
+        ]
+
+    async def reconcile(
+        self, client_id: str, items: Sequence
+    ) -> List[LeaseGrant]:
+        """Lease reconciles: refused (leases disabled)."""
+        return [
+            LeaseGrant(
+                key=it.request.hash_key(), limit=it.request.limit,
+                refusal="leases disabled",
+            )
+            for it in items
+        ]
+
+    # ------------------------------------------------------------------
+    # peer-facing API (server side)
+    # ------------------------------------------------------------------
+    async def get_peer_rate_limits(
+        self, reqs: Sequence[RateLimitReq]
+    ) -> List[RateLimitResp]:
+        """Owner side of a forwarded batch: apply ALL requests in one device
+        step (replacing the reference's goroutine fan-out,
+        gubernator.go:482-543) preserving request order."""
+        if len(reqs) > MAX_BATCH_SIZE:
+            raise ApiError(
+                "OUT_OF_RANGE",
+                "'PeerRequest.rate_limits' list too large; max size is '%d'"
+                % MAX_BATCH_SIZE,
+            )
+        # Forwarders normally strip GLOBAL from sketch-tier names before
+        # sending, but zero-copy forwards (the compiled lane) splice the
+        # client's original bytes — re-strip here so a GLOBAL+sketch
+        # request never queues an exact-table broadcast for a sketch key.
+        reqs = self._strip_sketch_global(reqs)
+        return await self._check_local(reqs)
+
+    async def update_peer_globals(
+        self, globals_: Sequence[UpdatePeerGlobal]
+    ) -> None:
+        """Receive owner-authoritative GLOBAL statuses into the local cache
+        (gubernator.go:464-479)."""
+        rows = [
+            (
+                g.key,
+                int(g.algorithm),
+                int(g.status.limit),
+                int(g.status.remaining),
+                int(g.status.status),
+                int(g.status.reset_time),
+            )
+            for g in globals_
+            if g.status is not None
+        ]
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(
+            self._dev_executor, lambda: self.backend.apply_cached_rows(rows)
+        )
+
+    # ------------------------------------------------------------------
+    # health / lifecycle
+    # ------------------------------------------------------------------
+    async def health_check(self) -> HealthCheckResp:
+        """Report peer connectivity from the rolling per-peer error windows
+        (gubernator.go:546-598)."""
+        errs: List[str] = []
+        local_peers = self.local_picker.peers()
+        for peer in local_peers:
+            for msg in peer.last_errors():
+                errs.append(
+                    f"Error returned from local peer.GetLastErr: {msg}"
+                )
+        region_peers = self.region_picker.peers()
+        for peer in region_peers:
+            for msg in peer.last_errors():
+                errs.append(
+                    f"Error returned from region peer.GetLastErr: {msg}"
+                )
+        # Circuit plane: an open/half-open breaker is a live statement
+        # that a peer is being shed — surface it even after the error
+        # window has pruned the failures that tripped it.
+        for peer in local_peers + region_peers:
+            state = peer.circuit_state_name()
+            if state in ("open", "half_open"):
+                snap = peer.circuit_snapshot()
+                errs.append(
+                    f"Circuit {state} for peer "
+                    f"{peer.info().grpc_address} (trips="
+                    f"{snap.get('trips', 0)}, reopens in "
+                    f"{snap.get('open_remaining_s', 0.0):g}s)"
+                )
+        h = HealthCheckResp(
+            status=HEALTHY, peer_count=len(local_peers) + len(region_peers)
+        )
+        if errs:
+            h.status = UNHEALTHY
+            h.message = "|".join(errs)
+        # Pressure plane (docs/hotkeys.md): an overloaded-but-ALIVE
+        # peer — clean error window, breaker closed, SLO advertised
+        # breached — must not read as fully healthy.  Advisory lines
+        # only: the peer IS serving, so status stays driven by
+        # connectivity (flipping it would invite LB churn on exactly
+        # the node that needs its traffic spread, not removed).
+        pressure_lines = []
+        for peer in local_peers + region_peers:
+            ratio = peer.pressure_ratio()
+            if ratio >= 1.0:
+                pressure_lines.append(
+                    f"Pressure on peer {peer.info().grpc_address}: "
+                    f"advertised p99 at {ratio:.2f}x its SLO target"
+                )
+        if pressure_lines:
+            extra = "|".join(pressure_lines)
+            h.message = f"{h.message}|{extra}" if h.message else extra
+        # SLO telemetry rides along (runtime/flightrec.py): the rolling
+        # p99 vs the configured target, so degraded-mode decisions can
+        # key off measured tail latency (status itself stays driven by
+        # peer connectivity, like the reference).
+        fr = getattr(self.metrics, "flightrec", None)
+        if fr is not None and fr.breaches:
+            slo = (
+                f"SLO: {fr.breaches} p99 breach(es) of "
+                f"{fr.slo_p99_ms:g}ms target; rolling "
+                f"p99={fr.last_p99_ms:.3f}ms"
+            )
+            h.message = f"{h.message}|{slo}" if h.message else slo
+        return h
+
+    async def close(self) -> None:
+        """Flush managers, shut down peers (gubernator.go:159-189)."""
+        if self._closed:
+            return
+        self._closed = True
+        await self.global_mgr.close()
+        await self.multi_region_mgr.close()
+        await self._local_batcher.close()
+        peers = set(self.local_picker.peers()) | set(
+            self.region_picker.peers()
+        )
+        if peers:
+            await asyncio.gather(
+                *(p.shutdown() for p in peers), return_exceptions=True
+            )
+        self._dev_executor.shutdown(wait=True)
+
+
+class LocalBatcher:
+    """Coalesces concurrent local checks into shared device steps.
+
+    No artificial wait window (unlike the network peer batcher, there is no
+    RPC to amortize): a drain loop takes EVERYTHING queued the moment the
+    device is free and runs it as one step.  Under load the step rate is
+    device-bound while arrival concurrency rides along as extra lanes —
+    latency stays ~2 steps instead of `concurrency` steps.
+    """
+
+    def __init__(self, service: Service, max_coalesce: int = 8192) -> None:
+        self.s = service
+        self.max_coalesce = max_coalesce
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._task: Optional[asyncio.Task] = None
+        # Device steps this batcher ran (round-trip accounting).
+        self.steps = 0
+
+    async def check(
+        self,
+        reqs: Sequence[RateLimitReq],
+        use_cached: Optional[Sequence[bool]] = None,
+    ) -> List[RateLimitResp]:
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        await self._queue.put((list(reqs), use_cached, fut))
+        return await fut
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            entries = [await self._queue.get()]
+            total = len(entries[0][0])
+            while total < self.max_coalesce:
+                try:
+                    e = self._queue.get_nowait()
+                except asyncio.QueueEmpty:
+                    break
+                entries.append(e)
+                total += len(e[0])
+
+            merged: List[RateLimitReq] = []
+            merged_cached: List[bool] = []
+            for reqs, cached, _ in entries:
+                merged.extend(reqs)
+                merged_cached.extend(
+                    cached if cached is not None else [False] * len(reqs)
+                )
+            self.steps += 1
+            try:
+                resps = await loop.run_in_executor(
+                    self.s._dev_executor,
+                    lambda: self.s.backend.check(merged, merged_cached),
+                )
+            except Exception as e:  # noqa: BLE001
+                for _, _, fut in entries:
+                    if not fut.done():
+                        fut.set_exception(e)
+                continue
+            off = 0
+            for reqs, _, fut in entries:
+                if not fut.done():
+                    fut.set_result(resps[off:off + len(reqs)])
+                off += len(reqs)
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self._task = None
+
+
+async def window_flush_loop(event, sync_wait_s, take, flush) -> None:
+    """The shared batching heartbeat (interval.go:29-72's one-shot ticker):
+    the first queued item sets `event`, opening a `sync_wait_s` window;
+    when it closes, `take()`'s batch (if any) goes to `flush`.  A flush
+    failure is logged and the cadence survives (the flushers do their own
+    per-chunk error handling; this guard is the backstop)."""
+    while True:
+        await event.wait()
+        await asyncio.sleep(sync_wait_s)
+        event.clear()
+        batch = take()
+        if batch:
+            try:
+                await flush(batch)
+            except Exception as e:  # noqa: BLE001 — keep the cadence
+                log.error("window flush failed: %s", e)
+
+
+class GlobalManager:
+    """Async GLOBAL replication loops (global.go:33-254)."""
+
+    def __init__(self, service: Service) -> None:
+        self.s = service
+        cfg = service.cfg.behaviors
+        self.sync_wait_s = cfg.global_sync_wait_s
+        self.batch_limit = cfg.global_batch_limit
+        self.timeout_s = cfg.global_timeout_s
+        self._hits: Dict[str, RateLimitReq] = {}
+        # key -> (req, captured status | None).  A captured status is the
+        # post-step stored state from the drain that queued it — broadcast
+        # directly, no zero-hit re-read needed.  None falls back to the
+        # re-read (object path, engine bridge).
+        self._updates: Dict[
+            str, Tuple[RateLimitReq, Optional[RateLimitResp]]
+        ] = {}
+        # Device-fingerprint hash -> key, for entries holding a captured
+        # status; lets mutation paths degrade a capture that went stale
+        # (touch_hashes) without decoding keys.
+        self._pending_h: Dict[int, str] = {}
+        self._pending_arr: Optional[np.ndarray] = None
+        self._hits_event = asyncio.Event()
+        self._updates_event = asyncio.Event()
+        self._tasks: List[asyncio.Task] = []
+        # Observability counters (scraped by tests for eventual-consistency
+        # assertions, functional_test.go:843-867).
+        self.async_sends = 0
+        self.broadcasts = 0
+        # Round-trip accounting: zero-hit broadcast re-read batches/keys
+        # (each batch is one LocalBatcher device step).
+        self.reread_batches = 0
+        self.reread_keys = 0
+
+    def start(self) -> None:
+        if self._tasks:
+            return
+        self._tasks = [
+            asyncio.ensure_future(self._run_async_hits()),
+            asyncio.ensure_future(self._run_broadcasts()),
+        ]
+
+    def queue_hit(self, r: RateLimitReq) -> None:
+        """Aggregate a non-owner hit (summing same-key hits,
+        global.go:87-95)."""
+        key = r.hash_key()
+        cur = self._hits.get(key)
+        if cur is not None:
+            cur.hits += r.hits
+        else:
+            from dataclasses import replace as dc_replace
+
+            self._hits[key] = dc_replace(r)
+        self._hits_event.set()
+
+    def queue_update(
+        self, r: RateLimitReq, status: Optional[RateLimitResp] = None
+    ) -> None:
+        """Record an owner-side status change to broadcast
+        (global.go:167-191; last write per key wins).
+
+        `status` is the drain's own post-step stored state for the key —
+        when supplied, the broadcast uses it directly instead of running
+        the zero-hit re-read of global.go:205-250 (equivalent by
+        construction: a GLOBAL-cleared hits=0 read of a bucket row
+        reports exactly the post-step stored status/remaining/reset; see
+        ops.step.Resp.stored_status).  Callers that cannot capture pass
+        None and keep the re-read."""
+        key = r.hash_key()
+        self._updates[key] = (r, status)
+        if status is not None:
+            from gubernator_tpu_torch.core.hashing import key_hash64
+
+            h = int(np.uint64(key_hash64(key)).view(np.int64))
+            if self._pending_h.get(h) != key:
+                self._pending_h[h] = key
+                self._pending_arr = None
+        self._updates_event.set()
+
+    def touch_hashes(self, hashes: np.ndarray) -> None:
+        """Degrade captured updates whose key a later drain mutated
+        WITHOUT re-queueing (a non-GLOBAL request on the same key): the
+        broadcast must not ship the stale capture, so the entry falls
+        back to the zero-hit re-read — which sees the post-mutation
+        state, exactly like the reference's flush-time read.  Called by
+        every machinery mutation path with the drained int64 fingerprint
+        column; near-free while no captures are pending.
+
+        Concurrent-drain caveat: with overlapped drains a capture can be
+        queued after the touch of a later-completing drain and survive
+        one window stale — bounded by GLOBAL's eventual consistency (the
+        reference's own broadcast value is stale by its flush+network
+        delay)."""
+        if not self._pending_h:
+            return
+        if self._pending_arr is None:
+            self._pending_arr = np.fromiter(
+                self._pending_h.keys(), dtype=np.int64,
+                count=len(self._pending_h),
+            )
+        hit = np.isin(self._pending_arr, hashes)
+        if not hit.any():
+            return
+        for h in self._pending_arr[hit]:
+            key = self._pending_h.pop(int(h), None)
+            if key is None:
+                continue
+            cur = self._updates.get(key)
+            if cur is not None and cur[1] is not None:
+                self._updates[key] = (cur[0], None)
+        self._pending_arr = None
+
+    def _take_hits(self) -> Dict[str, RateLimitReq]:
+        hits, self._hits = self._hits, {}
+        return hits
+
+    def _take_updates(
+        self,
+    ) -> Dict[str, Tuple[RateLimitReq, Optional[RateLimitResp]]]:
+        updates, self._updates = self._updates, {}
+        self._pending_h.clear()
+        self._pending_arr = None
+        return updates
+
+    async def _run_async_hits(self) -> None:
+        # The first queued hit opens a sync_wait window; everything queued
+        # within it flushes together (interval semantics, global.go:96-119),
+        # split into batch_limit-sized RPCs by _send_hits.
+        await window_flush_loop(
+            self._hits_event, self.sync_wait_s,
+            self._take_hits, self._send_hits,
+        )
+
+    async def _send_hits(self, hits: Dict[str, RateLimitReq]) -> None:
+        """Group aggregated hits by owning peer and flush
+        (global.go:124-164)."""
+        by_peer: Dict[str, Tuple[PeerClient, List[RateLimitReq]]] = {}
+        for key, r in hits.items():
+            try:
+                peer = self.s.get_peer(key)
+            except PoolEmptyError:
+                continue
+            addr = peer.info().grpc_address
+            by_peer.setdefault(addr, (peer, []))[1].append(r)
+        start = time.monotonic()
+
+        async def flush_one(peer: PeerClient, batch: List[RateLimitReq]):
+            # One RPC per batch_limit-sized slice (the owner rejects
+            # batches over MAX_BATCH_SIZE, gubernator.go:486-490).
+            for lo in range(0, len(batch), self.batch_limit):
+                chunk = batch[lo:lo + self.batch_limit]
+                try:
+                    await asyncio.wait_for(
+                        peer.get_peer_rate_limits_batch(chunk),
+                        timeout=self.timeout_s,
+                    )
+                    self.async_sends += 1
+                except Exception as e:  # noqa: BLE001
+                    if provably_unsent(e, peer):
+                        # Shutdown / queue-full / connect-refused provably
+                        # precede any delivery, so re-queueing cannot double
+                        # count; a transiently unreachable owner keeps the
+                        # window's hits (aggregation bounds the backlog by
+                        # unique keys).
+                        log.warning(
+                            "re-queueing global hits for '%s': %s",
+                            peer.info().grpc_address, e,
+                        )
+                        for r in chunk:
+                            self.queue_hit(r)
+                    else:
+                        # Timeout or mid-RPC failure: the owner MAY have
+                        # applied the batch already — re-sending would
+                        # double count.  Drop, like the reference
+                        # (global.go:152-162); the next live hit re-syncs.
+                        log.error(
+                            "dropping global hits for '%s': %s",
+                            peer.info().grpc_address, e,
+                        )
+
+        # Fan out per peer — one slow peer must not delay the others.
+        # The flush is a trace ROOT (sampled per the configured root
+        # sampler): it aggregates many requests' queued hits, so there
+        # is no single request context to continue — but the peer RPCs
+        # under it still carry w3c traceparent, connecting the flush to
+        # the owner daemons' server spans.
+        with tracing.span(
+            "global.flush_hits", parent=None,
+            peers=len(by_peer), keys=len(hits),
+        ):
+            await asyncio.gather(
+                *(flush_one(p, b) for p, b in by_peer.values())
+            )
+        self.s.metrics.async_durations.observe(time.monotonic() - start)
+
+    async def _run_broadcasts(self) -> None:
+        await window_flush_loop(
+            self._updates_event, self.sync_wait_s,
+            self._take_updates, self._broadcast_peers,
+        )
+
+    async def _read_statuses(self, reads) -> List[RateLimitResp]:
+        """Zero-hit status re-read for the broadcast, on the OBJECT path.
+
+        Deliberately NOT routed through the compiled lane: re-read lanes
+        share keys with in-flight client GLOBAL merges, and a key whose
+        occurrences mix use_cached (client reads) with uncached (the
+        re-read) loses host-cascade eligibility and would fall back to a
+        device round per occurrence.  The LocalBatcher still coalesces
+        concurrent re-read batches."""
+        return await self.s._check_local(reads)
+
+    async def _broadcast_peers(
+        self,
+        updates: Dict[str, Tuple[RateLimitReq, Optional[RateLimitResp]]],
+    ) -> None:
+        """Push each updated status to every non-owner peer
+        (global.go:205-250).  Entries whose drain captured the post-step
+        stored state broadcast it directly; the rest re-read it (hits=0,
+        GLOBAL cleared to avoid re-queueing) on the object path."""
+        from dataclasses import replace as dc_replace
+
+        globals_: List[UpdatePeerGlobal] = []
+        to_read: List[RateLimitReq] = []
+        for key, (r, captured) in updates.items():
+            if captured is None:
+                to_read.append(r)
+            elif not captured.error:
+                # An errored capture (validation / Gregorian) broadcasts
+                # nothing — the re-read would fail the same way and be
+                # skipped below.
+                globals_.append(
+                    UpdatePeerGlobal(
+                        key=key, status=captured, algorithm=r.algorithm
+                    )
+                )
+        if to_read:
+            # Clear GLOBAL (avoid re-queueing a broadcast,
+            # global.go:214-215) AND MULTI_REGION (a zero-hit status read
+            # must not wake the cross-region sender).
+            reads = [
+                dc_replace(
+                    r,
+                    hits=0,
+                    behavior=Behavior(
+                        int(r.behavior)
+                        & ~int(Behavior.GLOBAL)
+                        & ~int(Behavior.MULTI_REGION)
+                    ),
+                )
+                for r in to_read
+            ]
+            self.reread_batches += 1
+            self.reread_keys += len(reads)
+            try:
+                statuses = await self._read_statuses(reads)
+            except Exception as e:  # noqa: BLE001
+                # The captured entries need no read — still ship them.
+                log.error("while broadcasting update to peers: %s", e)
+                statuses = []
+            for r, status in zip(reads, statuses):
+                if status.error:
+                    continue
+                globals_.append(
+                    UpdatePeerGlobal(
+                        key=r.hash_key(), status=status,
+                        algorithm=r.algorithm,
+                    )
+                )
+        if not globals_:
+            return
+        start = time.monotonic()
+
+        async def push_one(peer: PeerClient) -> bool:
+            try:
+                # Chunk to respect the receiver's 1MB message cap.
+                for lo in range(0, len(globals_), self.batch_limit):
+                    await asyncio.wait_for(
+                        peer.update_peer_globals(
+                            globals_[lo:lo + self.batch_limit]
+                        ),
+                        timeout=self.timeout_s,
+                    )
+                return True
+            except PeerNotReadyError:
+                return False
+            except Exception as e:  # noqa: BLE001
+                log.error(
+                    "while broadcasting global updates to '%s': %s",
+                    peer.info().grpc_address, e,
+                )
+                return False
+
+        with tracing.span(
+            "global.broadcast", parent=None, updates=len(globals_)
+        ):
+            results = await asyncio.gather(
+                *(
+                    push_one(p)
+                    for p in self.s.peer_list()
+                    if not p.info().is_owner
+                )
+            )
+        sent = any(results)
+        if sent:
+            self.broadcasts += 1
+            self.s.metrics.broadcast_durations.observe(
+                time.monotonic() - start
+            )
+
+    async def close(self) -> None:
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
+        # Drain-on-close: flush queued hits and broadcast queued updates
+        # (best effort) — a graceful multi-node shutdown must not strand the
+        # last window's statuses, especially those the collective engine's
+        # final sync just queued for cross-node broadcast.
+        hits = self._take_hits()
+        if hits:
+            await self._send_hits(hits)
+        updates = self._take_updates()
+        if updates:
+            await self._broadcast_peers(updates)
+
+
+class MultiRegionManager:
+    """Cross-region (DCN-tier) hit replication.
+
+    The reference ships only the skeleton — queue + interval loop with a
+    no-op sender (multiregion.go:23-102).  Here the sender works: aggregated
+    hits flush to the key's owner in every OTHER region, with MULTI_REGION
+    cleared on the forwarded copy so receiving regions apply the hits locally
+    instead of re-forwarding (the GLOBAL broadcast loop-prevention pattern,
+    global.go:214-215).  Every region therefore converges on the sum of all
+    regions' hits per key.
+    """
+
+    def __init__(self, service: Service) -> None:
+        self.s = service
+        cfg = service.cfg.behaviors
+        self.sync_wait_s = cfg.multi_region_sync_wait_s
+        self.batch_limit = cfg.multi_region_batch_limit
+        self.timeout_s = cfg.multi_region_timeout_s
+        self._hits: Dict[str, RateLimitReq] = {}
+        self._event = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self.region_sends = 0
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+
+    def queue_hits(self, r: RateLimitReq) -> None:
+        key = r.hash_key()
+        cur = self._hits.get(key)
+        if cur is not None:
+            cur.hits += r.hits
+        else:
+            from dataclasses import replace as dc_replace
+
+            self._hits[key] = dc_replace(r)
+        self._event.set()
+
+    def _take_hits(self) -> Dict[str, RateLimitReq]:
+        hits, self._hits = self._hits, {}
+        return hits
+
+    async def _run(self) -> None:
+        await window_flush_loop(
+            self._event, self.sync_wait_s, self._take_hits, self._send_hits
+        )
+
+    async def _send_hits(self, hits: Dict[str, RateLimitReq]) -> None:
+        from dataclasses import replace as dc_replace
+
+        by_peer: Dict[str, Tuple[PeerClient, List[RateLimitReq]]] = {}
+        for key, r in hits.items():
+            fwd = dc_replace(
+                r,
+                behavior=Behavior(
+                    int(r.behavior) & ~int(Behavior.MULTI_REGION)
+                ),
+            )
+            for peer in self.s.region_picker.get_clients(key):
+                addr = peer.info().grpc_address
+                by_peer.setdefault(addr, (peer, []))[1].append(fwd)
+        async def flush_one(peer: PeerClient, batch: List[RateLimitReq]):
+            for lo in range(0, len(batch), self.batch_limit):
+                chunk = batch[lo:lo + self.batch_limit]
+                attempts = 0
+                while True:
+                    try:
+                        await asyncio.wait_for(
+                            peer.get_peer_rate_limits_batch(chunk),
+                            timeout=self.timeout_s,
+                        )
+                        self.region_sends += 1
+                        break
+                    except Exception as e:  # noqa: BLE001
+                        # Retry in place (with the peer that failed): a
+                        # GLOBAL-style re-queue would double-count the
+                        # regions that already received this window's fan.
+                        attempts += 1
+                        if attempts > 3:
+                            log.error(
+                                "dropping multi-region hits for '%s': %s",
+                                peer.info().grpc_address, e,
+                            )
+                            break
+                        # Floor the backoff at 200ms*attempt: a restarted
+                        # peer's gRPC channel needs ~1s to reconnect, and
+                        # sync_wait-paced retries (500µs default) would all
+                        # fail inside that window and drop the hits.
+                        await asyncio.sleep(
+                            max(0.2 * attempts, self.sync_wait_s)
+                        )
+
+        await asyncio.gather(
+            *(flush_one(p, b) for p, b in by_peer.values())
+        )
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)

@@ -18,7 +18,9 @@ host with the same rotation arithmetic the kernel applies, so building
 
 The device is `device` ("cuda" when None).  Without a CUDA device the
 constructor raises unless the caller asked for "cpu", where the kernel's
-plain version serves.
+plain version serves.  Every launch, copy and event goes on `stream` (the
+exact tier's stream when a service builds both tiers; else the stream
+current at construction), with uploads from pinned memory.
 
 Semantics differences from the exact tier, by design:
 - `remaining` is an estimate (limit - estimated_count, floored at 0);
@@ -28,6 +30,7 @@ Semantics differences from the exact tier, by design:
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -119,10 +122,12 @@ class SketchBackend:
         cfg: SketchTierConfig,
         clock: Optional[clock_mod.Clock] = None,
         device=None,
+        stream=None,
     ) -> None:
         self.cfg = cfg
         self.clock = clock or clock_mod.default_clock()
         self.device = torch.device(device or "cuda")
+        self.stream = None
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -133,6 +138,7 @@ class SketchBackend:
                 self.device = torch.device(
                     "cuda", torch.cuda.current_device()
                 )
+            self.stream = stream or torch.cuda.current_stream(self.device)
         self.state = init_sketch(
             depth=cfg.depth, width=cfg.width, window_ms=cfg.window_ms,
             device=self.device,
@@ -301,11 +307,13 @@ class SketchBackend:
         if self.device.type != "cuda":
             return
         cms_kernel.library()
-        z64 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
-        z32 = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
-        cms_kernel.cms_multi_step(
-            init_sketch(self.cfg.depth, 1, self.cfg.window_ms, self.device),
-            z64, z32, z32, 0)
+        with self._on_stream():
+            z64 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
+            z32 = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+            cms_kernel.cms_multi_step(
+                init_sketch(self.cfg.depth, 1, self.cfg.window_ms,
+                            self.device),
+                z64, z32, z32, 0)
         torch.cuda.synchronize(self.device)
 
     def _advance_window(self, now_ms: int) -> None:
@@ -317,12 +325,21 @@ class SketchBackend:
         if elapsed >= w:
             self._win_start = now_ms - (elapsed % w)
 
+    def _on_stream(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _dispatch(self, kh: np.ndarray, hc: np.ndarray, lc: np.ndarray,
                   now: int) -> torch.Tensor:
         """One K2 launch for a padded merge (the plain step on the CPU);
-        caller holds `_lock`.  Returns the un-synced int32[k, 2, B]."""
+        caller holds `_lock` and is on the backend's stream.  Returns the
+        un-synced int32[k, 2, B]."""
         def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
+            t = torch.from_numpy(a)
+            if self.stream is None:
+                return t
+            return t.pin_memory().to(self.device, non_blocking=True)
 
         self.state, packed = cms_kernel.cms_multi_step(
             self.state, dev(kh), dev(hc), dev(lc), now)
@@ -375,7 +392,7 @@ class SketchBackend:
         lc = np.concatenate(
             [limits, np.zeros(pad, dtype=np.int64)]
         ).astype(np.int32).reshape(k, B)
-        with self._lock:
+        with self._lock, self._on_stream():
             now = int(self.clock.millisecond_now())
             self._advance_window(now)
             reset_val = self._win_start + self.cfg.window_ms
@@ -387,7 +404,7 @@ class SketchBackend:
                                    pin_memory=True)
                 host.copy_(packed, non_blocking=True)
                 done = torch.cuda.Event()
-                done.record()
+                done.record(self.stream)
             else:
                 host = packed
 

@@ -1,0 +1,198 @@
+"""In-process multi-daemon cluster fixture.
+
+The analog of the reference's cluster package (cluster/cluster.go:31-155):
+N real daemons in one process on localhost ephemeral ports, every daemon told
+about all peers, real gRPC between them — "multi-node without a cluster".
+
+All daemons share ONE asyncio loop running on a background thread; the
+fixture exposes a synchronous facade (run/stop/restart) so plain pytest
+tests can drive it.  Each daemon gets its own slot table on the same
+device, like the reference daemons each owning a private cache in one test
+process.  The device is `DeviceConfig.platform` as everywhere in the port:
+a test passes `device=DeviceConfig(..., platform="cpu")`.
+"""
+from __future__ import annotations
+
+import asyncio
+import random
+import threading
+from dataclasses import replace
+from typing import Awaitable, List, Optional, Sequence, TypeVar
+
+from gubernator_tpu_torch.core.config import (
+    DaemonConfig,
+    DeviceConfig,
+    fast_test_behaviors,
+)
+from gubernator_tpu_torch.core.types import PeerInfo
+from gubernator_tpu_torch.daemon import Daemon, wait_for_connect
+
+T = TypeVar("T")
+
+# Small tables keep per-daemon warmups fast.
+TEST_DEVICE = DeviceConfig(num_slots=4096, ways=8, batch_size=128)
+
+
+class Cluster:
+    """A running in-process cluster."""
+
+    def __init__(self) -> None:
+        self.daemons: List[Daemon] = []
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(
+            target=self._loop.run_forever, name="cluster-loop", daemon=True
+        )
+        self._thread.start()
+
+    # -- sync facade -----------------------------------------------------
+    def run(self, coro: Awaitable[T], timeout: float = 60.0) -> T:
+        """Run a coroutine on the cluster loop from test code."""
+        return asyncio.run_coroutine_threadsafe(
+            coro, self._loop
+        ).result(timeout)
+
+    # -- lifecycle (cluster.go:83-155) ------------------------------------
+    @classmethod
+    def start(cls, num_instances: int, **kwargs) -> "Cluster":
+        """Start N daemons in the default datacenter (cluster.Start)."""
+        return cls.start_with([""] * num_instances, **kwargs)
+
+    @classmethod
+    def start_with(
+        cls,
+        datacenters: Sequence[str],
+        device: Optional[DeviceConfig] = None,
+        conf_template: Optional[DaemonConfig] = None,
+    ) -> "Cluster":
+        """Start one daemon per entry of `datacenters`
+        (cluster.StartWith, cluster/cluster.go:111-146)."""
+        c = cls()
+
+        async def boot() -> None:
+            for dc in datacenters:
+                base = conf_template or DaemonConfig()
+                conf = replace(
+                    base,
+                    grpc_listen_address="127.0.0.1:0",
+                    http_listen_address="127.0.0.1:0",
+                    data_center=dc,
+                    behaviors=fast_test_behaviors(),
+                    device=device or TEST_DEVICE,
+                )
+                d = Daemon(conf)
+                await d.start()
+                d.conf.advertise_address = d.grpc_address
+                c.daemons.append(d)
+            await c._push_peers()
+            await wait_for_connect([d.grpc_address for d in c.daemons])
+
+        c.run(boot(), timeout=300.0)
+        return c
+
+    async def _push_peers(self) -> None:
+        peers = [
+            PeerInfo(
+                grpc_address=d.grpc_address,
+                http_address=d.http_address,
+                data_center=d.conf.data_center,
+            )
+            for d in self.daemons
+        ]
+        for d in self.daemons:
+            await d.set_peers(peers)
+
+    def stop(self) -> None:
+        async def shutdown() -> None:
+            for d in self.daemons:
+                await d.close()
+            # Cancel anything a daemon left behind (a coalescer or
+            # batcher task parked on queue.get) BEFORE the loop closes —
+            # a pending queue getter GC'd after close raises an
+            # unraisable "Event loop is closed" from its callback.
+            rest = [
+                t for t in asyncio.all_tasks()
+                if t is not asyncio.current_task()
+            ]
+            for t in rest:
+                t.cancel()
+            await asyncio.gather(*rest, return_exceptions=True)
+
+        self.run(shutdown(), timeout=120.0)
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=10.0)
+        self._loop.close()
+
+    # -- accessors (cluster.go:41-108) ------------------------------------
+    def addresses(self) -> List[str]:
+        return [d.grpc_address for d in self.daemons]
+
+    def daemon_at(self, idx: int) -> Daemon:
+        return self.daemons[idx]
+
+    def peer_at(self, idx: int) -> PeerInfo:
+        d = self.daemons[idx]
+        return PeerInfo(
+            grpc_address=d.grpc_address,
+            http_address=d.http_address,
+            data_center=d.conf.data_center,
+        )
+
+    def get_random_peer(self, data_center: str = "") -> PeerInfo:
+        cands = [
+            self.peer_at(i)
+            for i, d in enumerate(self.daemons)
+            if d.conf.data_center == data_center
+        ]
+        return random.choice(cands)
+
+    def owner_daemon_of(self, key: str) -> Daemon:
+        """The daemon owning `key` (per daemon 0's picker — all agree)."""
+        peer = self.daemons[0].service.get_peer(key)
+        addr = peer.info().grpc_address
+        for d in self.daemons:
+            if d.grpc_address == addr:
+                return d
+        raise KeyError(addr)
+
+    def breaker_states(self) -> dict:
+        """{daemon addr: {peer addr: circuit state name}}."""
+        out: dict = {}
+        for d in self.daemons:
+            if d.service is None:
+                continue
+            out[d.grpc_address] = {
+                p.info().grpc_address: p.circuit_state_name()
+                for p in d.service.peer_list()
+                if not p.info().is_owner
+            }
+        return out
+
+    def kill(self, idx: int) -> None:
+        """Hard-stop one daemon, keeping its slot in the list
+        (functional_test.go:1063-1071 kills daemons for health tests)."""
+        d = self.daemons[idx]
+        self.run(d.close(), timeout=60.0)
+
+    def restart(self, idx: int) -> Daemon:
+        """Restart daemon `idx` on its old address
+        (cluster.Restart, cluster/cluster.go:99-108)."""
+        old = self.daemons[idx]
+
+        async def boot() -> Daemon:
+            try:
+                await old.close()
+            except Exception:  # noqa: BLE001 — may already be dead
+                pass
+            conf = replace(
+                old.conf,
+                grpc_listen_address=old.grpc_address,
+                http_listen_address=old.http_address,
+            )
+            d = Daemon(conf)
+            await d.start()
+            d.conf.advertise_address = d.grpc_address
+            self.daemons[idx] = d
+            await self._push_peers()
+            return d
+
+        return self.run(boot(), timeout=300.0)

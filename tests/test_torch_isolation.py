@@ -70,3 +70,52 @@ def test_port_imports_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED-OK" in proc.stdout
+
+
+DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent("""
+    import asyncio
+
+    import grpc
+
+    from gubernator_tpu_torch.core.config import DaemonConfig, DeviceConfig
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    async def main():
+        d = Daemon(DaemonConfig(
+            grpc_listen_address="127.0.0.1:0",
+            http_listen_address="127.0.0.1:0",
+            device=DeviceConfig(num_slots=256, ways=8, batch_size=16,
+                                platform="cpu")))
+        await d.start()
+        try:
+            async with grpc.aio.insecure_channel(d.grpc_address) as ch:
+                raw = await ch.unary_unary(
+                    "/pb.gubernator.V1/GetRateLimits")(
+                    pb.GetRateLimitsReq(requests=[pb.RateLimitReq(
+                        name="iso", unique_key="k", hits=1, limit=5,
+                        duration=60_000)]).SerializeToString())
+            r = pb.GetRateLimitsResp.FromString(raw).responses[0]
+            assert (r.error, r.remaining) == ("", 4), r
+            assert d.fastpath.served == 1 and d.fastpath.fallbacks == 0
+        finally:
+            await d.close()
+
+    asyncio.run(asyncio.wait_for(main(), 60))
+    bad = sorted(m for m in sys.modules if blocked(m))
+    assert not bad, bad
+    print("DAEMON-ISOLATED-OK")
+""")
+
+
+def test_port_daemon_serves_without_jax():
+    """With jax and the JAX package blocked, the port's daemon starts on
+    the CPU and answers one GetRateLimits over gRPC on its compiled lane."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", DAEMON_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "DAEMON-ISOLATED-OK" in proc.stdout
