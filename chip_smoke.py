@@ -55,7 +55,28 @@ Phases (any failure exits non-zero and prints no result line):
      daemon with fewer RPCs; then a 3-node in-process cluster answers a
      stream through node 0 exactly as a single node does (owner metadata
      aside), and GLOBAL keys hit through a non-owner are answered; print
-     the kernel line (K1 and K2), the card, and the result line.
+     the kernel line (K1 and K2), the card, and the result line;
+ 12. persistence at full width: checkpoint phase 10's persistent daemon
+     (table and sketch) with TableCheckpointer, restore it into a fresh
+     daemon (byte-equal table and sketch, byte-equal answers to 8 RPCs);
+     a pipelined 2^24-slot daemon restored from a MockLoader of 1M items
+     and serving 64 clients x 3 RPCs over Loader keys and cold MockStore
+     keys on the compiled lane (every touched key's Store row equals the
+     table's; the Loader's save at close is every live tracked bucket
+     row);
+ 13. the state plane at full width: table_stats on phase 10's warmed
+     table against a numpy census and the sampler's /debug/vars block,
+     /debug/key of the control key, each state-plane op timed against
+     its byte bound, the cold tier demoting ~2.7M rows to its low mark
+     and promoting 65,536 back, and a 2 -> 3-node reshard of 1M live
+     keys at 2^24 slots a node, its transfer deadline raised from 10 s
+     to 120 s (no row lost, moved rows equal, the old owners purged,
+     1000 checks through node 0 answer as the plain step on CPU copies of
+     the old owners' rows).  Every K1/K2 dispatch of phases 12-13 replays
+     through the plain versions; the first, second and latest dispatch
+     of each state-plane op replays on CPU copies of its inputs; the
+     state-plane line (ms, launches per path, bound) precedes the kernel
+     line.
 
 Needs torch with CUDA, nvcc and a C++ compiler, and the daemon's wire
 stack (grpcio, protobuf, aiohttp, prometheus_client, xxhash); imports no
@@ -80,8 +101,12 @@ SEED = 20261016
 T0_NS = 1_760_000_000_000 * 1_000_000  # frozen clock start (unix ns)
 
 
+_START = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    """Print a line with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:7.1f} s]", *a, flush=True)
 
 
 def tables_equal(a, b) -> bool:
@@ -974,11 +999,12 @@ CLUSTER_RPCS = 8             # sequential RPCs through node 0 in phase 11
 V1_RPC = "/pb.gubernator.V1/GetRateLimits"
 
 
-def rpc_requests(rng, n_rpc: int, first_key: int = 0):
+def rpc_requests(rng, n_rpc: int, first_key: int = 0, pool=None):
     """`n_rpc` GetRateLimits payloads of RPC_REQS requests: PERF.md §4's
     exact-tier mix (token:leaky 2:1, 2% Gregorian, 0.5% RESET_REMAINING,
     0.2% of lanes on 8 hot keys) with 1/8 of the requests on the sketch
-    tier's name ("cms", keys uniform over its 100M-key space)."""
+    tier's name ("cms", keys uniform over its 100M-key space).  With
+    `pool`, the exact-tier key ids are drawn from it."""
     from gubernator_tpu_torch import native
     from gubernator_tpu_torch.core.interval import GREGORIAN_MINUTES
     from gubernator_tpu_torch.core.types import (
@@ -993,6 +1019,9 @@ def rpc_requests(rng, n_rpc: int, first_key: int = 0):
         idx = rng.integers(0, 150_000, RPC_REQS) + first_key
         hot = rng.random(RPC_REQS) < 0.002
         idx[hot] = rng.integers(0, 8, int(hot.sum()))
+        if pool is not None:
+            idx = pool[rng.integers(0, len(pool), RPC_REQS)]
+            idx[hot] = pool[rng.integers(0, 8, int(hot.sum()))]
         sk = rng.random(RPC_REQS) < 1 / 8
         sk_ids = rng.integers(0, SKETCH_KEYS, RPC_REQS)
         hits = rng.choice([0, 1, 1, 1, 1, 2, 5], RPC_REQS)
@@ -1026,13 +1055,21 @@ class DispatchRecorder:
     sequence word in, and the kernel's output.  Nothing is copied: each
     of these is a fresh array or tensor per dispatch."""
 
-    def __init__(self, be, sb):
+    def __init__(self, be, sb, state=None):
         self.be, self.sb = be, sb
         self.k1, self.k2 = [], []
+        # The table's mutations in order: ("k1", j) for the j-th K1
+        # dispatch, ("op", name, args) for a state-plane op the
+        # StateOpRecorder saw on this table (a Store seed, a repair).
+        self.seq = []
+        self.state = state
+        if state is not None:
+            state.sinks[be.table.key.data_ptr()] = self
         self._launch, self._dispatch = be._launch, sb._dispatch
 
         def launch(qs, nows, seq):
             resps, seq_out = self._launch(qs, nows, seq)
+            self.seq.append(("k1", len(self.k1)))
             self.k1.append((qs, nows, seq, resps))
             return resps, seq_out
 
@@ -1045,6 +1082,8 @@ class DispatchRecorder:
 
     def close(self):
         del self.be._launch, self.sb._dispatch
+        if self.state is not None:
+            self.state.sinks.pop(self.be.table.key.data_ptr(), None)
 
     def replay(self, dev, table, sketch) -> float:
         """Every recorded dispatch again through the plain versions, in
@@ -1061,7 +1100,12 @@ class DispatchRecorder:
 
         k1_before, k2_before = serve_kernel.launches, cms_kernel.launches
         err = 0.0
-        for j, (qs, nows, seq, resps) in enumerate(self.k1):
+        for ev in self.seq:
+            if ev[0] == "op":  # the same torch op, in table order
+                self.state.orig[ev[1]](table, *ev[2])
+                continue
+            j = ev[1]
+            qs, nows, seq, resps = self.k1[j]
             s = seq if isinstance(seq, torch.Tensor) else torch.tensor(
                 seq, dtype=torch.int64, device=dev)
             table, pr, _ = ring_step(table, d(qs), d(nows), s, WAYS)
@@ -1140,8 +1184,9 @@ async def control_key(addr):
         raise AssertionError(f"control key on the wire: {got}")
 
 
-def start_daemons(dev, n, slots, mode):
-    """n daemons of the port (one in-process cluster) on `dev`."""
+def start_daemons(dev, n, slots, mode, **conf):
+    """n daemons of the port (one in-process cluster) on `dev`; `conf`
+    adds DaemonConfig fields (a Store, a Loader)."""
     from gubernator_tpu_torch.core.config import (
         DaemonConfig,
         DeviceConfig,
@@ -1156,7 +1201,7 @@ def start_daemons(dev, n, slots, mode):
         [""] * n,
         device=DeviceConfig(num_slots=slots, ways=WAYS, batch_size=BATCH,
                             platform=dev.type),
-        conf_template=DaemonConfig(serve_mode=mode, sketch=sketch))
+        conf_template=DaemonConfig(serve_mode=mode, sketch=sketch, **conf))
 
 
 def percentiles_ms(lat):
@@ -1165,9 +1210,10 @@ def percentiles_ms(lat):
 
 
 def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
-                   profile=False):
+                   profile=False, after=None):
     """One serve mode on one daemon: traffic over gRPC with every K1/K2
-    dispatch recorded, the control key, then the plain replay.  Returns
+    dispatch recorded, the control key, then the plain replay; then
+    `after(cluster, daemon)` on the served daemon when given.  Returns
     (max_abs_err, K1 launches, K2 launches)."""
     import asyncio
 
@@ -1238,6 +1284,8 @@ def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
             f"dispatches replayed through the plain versions: responses, "
             f"table, sketch bit-exact, claim words restored; control key "
             f"exact on the wire")
+        if after is not None:
+            err = max(err, after(c, d))
         return err, k1, k2
     finally:
         c.stop()
@@ -1283,15 +1331,18 @@ def profile_daemon(c, d, rng, clients):
         + "; ".join(f"{k} {v / n_rpc:.5f}" for k, v in top))
 
 
-def daemon_path(dev, smi) -> float:
+def daemon_path(dev, smi, after=None) -> float:
     """Phase 10: the daemon at full width in the pipelined and persistent
-    modes, the table warmed to 10M live keys through K1."""
+    modes, the table warmed to 10M live keys through K1; `after` runs on
+    the persistent daemon (phases 12a and 13a-b)."""
     rng = np.random.default_rng(SEED + 500)
     err = 0.0
     for mode in ("pipelined", "persistent"):
         e, _, _ = serve_mode_run(dev, mode, DAEMON_SLOTS, DAEMON_CLIENTS,
                                  DAEMON_RPCS, rng, smi, warm=True,
-                                 profile=(mode == "persistent"))
+                                 profile=(mode == "persistent"),
+                                 after=after if mode == "persistent"
+                                 else None)
         err = max(err, e)
     return err
 
@@ -1379,6 +1430,1033 @@ def cluster_path(dev, smi) -> float:
     return err
 
 
+# -- phases 12-13: persistence and the state plane ----------------------------
+LOADER_ITEMS = 1_000_000     # phase 12: Loader restore (Python objects)
+STORE_KEYS = 150_000         # keys of each pool the Store traffic draws from
+STORE_CLIENTS = 64
+STORE_RPCS = 3
+TIER_HIGH, TIER_LOW = 0.50, 0.45
+TIER_BATCH = 32768           # rows per demote dispatch
+COLD_CAPACITY = 4_000_000
+PROMOTE_KEYS = 65_536
+RESHARD_KEYS = 1_000_000     # live keys warmed across the 2-node ring
+RESHARD_CHECKS = 1000
+# ReshardConfig.timeout_s of the reshard cluster.  The sender's deadline
+# covers its whole transfer, not a silence (ROADMAP queue 3), and here the
+# three daemons share one interpreter lock: a handoff of ~160K rows in
+# 1024-row chunks (the default) has overrun the default 10 s on the card's
+# host.
+RESHARD_TIMEOUT_S = 120.0
+OP_ITERS = 10                # timed dispatches per state-plane op
+STATE_OPS = ("load_rows", "probe_batch", "gather_rows", "migrate_extract",
+             "migrate_inject", "demote_extract", "table_stats")
+MUTATING = ("load_rows", "migrate_extract", "migrate_inject",
+            "demote_extract")
+ROW_FIELDS = ("kind", "algo", "limit", "duration", "remaining",
+              "remaining_f", "t0", "status", "burst", "expire_at")
+
+
+def require_launches(label: str, k2: bool) -> None:
+    """The run since the counters were set to 0 launched K1 (and K2 when
+    `k2`): the path went through the kernels."""
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+
+    k1n, k2n = serve_kernel.launches, cms_kernel.launches
+    if k1n == 0 or (k2 and k2n == 0):
+        raise AssertionError(f"{label}: K1 launches {k1n}, K2 launches "
+                             f"{k2n}")
+    log(f"{label}: K1 launches {k1n}, K2 launches {k2n}")
+
+
+# The state-plane ops each path must launch at least once.
+STATE_PATH_OPS = {
+    "checkpoint+census": ("table_stats",),
+    "tier": ("demote_extract", "migrate_inject"),
+    "store": ("load_rows", "gather_rows"),
+    "reshard": ("migrate_extract", "migrate_inject"),
+}
+
+
+def _map_tensors(x, fn):
+    """x with fn applied to every tensor inside (tuples, NamedTuples)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        vals = [_map_tensors(v, fn) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _bits_equal(a, b) -> bool:
+    """Bitwise equality of nested outputs (float64 compared as bits)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        return a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_bits_equal, a, b))
+    return a == b
+
+
+class StateOpRecorder:
+    """Counts every state-plane op the backends dispatch (the torch ops of
+    ops/step.py and ops/state.py, called through runtime/backend.py) and
+    keeps the first, the second and the latest dispatch of each kind: a
+    copy of its input table and arguments, its outputs and, for the ops
+    that write, the table after it.  `replay()` runs each kept dispatch
+    again through the same op on CPU copies of its inputs and requires
+    outputs and table bit-equal.  A DispatchRecorder registered in
+    `sinks` also gets each op on its table, in order with K1."""
+
+    def __init__(self):
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        from gubernator_tpu_torch.runtime import backend as bmod
+
+        self.bmod = bmod
+        self.orig = {n: getattr(bmod, n) for n in STATE_OPS}
+        self.lock = threading.Lock()
+        self.launches = {n: 0 for n in STATE_OPS}
+        self.kept = {n: [] for n in STATE_OPS}
+        self.last = {}
+        self.sinks = {}
+        # The first two dispatches' copies go to the host on a thread of
+        # their own, so the dispatch (and the backend lock around it) does
+        # not wait for gigabytes of device-to-host copy.
+        self.spill = ThreadPoolExecutor(1, thread_name_prefix="state-spill")
+        for n in STATE_OPS:
+            setattr(bmod, n, self._wrap(n))
+
+    def close(self):
+        for n, fn in self.orig.items():
+            setattr(self.bmod, n, fn)
+        self.spill.shutdown()
+
+    @staticmethod
+    def _to_host(event, rec):
+        """`rec` on the host once the stream that made it reaches `event`."""
+        event.synchronize()
+        return _map_tensors(rec, lambda t: t.cpu())
+
+    def _wrap(self, name):
+        import torch
+
+        from gubernator_tpu_torch.ops.state import clone_table
+
+        fn = self.orig[name]
+        mutating = name in MUTATING
+
+        def op(table, *args):
+            with self.lock:
+                i = self.launches[name]
+                self.launches[name] += 1
+            before = clone_table(table)
+            cargs = _map_tensors(args, lambda t: t.clone())
+            sink = self.sinks.get(table.key.data_ptr())
+            if sink is not None:
+                sink.seq.append(("op", name, cargs))
+            out = fn(table, *args)
+            res = out if not mutating else (
+                () if name == "load_rows" else out[1:])
+            rec = (before, cargs, _map_tensors(res, lambda t: t.clone()),
+                   clone_table(table) if mutating else None)
+            if i < 2:
+                event = torch.cuda.Event()
+                # On the current stream, the backend's: the op ran on it.
+                event.record()
+                fut = self.spill.submit(self._to_host, event, rec)
+                with self.lock:
+                    self.kept[name].append(fut)
+            else:
+                with self.lock:
+                    self.last[name] = rec
+            return out
+
+        return op
+
+    def counts(self):
+        with self.lock:
+            return dict(self.launches)
+
+    def replay(self, label: str) -> int:
+        """Replay the kept dispatches on the CPU; forget them."""
+        from gubernator_tpu_torch.ops.state import clone_table
+
+        with self.lock:
+            todo = [(n, f) for n in STATE_OPS for f in self.kept[n]]
+            last = [(n, self.last[n]) for n in STATE_OPS if n in self.last]
+            self.kept = {n: [] for n in STATE_OPS}
+            self.last = {}
+        todo = [(n, f.result()) for n, f in todo] + last
+        done = {}
+        t0 = time.perf_counter()
+        for name, rec in todo:
+            before, cargs, res, after = _map_tensors(rec, lambda t: t.cpu())
+            table = clone_table(before)
+            out = self.orig[name](table, *cargs)
+            got = out if name not in MUTATING else (
+                () if name == "load_rows" else out[1:])
+            if not _bits_equal(got, res):
+                raise AssertionError(f"{label}: {name} on the CPU copy gives "
+                                     "other outputs than on the card")
+            if not tables_equal(table, after if after is not None
+                                else before):
+                raise AssertionError(f"{label}: {name} on the CPU copy "
+                                     "leaves another table than the card's")
+            done[name] = done.get(name, 0) + 1
+        log(f"{label}: state-plane dispatches replayed on CPU copies of "
+            f"their inputs, outputs and tables bit-equal: {done} "
+            f"({time.perf_counter() - t0:.3f} s)")
+        return sum(done.values())
+
+
+def live_index(snap, now):
+    """(sorted fingerprints, their slots) of the live rows of a snapshot."""
+    live = np.flatnonzero((snap["key"] != 0) & (snap["expire_at"] > now))
+    keys = snap["key"][live]
+    o = np.argsort(keys, kind="stable")
+    return keys[o], live[o]
+
+
+def find_rows(index, fps):
+    """Slot of each fingerprint's live row, -1 where there is none."""
+    keys, slots = index
+    if not len(keys):
+        return np.full(len(fps), -1)
+    i = np.minimum(np.searchsorted(keys, fps), len(keys) - 1)
+    return np.where(keys[i] == fps, slots[i], -1)
+
+
+def rows_at(snap, slots):
+    return {f: snap[f][slots] for f in ROW_FIELDS}
+
+
+def rows_equal(a, b) -> bool:
+    return all(np.array_equal(np.asarray(a[f]).view(np.int64)
+                              if np.asarray(a[f]).dtype == np.float64
+                              else a[f],
+                              np.asarray(b[f]).view(np.int64)
+                              if np.asarray(b[f]).dtype == np.float64
+                              else b[f]) for f in ROW_FIELDS)
+
+
+def numpy_census(snap, grid, now, ways):
+    """An independent census of a host snapshot, written from the
+    definitions of ops/state.table_stats."""
+    key, expire, algo = snap["key"], snap["expire_at"], snap["algo"]
+    nb = key.shape[0] // ways
+    resident = key != 0
+    alive = resident & (expire > now)
+    fill = np.bincount(resident.reshape(nb, ways).sum(axis=1),
+                       minlength=ways + 1)
+    edges = np.asarray([1_000, 10_000, 60_000, 600_000, 3_600_000])
+
+    def hist(values):
+        idx = np.searchsorted(edges, values[alive], side="left")
+        return np.bincount(idx, minlength=6).tolist()
+
+    lim = np.maximum(snap["limit"].astype(np.float64), 1.0)
+    rem = np.where(algo == 1, snap["remaining_f"],
+                   snap["remaining"].astype(np.float64))
+    fbin = np.minimum((np.clip(rem / lim, 0.0, 1.0) * 8).astype(np.int64), 7)
+    frac = [np.bincount(fbin[alive & (algo == a)], minlength=8).tolist()
+            for a in (0, 1)]
+    shadow = []
+    for plane in grid:
+        n = 0
+        for fp in plane[plane != 0]:
+            b = int(np.uint64(fp) & np.uint64(nb - 1))
+            row = slice(b * ways, (b + 1) * ways)
+            n += bool(((key[row] == fp) & (expire[row] > now)).any())
+        shadow.append(n)
+    return {"occupancy": int(resident.sum()), "live": int(alive.sum()),
+            "expired_resident": int((resident & ~alive).sum()),
+            "bucket_fill": fill.tolist(), "slot_age": hist(now - snap["t0"]),
+            "ttl_remaining": hist(expire - now), "remaining_fraction": frac,
+            "shadow_slots": shadow}
+
+
+def http_json(addr, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+async def send_sequential(addr, payloads):
+    import grpc
+
+    async with grpc.aio.insecure_channel(addr) as ch:
+        return [await ch.unary_unary(V1_RPC)(p, timeout=300)
+                for p in payloads]
+
+
+def time_calls(obj, name, spent):
+    """Wrap the method `name` of `obj` so that each call adds one call and
+    its host seconds to spent[name] = [calls, seconds, lock]."""
+    import threading
+
+    fn = getattr(obj, name)
+    acc = spent.setdefault(name, [0, 0.0, threading.Lock()])
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            with acc[2]:
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t
+
+    setattr(obj, name, timed)
+
+
+def bulk_load(be, cols, now):
+    """Upsert host row columns (BucketRows names) into a backend's table,
+    batch_size rows a dispatch, through the backend's load_rows.  A
+    dispatch resolves at most INSERT_ROUNDS inserts a bucket, so rows go
+    in waves in which no bucket has more than that."""
+    from gubernator_tpu_torch.ops.step import INSERT_ROUNDS
+    from gubernator_tpu_torch.runtime import backend as bmod
+
+    nb = np.uint64(be.cfg.num_slots // be.cfg.ways - 1)
+    bucket = cols["key_hash"].view(np.uint64) & nb
+    order = np.argsort(bucket, kind="stable")
+    sb = bucket[order]
+    starts = np.flatnonzero(np.r_[True, sb[1:] != sb[:-1]])
+    rank = np.empty(len(sb), dtype=np.int64)
+    rank[order] = np.arange(len(sb)) - np.repeat(
+        starts, np.diff(np.r_[starts, len(sb)]))
+    wave = rank // INSERT_ROUNDS
+    with be._lock, be._on_stream():
+        for w in range(int(wave.max()) + 1 if len(wave) else 0):
+            sel = np.flatnonzero(wave == w)
+            for lo in range(0, len(sel), be.cfg.batch_size):
+                bmod.load_rows(be.table, be._upload_rows(
+                    cols, sel[lo:lo + be.cfg.batch_size]), now, be.cfg.ways)
+
+
+def phase_checkpoint(c, d, dev, smi, state) -> float:
+    """Phase 12a: save phase 10's served table and sketch, restore them
+    into a fresh daemon, and serve both the same RPCs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.runtime.checkpoint import TableCheckpointer
+
+    be, sb = d.service.backend, d.service.sketch_backend
+    tmp = tempfile.mkdtemp(prefix="gubernator-ckpt-")
+    d2 = None
+    try:
+        ck = TableCheckpointer(tmp)
+        ck.save(be, step=1, sketch=sb)
+        sv = ck.last_save
+        # A fresh daemon of the same configuration, on the same loop (one
+        # grpc.aio loop a process).
+        d2 = c.boot(d.conf.device, d.conf)
+        be2, sb2 = d2.service.backend, d2.service.sketch_backend
+        t0 = time.perf_counter()
+        TableCheckpointer(tmp).restore(be2, sketch=sb2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        a, b = be.snapshot(), be2.snapshot()
+        if not all(np.array_equal(a[f].view(np.uint8), b[f].view(np.uint8))
+                   for f in a):
+            raise AssertionError("restored table differs from the saved one")
+        if not sketch_equal(sb.state, sb2.state):
+            raise AssertionError("restored sketch differs from the saved one")
+        gb = sv["bytes"] / 1e9
+        log(f"phase 12 ({smi}): checkpoint of {be.cfg.num_slots} slots and "
+            f"the sketch, {gb:.3f} GB: save {sv['seconds']:.3f} s "
+            f"({gb / sv['seconds']:.3f} GB/s, the backend lock held "
+            f"{sv['lock_s'] * 1e3:.3f} ms), restore {restore_s:.3f} s "
+            f"({gb / restore_s:.3f} GB/s); restored table and sketch "
+            f"byte-equal")
+        rng = np.random.default_rng(SEED + 700)
+        payloads = rpc_requests(rng, 8, first_key=3_000_000)
+        recs, starts, answers = [], [], []
+        for dd in (d, d2):
+            b_, s_ = dd.service.backend, dd.service.sketch_backend
+            torch.cuda.synchronize()
+            starts.append((clone_table(b_.table), clone_sketch(s_.state)))
+            recs.append(DispatchRecorder(b_, s_, state))
+            serve_kernel.launches = cms_kernel.launches = 0
+            answers.append(c.run(send_sequential(dd.grpc_address,
+                                                 payloads), timeout=300))
+            require_launches("phase 12 (checkpoint)", k2=True)
+        err = 0.0
+        for rec, (t, sk) in zip(recs, starts):
+            rec.close()
+            err = max(err, rec.replay(dev, t, sk))
+        if answers[0] != answers[1]:
+            raise AssertionError("the restored daemon answers differently")
+        log(f"phase 12: 8 RPCs of {RPC_REQS} (PERF.md §4 mix, 1/8 sketch) "
+            f"byte-equal on the wire from the saved and the restored "
+            f"daemon; {len(recs[0].k1)}+{len(recs[1].k1)} K1 and "
+            f"{len(recs[0].k2)}+{len(recs[1].k2)} K2 dispatches replayed "
+            f"bit-exact")
+        return err
+    finally:
+        if d2 is not None:
+            c.run(d2.close(), timeout=120)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_gubstat(c, d, dev, smi, state):
+    """Phase 13a: the census of phase 10's warmed table against a numpy
+    census, the sampler's /debug/vars block, /debug/key of the control
+    key."""
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.runtime.gubstat import AGE_BIN_LABELS
+
+    be = d.service.backend
+    sampler = d.stats_sampler
+    grid = sampler._shadow_grid()
+    st = be.table_stats_dispatch(grid)()
+    snap = be.snapshot()
+    now = be.clock.millisecond_now()
+    ref = numpy_census(snap, grid, now, WAYS)
+    got = {f: np.asarray(getattr(st, f))[0].tolist() for f in ref}
+    if got != ref:
+        bad = [f for f in ref if got[f] != ref[f]]
+        raise AssertionError(f"census differs from numpy in {bad}")
+    c.run(sampler.sample(), timeout=120)
+    block = http_json(d.http_address, "/debug/vars")["table"]
+    view = {
+        "occupancy": block["occupancy"], "live": block["live"],
+        "expired_resident": block["expired_resident"],
+        "bucket_fill": block["bucket_fill"],
+        "slot_age": [block["slot_age_ms"][k] for k in AGE_BIN_LABELS],
+        "ttl_remaining": [block["ttl_remaining_ms"][k]
+                          for k in AGE_BIN_LABELS],
+        "remaining_fraction": [block["remaining_fraction"]["token"],
+                               block["remaining_fraction"]["leaky"]],
+        "shadow_slots": list(block["shadow_slots"].values()),
+    }
+    if view != ref:
+        raise AssertionError("/debug/vars table block differs from the "
+                             "numpy census")
+    key = http_json(d.http_address, "/debug/key?name=control&key=driven")
+    slot = find_rows(live_index(snap, now),
+                     bulk_key_hash64(["control_driven"]))[0]
+    want = {"algorithm": int(snap["algo"][slot]),
+            "limit": int(snap["limit"][slot]),
+            "duration": int(snap["duration"][slot]),
+            "remaining": float(snap["remaining"][slot]),
+            "created_at": int(snap["t0"][slot]),
+            "status": int(snap["status"][slot]),
+            "burst": int(snap["burst"][slot]),
+            "expire_at": int(snap["expire_at"][slot]),
+            "key": "control_driven"}
+    if slot < 0 or not key["found"] or key["row"] != want:
+        raise AssertionError(f"/debug/key control row: {key}")
+    log(f"phase 13: table_stats on {be.cfg.num_slots} slots equals a numpy "
+        f"census of snapshot() and the sampler's /debug/vars block "
+        f"(occupancy {ref['occupancy']}, live {ref['live']}, expired "
+        f"{ref['expired_resident']}, bucket fill {ref['bucket_fill']}); "
+        f"/debug/key decodes control_driven exactly (remaining "
+        f"{want['remaining']}, status {want['status']})")
+    return snap, now
+
+
+def time_state_ops(dev, name, smi, be, state, snap, now):
+    """Device ms per dispatch of each state-plane op at the main path's
+    shapes on the warmed table (CUDA events, the table restored and L2
+    flushed before each), beside its byte bound."""
+    import torch
+
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.ops.step import BucketRows
+
+    ops = state.orig
+    S, B = be.cfg.num_slots, BATCH
+    rate = hbm_bytes_per_s(name)
+    rng = np.random.default_rng(SEED + 800)
+    live = np.flatnonzero((snap["key"] != 0) & (snap["expire_at"] > now))
+    present = snap["key"][rng.choice(live, B, replace=False)]
+    absent = rng.integers(1, 2**62, B)
+    h = torch.from_numpy(np.where(rng.random(B) < 0.5, present,
+                                  absent)).to(dev)
+    found = int(np.isin(h.cpu().numpy(), present).sum())
+
+    def rows(n, keys):
+        return BucketRows(
+            key_hash=torch.from_numpy(keys[:n]).to(dev),
+            algo=torch.zeros(n, dtype=torch.int32, device=dev),
+            limit=torch.full((n,), 100, dtype=torch.int64, device=dev),
+            duration=torch.full((n,), 3_600_000, dtype=torch.int64,
+                                device=dev),
+            remaining=torch.full((n,), 50, dtype=torch.int64, device=dev),
+            remaining_f=torch.zeros(n, dtype=torch.float64, device=dev),
+            t0=torch.full((n,), now, dtype=torch.int64, device=dev),
+            status=torch.zeros(n, dtype=torch.int32, device=dev),
+            burst=torch.zeros(n, dtype=torch.int64, device=dev),
+            expire_at=torch.full((n,), now + 3_600_000, dtype=torch.int64,
+                                 device=dev))
+
+    chunk = min(1024, B)  # ReshardConfig.chunk_rows: one Migrate chunk
+    mix = np.where(np.arange(chunk) % 2 == 0, present[:chunk],
+                   absent[:chunk])
+    grid = torch.zeros((5, 8), dtype=torch.int64, device=dev)
+    protect = torch.zeros(8, dtype=torch.int64, device=dev)
+    pristine = clone_table(be.table)
+    work = clone_table(pristine)
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        for x, y in zip(work, pristine):
+            x.copy_(y)
+        l2.zero_()
+
+    probe = B * (8 + 16 * WAYS) + B * 9
+    cases = [
+        ("probe_batch", lambda: ops["probe_batch"](work, h, now, WAYS),
+         probe, f"B={B}"),
+        ("gather_rows", lambda: ops["gather_rows"](work, h, now, WAYS),
+         probe + found * 60 + B * 88, f"B={B}, {found} found"),
+        ("load_rows", lambda: ops["load_rows"](work, rows(B, absent), now,
+                                              WAYS),
+         B * (80 + 24 * WAYS + 96), f"B={B} fresh rows"),
+        ("migrate_extract", lambda: ops["migrate_extract"](
+            work, h[:chunk], now, WAYS),
+         chunk * (8 + 16 * WAYS + 88) + chunk // 2 * (60 + 16),
+         f"B={chunk}"),
+        ("migrate_inject", lambda: ops["migrate_inject"](
+            work, rows(chunk, mix), now, WAYS),
+         chunk * (80 + 40 * WAYS + 1) + chunk // 2 * (96 + 32),
+         f"B={chunk}, half resident"),
+        ("demote_extract", lambda: ops["demote_extract"](
+            work, protect, now, WAYS, TIER_BATCH),
+         28 * S + TIER_BATCH * (80 + 88 + 16), f"batch={TIER_BATCH}"),
+        ("table_stats", lambda: ops["table_stats"](work, grid, now, WAYS),
+         52 * S, f"S={S}"),
+    ]
+    out = {}
+    for op_name, fn, nbytes, shape in cases:
+        flush()
+        fn()
+        ms = cuda_ms(fn, OP_ITERS, flush)
+        bound = nbytes / rate * 1e3
+        out[op_name] = {"ms": ms, "bound_ms": bound, "shape": shape}
+        log(f"phase 13 ({smi}): {op_name} ({shape}): {ms:.4f} ms a "
+            f"dispatch, byte bound {bound:.4f} ms ({nbytes} B at "
+            f"{rate / 1e12:.2f} TB/s)")
+    del work, pristine, l2
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_tier(c, d, dev, smi, snap, now):
+    """Phase 13b: arm the cold tier on phase 10's warmed table, demote to
+    the low mark, check both tiers, promote PROMOTE_KEYS keys back."""
+    from gubernator_tpu_torch.core.config import TierConfig
+    from gubernator_tpu_torch.runtime.coldtier import TierManager
+
+    be = d.service.backend
+    tm = TierManager(d.service, TierConfig(
+        enabled=True, high_water=TIER_HIGH, low_water=TIER_LOW,
+        demote_batch=TIER_BATCH, cold_capacity=COLD_CAPACITY),
+        fastpath=d.fastpath, metrics=d.metrics)
+    live_before = int(((snap["key"] != 0) & (snap["expire_at"] > now)).sum())
+    need = tm.demote_need(int((snap["key"] != 0).sum()))
+    # One tick drains to the low mark: the daemon's worker would spread
+    # these passes over several ticks of MAX_DEMOTE_PASSES each.
+    tm.MAX_DEMOTE_PASSES = need // TIER_BATCH + 8
+    log(f"phase 13: tier armed on {be.cfg.num_slots} slots, {need} rows "
+        f"over the low mark")
+    t0 = time.perf_counter()
+    demoted, ticks = 0, 0
+    while True:
+        n = tm.demote_once_sync()
+        ticks += 1
+        demoted += n
+        if n == 0:
+            break
+    demote_s = time.perf_counter() - t0
+    after = be.snapshot()
+    cold = tm.cold.snapshot()
+    live_after = int(((after["key"] != 0) & (after["expire_at"] > now)).sum())
+    if demoted != need or live_after + tm.cold.residents() != live_before:
+        raise AssertionError(
+            f"tier: demoted {demoted} of {need}; {live_after} live + "
+            f"{tm.cold.residents()} cold != {live_before} before")
+    if np.isin(cold["key_hash"], live_index(after, now)[0]).any():
+        raise AssertionError("a fingerprint is in both tiers")
+    pre = find_rows(live_index(snap, now), cold["key_hash"])
+    if (pre < 0).any() or not rows_equal(
+            rows_at(snap, pre), {"kind": np.zeros(len(pre), np.int32),
+                                 **{f: cold[f] for f in ROW_FIELDS
+                                    if f != "kind"}}):
+        raise AssertionError("a demoted row differs from its pre-demote row")
+    log(f"phase 13 ({smi}): tier high {TIER_HIGH} low {TIER_LOW}, batch "
+        f"{TIER_BATCH}: {demoted} rows demoted in {tm.demote_passes} "
+        f"dispatches over {ticks} ticks, {demote_s:.3f} s "
+        f"({demoted / demote_s:.1f} rows/s, "
+        f"{demote_s / tm.demote_passes * 1e3:.3f} ms a pass, host clock); "
+        f"live {live_before} -> {live_after} + {tm.cold.residents()} cold; "
+        f"no fingerprint in both tiers; every demoted row equals its "
+        f"pre-demote row")
+    rng = np.random.default_rng(SEED + 900)
+    pick = rng.choice(len(cold["key_hash"]), PROMOTE_KEYS, replace=False)
+    fps = cold["key_hash"][pick]
+    want = {f: cold[f][pick] for f in ROW_FIELDS if f != "kind"}
+    t0 = time.perf_counter()
+    tm.note_access(fps, np.ones(len(fps), dtype=np.int64))
+    promoted = tm.drain_promotes_sync()
+    promote_s = time.perf_counter() - t0
+    back = be.snapshot()
+    slots = find_rows(live_index(back, now), fps)
+    if promoted != len(fps) or (slots < 0).any() or not rows_equal(
+            rows_at(back, slots), {"kind": np.zeros(len(fps), np.int32),
+                                   **want}):
+        raise AssertionError(f"tier: {promoted} of {len(fps)} promoted "
+                             "rows came back as their cold rows")
+    log(f"phase 13: promoted {promoted} demoted keys (note_access + "
+        f"drain_promotes_sync) in {promote_s * 1e3:.3f} ms (host clock), "
+        f"each equal to its cold row (none had a fresh row to merge with); "
+        f"promote latency p99 bucket {tm.debug_vars()['promote_latency']['p99_s']}")
+
+
+def phase10_state(state, dev, name, smi, times):
+    """Phases 12a and 13a-b on phase 10's persistent daemon."""
+    def after(c, d):
+        before = state.counts()
+        err = phase_checkpoint(c, d, dev, smi, state)
+        snap, now = phase_gubstat(c, d, dev, smi, state)
+        times.update(time_state_ops(dev, name, smi, d.service.backend,
+                                    state, snap, now))
+        mid = state.counts()
+        phase_tier(c, d, dev, smi, snap, now)
+        end = state.counts()
+        STATE_PATHS["checkpoint+census"] = {
+            k: mid[k] - before[k] for k in STATE_OPS}
+        STATE_PATHS["tier"] = {k: end[k] - mid[k] for k in STATE_OPS}
+        log("phase 12-13: state-plane launches, checkpoint and census: "
+            + json.dumps(STATE_PATHS["checkpoint+census"]) + "; tier: "
+            + json.dumps(STATE_PATHS["tier"]))
+        state.replay("phase 12-13 (checkpoint, census, tier)")
+        return err
+
+    return after
+
+
+def phase_store(dev, smi, state) -> float:
+    """Phase 12b: a pipelined 2^24-slot daemon with a Loader of
+    LOADER_ITEMS items and a Store; Store traffic; write-through and the
+    Loader save checked against the table."""
+    import torch
+
+    from gubernator_tpu_torch.core.types import Algorithm, CacheItem, Status
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP, clone_table
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.runtime import backend as bmod
+    from gubernator_tpu_torch.runtime import fastpath as fmod
+    from gubernator_tpu_torch.runtime.store import MockLoader, MockStore
+
+    now = T0_NS // 1_000_000
+    rng = np.random.default_rng(SEED + 1000)
+    names = ["api", "login", "search", "upload"]
+
+    def item(u, expire):
+        leaky = u % 3 == 0
+        limit = (10, 100, 1000)[u % 3 if not leaky else (u // 3) % 3]
+        return CacheItem(
+            key=f"{names[u % 4]}_tenant{u % 97}:user{u}",
+            algorithm=Algorithm.LEAKY_BUCKET if leaky
+            else Algorithm.TOKEN_BUCKET,
+            expire_at=int(expire), limit=limit,
+            duration=(1000, 60_000)[u % 2],
+            remaining=limit / 2 + 0.25 if leaky else limit // 2,
+            created_at=now - 1_000, status=Status.UNDER_LIMIT)
+
+    expire = now + 60_000 * rng.integers(1, 61, LOADER_ITEMS)
+    log(f"phase 12: building {LOADER_ITEMS} Loader items")
+    t0 = time.perf_counter()
+    loader = MockLoader([item(u, expire[u]) for u in range(LOADER_ITEMS)])
+    store = MockStore()
+    for u in range(LOADER_ITEMS, LOADER_ITEMS + STORE_KEYS):
+        it = item(u, now + 3_600_000)
+        store.data[it.key] = it
+    make_s = time.perf_counter() - t0
+    load_s = []
+    orig_load = bmod.TorchBackend.load_items
+
+    def timed_load(self, items):
+        t = time.perf_counter()
+        n = orig_load(self, items)
+        load_s.append((n, time.perf_counter() - t))
+        return n
+
+    bmod.TorchBackend.load_items = timed_load
+    at_start = state.counts()
+    try:
+        c = start_daemons(dev, 1, DAEMON_SLOTS, "pipelined", loader=loader,
+                          store=store)
+    finally:
+        bmod.TorchBackend.load_items = orig_load
+    stages = {}
+
+    def timing(owner, attr):
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stages[attr] = stages.get(attr, 0.0) + time.perf_counter() - t
+
+        setattr(owner, attr, wrapped)
+
+    try:
+        d = c.daemons[0]
+        be, sb, fp = d.service.backend, d.service.sketch_backend, d.fastpath
+        n_loaded, restore_s = load_s[0]
+        log(f"phase 12 ({smi}): Loader restore of {n_loaded} items into "
+            f"{be.cfg.num_slots} slots: {restore_s:.3f} s "
+            f"({n_loaded / restore_s:.1f} items/s; the {LOADER_ITEMS} "
+            f"CacheItems took {make_s:.3f} s to build); occupancy "
+            f"{be.occupancy()}")
+        for attr in ("_persist_decode", "_repair_cold_store_keys",
+                     "_build_captured"):
+            timing(fp, attr)
+        for attr in ("_gather_rows_dispatch", "_deliver_write_through"):
+            timing(be, attr)
+        pools = np.concatenate([rng.integers(0, STORE_KEYS, STORE_KEYS),
+                                LOADER_ITEMS + np.arange(STORE_KEYS)])
+        per_client = [rpc_requests(rng, STORE_RPCS, pool=pools)
+                      for _ in range(STORE_CLIENTS)]
+        torch.cuda.synchronize()
+        table, sketch = clone_table(be.table), clone_sketch(sb.state)
+        rec = DispatchRecorder(be, sb, state)
+        before = state.counts()
+        log("phase 12: Store traffic starts")
+        serve_kernel.launches = cms_kernel.launches = 0
+        wall, lat, counts = c.run(drive_rpcs(d.grpc_address, per_client),
+                                  timeout=900)
+        require_launches("phase 12 (Store traffic)", k2=True)
+        rec.close()
+        used = state.counts()
+        STATE_PATHS["store"] = {k: used[k] - at_start[k] for k in STATE_OPS}
+        err = rec.replay(dev, table, sketch)
+        n = STORE_CLIENTS * STORE_RPCS * RPC_REQS
+        if sum(counts) != n or fp.served == 0 or fp.fallbacks != 0:
+            raise AssertionError(f"store run: {sum(counts)} of {n} answers, "
+                                 f"served {fp.served}, fallbacks "
+                                 f"{fp.fallbacks}")
+        touched, peeks = store_keys_of([p for ps in per_client for p in ps])
+        items = be.read_items_bulk(touched)
+        bad = [k for k in touched
+               if items.get(k) is None or store.data.get(k) != items[k]]
+        if bad:
+            raise AssertionError(
+                f"{len(bad)} Store rows differ from the table, e.g. "
+                f"{bad[0]}: {store.data.get(bad[0])} vs {items.get(bad[0])}")
+        lanes = fp.debug_vars()["lanes"]
+        disp = sum(v["dispatch_ms_total"] for v in lanes.values())
+        wt = 1e3 * sum(stages.get(a, 0.0) for a in (
+            "_persist_decode", "_gather_rows_dispatch",
+            "_repair_cold_store_keys"))
+        p50, p99, _ = percentiles_ms(lat)
+        log(f"phase 12 ({smi}): Store traffic {STORE_CLIENTS} clients x "
+            f"{STORE_RPCS} RPCs x {RPC_REQS} (half Loader keys, half cold "
+            f"Store keys): {n / wall:.1f} decisions/s, p50 {p50:.3f} ms, "
+            f"p99 {p99:.3f} ms (host clock); fast lane served {fp.served}, "
+            f"fallbacks 0; Store gets {store.called['get']}, on_change "
+            f"{store.called['on_change']}; {len(touched)} touched keys' "
+            f"Store rows equal read_items_bulk ({peeks} keys with a "
+            f"RESET_REMAINING left out); write-through "
+            f"(decode {stages.get('_persist_decode', 0) * 1e3:.1f} ms, "
+            f"capture dispatch "
+            f"{stages.get('_gather_rows_dispatch', 0) * 1e3:.1f} ms, cold "
+            f"repair {stages.get('_repair_cold_store_keys', 0) * 1e3:.1f} "
+            f"ms) is {wt / max(disp, 1e-9):.1%} of the dispatch stage's "
+            f"{disp:.1f} ms; capture build "
+            f"{stages.get('_build_captured', 0) * 1e3:.1f} ms and delivery "
+            f"{stages.get('_deliver_write_through', 0) * 1e3:.1f} ms on the "
+            f"fetch stage; {len(rec.k1)} K1, {len(rec.k2)} K2 and "
+            f"{sum(1 for e in rec.seq if e[0] == 'op')} state ops replayed "
+            f"in order, bit-exact; state-plane launches "
+            + json.dumps({k: used[k] - before[k] for k in STATE_OPS}))
+        log("phase 12: checking the Loader's save")
+        final = be.snapshot()
+        fnow = be.clock.millisecond_now()
+        keymap = dict(be._keymap)
+        live = (final["key"] != 0) & (final["expire_at"] > fnow)
+        tracked = np.array([int(np.int64(k).view(np.uint64)) in keymap
+                            for k in final["key"][live]])
+        want_keys = {keymap[int(np.int64(k).view(np.uint64))]
+                     for k in final["key"][live][tracked
+                                                 & (final["kind"][live]
+                                                    != KIND_CACHED_RESP)]}
+    finally:
+        c.stop()
+    saved = {i.key for i in loader.contents}
+    if loader.called["save"] != 1 or saved != want_keys:
+        raise AssertionError(f"Loader save: {len(saved)} items, "
+                             f"{len(want_keys)} live tracked bucket rows")
+    log(f"phase 12: the Loader's save at close returned {len(saved)} items: "
+        f"every live tracked bucket row, no cached-response row")
+    state.replay("phase 12 (Store and Loader)")
+    return err
+
+
+def store_keys_of(payloads):
+    """(sorted hash keys of the payloads' exact-tier requests, the number
+    of keys left out): a key that got a RESET_REMAINING request is left
+    out, because the reset clears the row without Store.remove in both
+    packages, so the Store keeps the pre-reset item (ROADMAP queue 3)."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    keys, peeked = set(), set()
+    for p in payloads:
+        for r in pb.GetRateLimitsReq.FromString(p).requests:
+            if r.name == "cms" or not r.unique_key:
+                continue
+            k = f"{r.name}_{r.unique_key}"
+            keys.add(k)
+            if r.behavior & 8:  # RESET_REMAINING
+                peeked.add(k)
+    return sorted(keys - peeked), len(peeked)
+
+
+def phase_reshard(dev, smi, state) -> float:
+    """Phase 13c: a 2-node cluster at 2^24 slots a node warmed to
+    RESHARD_KEYS live keys, a third node joins, the moved rows arrive."""
+    import torch
+
+    from gubernator_tpu_torch.core.clock import Clock
+    from gubernator_tpu_torch.core.config import DeviceConfig, ReshardConfig
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.core.types import RateLimitReq
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.runtime.backend import TorchBackend
+    from gubernator_tpu_torch.runtime.reshard import ring_owner_indices
+
+    now = T0_NS // 1_000_000
+    ids = np.arange(RESHARD_KEYS)
+    keys = [f"rs_u{i}" for i in ids.tolist()]
+    fps = bulk_key_hash64(keys)
+    leaky = ids % 3 == 0
+    cols = {"key_hash": fps, "algo": leaky.astype(np.int32),
+            "limit": np.full(RESHARD_KEYS, 100, dtype=np.int64),
+            "duration": np.full(RESHARD_KEYS, 3_600_000, dtype=np.int64),
+            "remaining": (ids % 97).astype(np.int64),
+            "remaining_f": (ids % 97) + 0.5 * leaky,
+            "t0": now - (ids % 1000),
+            "status": np.zeros(RESHARD_KEYS, dtype=np.int32),
+            "burst": np.where(leaky, 100, 0).astype(np.int64),
+            "expire_at": now + 3_600_000 - (ids % 1000)}
+    at_start = state.counts()
+    c = start_daemons(dev, 2, DAEMON_SLOTS, "pipelined",
+                      reshard=ReshardConfig(timeout_s=RESHARD_TIMEOUT_S))
+    try:
+        d0, d1 = c.daemons
+        two = [d0.grpc_address, d1.grpc_address]
+        peers = d0.service.local_picker.ring_arrays()[2]
+        owner = np.array([two.index(p.info().grpc_address) for p in peers]
+                         )[ring_owner_indices(fps, d0.service.local_picker)]
+        for i, d in enumerate((d0, d1)):
+            sel = owner == i
+            bulk_load(d.service.backend, {f: v[sel] for f, v in cols.items()},
+                      now)
+        log(f"phase 13: {RESHARD_KEYS} reshard keys loaded on their owners")
+        pre = [d.service.backend.snapshot() for d in (d0, d1)]
+        pre_idx = [live_index(s, now) for s in pre]
+        landed = sum(int((find_rows(ix, fps) >= 0).sum()) for ix in pre_idx)
+        if landed != RESHARD_KEYS:
+            raise AssertionError(f"{landed} of {RESHARD_KEYS} warm rows live")
+        d2 = c.boot(c.daemons[0].conf.device, c.daemons[0].conf)
+        three = two + [d2.grpc_address]
+        spent = {}
+        for d in (d0, d1, d2):
+            for m in ("migrate_extract_rows", "migrate_inject_rows"):
+                time_calls(d.service.backend, m, spent)
+        log("phase 13: the third node joins")
+        t0 = time.perf_counter()
+        c.join(d2)
+        deadline = time.monotonic() + 600
+
+        def settled(d):
+            rs = d.service.reshard
+            return (rs.handoffs_started > 0 and rs.handoffs_started
+                    == rs.handoffs_completed + rs.handoffs_aborted)
+
+        while not (settled(d0) and settled(d1)):
+            if time.monotonic() > deadline:
+                raise AssertionError("handoffs did not settle")
+            time.sleep(0.01)
+        join_s = time.perf_counter() - t0
+        rss = [d.service.reshard for d in (d0, d1)]
+        if any(rs.rows_lost or rs.handoffs_aborted for rs in rss):
+            raise AssertionError(f"handoffs lost rows: "
+                                 f"{[rs.debug_vars() for rs in rss]}")
+        new_owner = np.array([three.index(p.info().grpc_address) for p in
+                              d0.service.local_picker.ring_arrays()[2]]
+                             )[ring_owner_indices(
+                                 fps, d0.service.local_picker)]
+        moved = new_owner == 2
+        sent = sum(rs.rows_sent for rs in rss)
+        post2 = d2.service.backend.snapshot()
+        at2 = find_rows(live_index(post2, now), fps[moved])
+        # Moved rows the joiner lacks: migrate_inject_rows does not
+        # spread a chunk's rows, so past three same-bucket rows of one
+        # chunk (the senders stream in slot order) the rest find no claim
+        # and are dropped, in both packages (ROADMAP queue 3).  Each drop
+        # must be one of those.
+        nb = np.uint64(DAEMON_SLOTS // WAYS - 1)
+        bucket = fps.view(np.uint64) & nb
+        dropped = np.flatnonzero(moved)[at2 < 0]
+        for i in dropped:
+            group = moved & (owner == owner[i]) & (bucket == bucket[i])
+            if int(group.sum()) < 4:
+                raise AssertionError(f"moved row {fps[i]} missing on the "
+                                     "joiner, not past a bucket's three")
+        if sent < int(moved.sum()):
+            raise AssertionError(f"{sent} rows sent, {int(moved.sum())} "
+                                 "moved")
+        landed = np.flatnonzero(moved)[at2 >= 0]
+        at2 = at2[at2 >= 0]
+        pre_rows = {f: np.zeros(len(landed), dtype=pre[0][f].dtype)
+                    for f in ROW_FIELDS}
+        for i in (0, 1):
+            sel = owner[landed] == i
+            slots = find_rows(pre_idx[i], fps[landed][sel])
+            for f in ROW_FIELDS:
+                pre_rows[f][sel] = pre[i][f][slots]
+        if not rows_equal(rows_at(post2, at2), pre_rows):
+            raise AssertionError("a moved row differs from its pre-remap row")
+        for i, d in enumerate((d0, d1)):
+            ix = live_index(d.service.backend.snapshot(), now)
+            if (find_rows(ix, fps[moved]) >= 0).any():
+                raise AssertionError(f"node {i} still holds a moved row")
+        win = [(d.metrics.reshard_window_duration._sum.get(),
+                rs.rows_sent) for d, rs in zip((d0, d1), rss)]
+        log(f"phase 13 ({smi}): reshard 2 -> 3 nodes at {DAEMON_SLOTS} slots "
+            f"each, {RESHARD_KEYS} live keys: {sent} rows moved to the "
+            f"joiner ({', '.join(f'{n} in {w * 1e3:.1f} ms = {n / w:.1f} rows/s' for w, n in win)} "
+            f"handoff windows; deadline {RESHARD_TIMEOUT_S} s, the default "
+            f"10.0), join to settled {join_s * 1e3:.1f} ms "
+            f"(host clock); rows_lost 0; {len(dropped)} moved rows dropped "
+            f"past a bucket's three insert claims in one chunk (ROADMAP "
+            f"queue 3); the other {len(landed)} equal their pre-remap rows "
+            f"but for touched; the old owners hold none")
+        log("phase 13: inside the handoffs (host clock, both senders and the "
+            "joiner): " + "; ".join(
+                f"{m} {n} calls, {s:.3f} s ({s / max(n, 1) * 1e3:.3f} ms a "
+                f"call)" for m, (n, s, _) in spent.items()))
+        pick = np.random.default_rng(SEED + 1100).choice(
+            landed, RESHARD_CHECKS, replace=False)
+        reqs = [RateLimitReq(name="rs", unique_key=f"u{i}", hits=1,
+                             limit=100, duration=3_600_000,
+                             algorithm=int(leaky[i]),
+                             burst=100 if leaky[i] else 0)
+                for i in pick.tolist()]
+        payload = pb.GetRateLimitsReq(requests=[pb.RateLimitReq(
+            name=r.name, unique_key=r.unique_key, hits=r.hits,
+            limit=r.limit, duration=r.duration, algorithm=int(r.algorithm),
+            burst=r.burst) for r in reqs]).SerializeToString()
+        torch.cuda.synchronize()
+        starts = [(clone_table(d.service.backend.table),
+                   clone_sketch(d.service.sketch_backend.state))
+                  for d in (d0, d1, d2)]
+        recs = [DispatchRecorder(d.service.backend, d.service.sketch_backend,
+                                 state) for d in (d0, d1, d2)]
+        serve_kernel.launches = cms_kernel.launches = 0
+        raw = c.run(send_sequential(d0.grpc_address, [payload]),
+                    timeout=300)[0]
+        require_launches("phase 13 (checks on moved keys)", k2=False)
+        err = 0.0
+        for rec, (t, sk) in zip(recs, starts):
+            rec.close()
+            err = max(err, rec.replay(dev, t, sk))
+        got = [(r.status, r.limit, r.remaining, r.reset_time, r.error)
+               for r in pb.GetRateLimitsResp.FromString(raw).responses]
+        want = [None] * len(reqs)
+        clock = Clock()
+        clock.freeze(T0_NS)
+        for i in (0, 1):
+            sel = [j for j, u in enumerate(pick.tolist()) if owner[u] == i]
+            if not sel:
+                continue
+            cpu = TorchBackend(DeviceConfig(
+                num_slots=DAEMON_SLOTS, ways=WAYS, batch_size=BATCH,
+                platform="cpu"), clock=clock)
+            cpu._install_table(pre[i])
+            for j, r in zip(sel, cpu.check([reqs[j] for j in sel])):
+                want[j] = (int(r.status), r.limit, r.remaining, r.reset_time,
+                           r.error)
+            del cpu
+        if got != want:
+            diff = sum(a != b for a, b in zip(got, want))
+            raise AssertionError(f"{diff} of {len(reqs)} checks on moved "
+                                 "keys differ from the plain step on the "
+                                 "old owner's pre-remap rows")
+        end = state.counts()
+        STATE_PATHS["reshard"] = {k: end[k] - at_start[k] for k in STATE_OPS}
+        log(f"phase 13: {RESHARD_CHECKS} checks on moved keys through node "
+            f"0 after cutover answer as the plain step on CPU copies of the "
+            f"old owners' pre-remap rows; {sum(len(r.k1) for r in recs)} K1 "
+            f"dispatches replayed bit-exact")
+    finally:
+        c.stop()
+    state.replay("phase 13 (reshard)")
+    return err
+
+
+STATE_OP_SOURCES = {
+    "load_rows": ("gubernator_tpu_torch/ops/step.py",
+                  "gubernator_tpu/ops/step.py:511"),
+    "probe_batch": ("gubernator_tpu_torch/ops/step.py",
+                    "gubernator_tpu/ops/step.py:549"),
+    "gather_rows": ("gubernator_tpu_torch/ops/step.py",
+                    "gubernator_tpu/ops/step.py:587"),
+    "migrate_extract": ("gubernator_tpu_torch/ops/state.py",
+                        "gubernator_tpu/ops/state.py:104"),
+    "migrate_inject": ("gubernator_tpu_torch/ops/state.py",
+                       "gubernator_tpu/ops/state.py:164"),
+    "demote_extract": ("gubernator_tpu_torch/ops/state.py",
+                       "gubernator_tpu/ops/state.py:261"),
+    "table_stats": ("gubernator_tpu_torch/ops/state.py",
+                    "gubernator_tpu/ops/state.py:373"),
+}
+STATE_PATHS = {}  # phase -> {op: launches in that phase's run}
+
+
+def state_ops_line(times):
+    """The state-plane ops' JSON: torch ops on the card, no hand kernel.
+    Fails if a path launched none of an op it runs."""
+    for path, need in STATE_PATH_OPS.items():
+        missing = [n for n in need if not STATE_PATHS.get(path, {}).get(n)]
+        if missing:
+            raise AssertionError(f"{path}: no launch of {missing}")
+    out = []
+    for n in STATE_OPS:
+        src, rep = STATE_OP_SOURCES[n]
+        t = times.get(n, {})
+        out.append({"name": n, "route": "torch", "source": src,
+                    "replaces": rep,
+                    "launches": {p: v.get(n, 0)
+                                 for p, v in STATE_PATHS.items()},
+                    "ms": t.get("ms"), "bound_ms": t.get("bound_ms"),
+                    "bound_by": "bytes", "shape": t.get("shape")})
+    return {"state_ops": out}
+
+
 def main() -> int:
     import torch
 
@@ -1407,14 +2485,22 @@ def main() -> int:
     k1 = k1_path(dev, name, smi)
     k2 = k2_path(dev, name, smi)
     clock_mod.freeze(T0_NS)  # the daemons' clock, frozen
-    derr = max(daemon_path(dev, smi), cluster_path(dev, smi))
+    state, times = StateOpRecorder(), {}
+    derr = max(daemon_path(dev, smi, phase10_state(state, dev, name, smi,
+                                                   times)),
+               cluster_path(dev, smi))
+    derr = max(derr, phase_store(dev, smi, state),
+               phase_reshard(dev, smi, state))
+    state.close()
     k1["max_abs_err"] = max(k1["max_abs_err"], derr)
     k2["max_abs_err"] = max(k2["max_abs_err"], derr)
-    log(json.dumps({"kernels": [k1, k2]}))
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
+    # The result lines carry no time prefix: they are parsed as JSON.
+    print(json.dumps(state_ops_line(times)), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

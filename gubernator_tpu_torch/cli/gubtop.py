@@ -1,0 +1,278 @@
+"""gubtop: the cluster-wide gubstat console (docs/observability.md).
+
+Usage:
+    python -m gubernator_tpu_torch.cli.gubtop HOST:PORT [HOST:PORT ...]
+    python -m gubernator_tpu_torch.cli.gubtop --watch 2 10.0.0.1:1050 10.0.0.2:1050
+    python -m gubernator_tpu_torch.cli.gubtop --json localhost:1050
+
+Scrapes every peer's /debug/vars (and derives SLO pressure from its
+flightrec block) over plain HTTP — stdlib urllib only, so it runs from
+any operator box without the package's server dependencies.  One-shot
+by default; `--watch N` refreshes every N seconds; `--json` emits the
+raw merged scrape for scripting.
+
+Per node: table occupancy (live/expired split and per-shard skew),
+rounds-per-dispatch (the megaround amortization factor), rolling
+p50/p99 vs the SLO target with the pressure flag, breaker/degraded/
+reshard state, and the shadow-plane census.  Cluster-wide: the merged
+top-K tenants by hits with per-plane over-admission.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+from typing import Dict, List, Optional
+
+
+def scrape(addr: str, timeout: float = 3.0) -> Dict:
+    """One node's /debug/vars, or {"error": ...} when unreachable."""
+    url = f"http://{addr}/debug/vars"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        return {"error": str(e)}
+
+
+def _node_lines(addr: str, v: Dict) -> List[str]:
+    if "error" in v:
+        return [f"{addr:<22} UNREACHABLE: {v['error']}"]
+    be = v.get("backend", {})
+    table = v.get("table", {})
+    fp = v.get("fastpath", {})
+    fr = v.get("flightrec", {})
+    occ = table.get("occupancy", be.get("occupancy", 0))
+    live = table.get("live")
+    expired = table.get("expired_resident")
+    occ_s = f"occ={occ}"
+    if live is not None:
+        occ_s += f" (live={live} expired={expired})"
+    shards = table.get("per_shard_occupancy") or be.get("shard_occupancy")
+    if shards and len(shards) > 1:
+        occ_s += " shards=" + "/".join(str(s) for s in shards)
+    ring = fp.get("ring") or {}
+    rpd = ring.get("rounds_per_dispatch", v.get("rounds_per_dispatch"))
+    rpd_s = f" r/d={rpd:.2f}" if isinstance(rpd, (int, float)) else ""
+    slo = ""
+    if fr:
+        slo = " p50=%.2fms p99=%.2fms" % (
+            fr.get("last_p50_ms", 0.0), fr.get("last_p99_ms", 0.0),
+        )
+        if fr.get("breaches"):
+            slo += " breaches=%d" % fr["breaches"]
+    open_circuits = [
+        a for a, c in (v.get("circuits") or {}).items()
+        if c.get("state") not in (0, "closed", None)
+    ]
+    flags = []
+    if open_circuits:
+        flags.append("CIRCUIT[%s]" % ",".join(open_circuits))
+    deg = v.get("degraded", {})
+    if deg.get("served"):
+        flags.append("degraded=%d" % deg["served"])
+    rs = v.get("reshard", {})
+    active = rs.get("outbound") or rs.get("inbound")
+    if active:
+        flags.append("RESHARD")
+    hk = v.get("hotkeys", {})
+    if hk.get("shed", {}).get("served"):
+        flags.append("shed=%d" % hk["shed"]["served"])
+    lines = [
+        "%-22s checks=%-10s %s%s%s %s" % (
+            addr, be.get("checks", 0), occ_s, rpd_s, slo,
+            " ".join(flags),
+        )
+    ]
+    shadow = table.get("shadow_slots")
+    if shadow and any(shadow.values()):
+        lines.append(
+            "    shadow: " + "  ".join(
+                f"{k}={n}" for k, n in shadow.items() if n
+            )
+        )
+    tier = v.get("tier")
+    if tier:
+        lat = tier.get("promote_latency") or {}
+        p99 = lat.get("p99_s")
+        p99_s = (
+            " promote_p99=%.2fms" % (p99 * 1e3)
+            if isinstance(p99, (int, float)) and p99 > 0 else ""
+        )
+        drops = tier.get("capacity_drops", 0)
+        lines.append(
+            "    tier: cold=%d/%d hits=%d promotes=%d demotes=%d%s%s"
+            % (
+                tier.get("cold_residents", 0),
+                tier.get("cold_capacity", 0),
+                tier.get("cold_hits", 0),
+                tier.get("promotes", 0),
+                tier.get("demotes", 0),
+                p99_s,
+                f" DROPS={drops}" if drops else "",
+            )
+        )
+    region = v.get("region")
+    if region:
+        # The region carve plane (docs/multiregion.md): drift is the
+        # un-reconciled burn backlog toward every home region; any
+        # non-remote link is a WAN incident in progress.
+        links = region.get("links") or {}
+        bad = [
+            f"{rg}:{lk.get('state')}" for rg, lk in sorted(links.items())
+            if lk.get("state") != "remote"
+        ]
+        dropped = region.get("reconcile_dropped", 0)
+        lines.append(
+            "    region: %s drift=%d carves=%d rehomes=%d%s%s" % (
+                region.get("name", "?"),
+                region.get("drift", 0),
+                region.get("carve_served", 0),
+                region.get("rehomes", 0),
+                f" dropped={dropped}" if dropped else "",
+                " DEGRADED[%s]" % ",".join(bad) if bad else "",
+            )
+        )
+    load = v.get("load")
+    if load:
+        # A gubload scenario phase is driving this node right now —
+        # the operator can tie any latency blip to its phase.
+        since = load.get("since")
+        age_s = (
+            " t+%.1fs" % (time.time() - since)
+            if isinstance(since, (int, float)) else ""
+        )
+        lines.append(
+            "    load: scenario=%s phase=%s seq=%s%s" % (
+                load.get("scenario", "?"), load.get("phase", "?"),
+                load.get("seq", "?"), age_s,
+            )
+        )
+    return lines
+
+
+def _merge_tenants(scrapes: Dict[str, Dict], k: int) -> List[Dict]:
+    """Cluster-wide tenant view: sum each node's local ledger (local
+    serves only per node, so the sum is exact — no double counting)."""
+    merged: Dict[str, Dict] = {}
+    for v in scrapes.values():
+        for t in (v.get("tenants") or {}).get("top", []):
+            m = merged.setdefault(
+                t["name"],
+                {"name": t["name"], "allowed": 0, "denied": 0,
+                 "shed": 0, "over_admitted": {}},
+            )
+            for f in ("allowed", "denied", "shed"):
+                m[f] += t.get(f, 0)
+            for plane, n in (t.get("over_admitted") or {}).items():
+                m["over_admitted"][plane] = (
+                    m["over_admitted"].get(plane, 0) + n
+                )
+    ranked = sorted(
+        merged.values(),
+        key=lambda t: t["allowed"] + t["denied"] + t["shed"],
+        reverse=True,
+    )
+    return ranked[:k]
+
+
+def render(addrs: List[str], top_k: int = 10) -> str:
+    scrapes = {a: scrape(a) for a in addrs}
+    out = [
+        "gubtop — %d node(s) @ %s" % (
+            len(addrs), time.strftime("%H:%M:%S"),
+        )
+    ]
+    for a in addrs:
+        out.extend(_node_lines(a, scrapes[a]))
+    tenants = _merge_tenants(scrapes, top_k)
+    if tenants:
+        out.append("top tenants (cluster-wide hits):")
+        out.append(
+            "    %-28s %10s %10s %8s  %s" % (
+                "name", "allowed", "denied", "shed", "over-admitted"
+            )
+        )
+        for t in tenants:
+            over = " ".join(
+                f"{p}={n}" for p, n in sorted(t["over_admitted"].items())
+            )
+            out.append(
+                "    %-28s %10d %10d %8d  %s" % (
+                    t["name"][:28], t["allowed"], t["denied"],
+                    t["shed"], over,
+                )
+            )
+    return "\n".join(out)
+
+
+def peek_key(addr: str, name: str, key: str) -> Dict:
+    """One /debug/key round-trip (owner-routed by the serving node)."""
+    qs = urllib.parse.urlencode({"name": name, "key": key})
+    url = f"http://{addr}/debug/key?{qs}"
+    with urllib.request.urlopen(url, timeout=5) as resp:
+        return json.loads(resp.read().decode("utf-8"))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m gubernator_tpu_torch.cli.gubtop",
+        description="Cluster-wide gubstat console over /debug/vars.",
+    )
+    ap.add_argument(
+        "addrs", nargs="+", metavar="HOST:PORT",
+        help="HTTP listener address of each node",
+    )
+    ap.add_argument(
+        "--watch", type=float, default=0.0, metavar="SECS",
+        help="refresh every SECS seconds (default: one shot)",
+    )
+    ap.add_argument(
+        "--json", action="store_true",
+        help="emit the raw merged scrape as JSON",
+    )
+    ap.add_argument(
+        "--top", type=int, default=10,
+        help="tenants to show in the cluster view (default 10)",
+    )
+    ap.add_argument(
+        "--key", default="", metavar="NAME/KEY",
+        help="inspect one key instead: NAME/UNIQUE_KEY via /debug/key",
+    )
+    args = ap.parse_args(argv)
+    if args.key:
+        name, _, key = args.key.partition("/")
+        try:
+            print(json.dumps(
+                peek_key(args.addrs[0], name, key), indent=2,
+            ))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            print(f"peek failed: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if args.json:
+        print(json.dumps(
+            {a: scrape(a) for a in args.addrs}, indent=2,
+        ))
+        return 0
+    if args.watch <= 0:
+        print(render(args.addrs, args.top))
+        return 0
+    try:
+        while True:
+            # ANSI clear + home, like top(1).
+            sys.stdout.write("\x1b[2J\x1b[H")
+            print(render(args.addrs, args.top))
+            sys.stdout.flush()
+            time.sleep(args.watch)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

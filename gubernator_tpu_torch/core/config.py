@@ -1,9 +1,10 @@
 """Configuration system.
 
-The planes' configs (hotkey, lease, reshard, region, stats, tier) are kept
-as data so the GUBER_* surface parses as it does for the JAX package, but
-each plane is off by default here and the service refuses to start with
-one armed: none is ported yet (ROADMAP.md, "What the daemon still lacks").
+The planes' configs parse the GUBER_* surface as the JAX package does.
+The reshard and gubstat planes are on by default and the cold tier off, as
+there; the hot-key, lease and region planes are kept as data but off by
+default here, and the service refuses to start with one armed: they are not
+ported yet (ROADMAP.md, "What the daemon still lacks").
 
 Mirrors the reference's struct + `GUBER_*` env-var config (config.go:44-459,
 example.conf), extended with the engine's own knobs (slot-table geometry, batch
@@ -343,7 +344,7 @@ class ReshardConfig:
     authoritative row at cutover (counters conserved, never inflated).
     """
 
-    enabled: bool = False
+    enabled: bool = True
     # Fraction of the limit the NEW owner may admit from the local
     # handoff shadow while a covered key's row is in flight.
     handoff_fraction: float = 0.25
@@ -383,7 +384,7 @@ def reshard_config_from_env() -> ReshardConfig:
     startup instead of crashing a constructor later."""
     try:
         return ReshardConfig(
-            enabled=_env("GUBER_RESHARD_ENABLED", "false").lower()
+            enabled=_env("GUBER_RESHARD_ENABLED", "true").lower()
             not in ("0", "false", "no"),
             handoff_fraction=float(
                 _env("GUBER_RESHARD_FRACTION", "0.25")
@@ -537,7 +538,7 @@ class StatsConfig:
     /debug/key inspection route (it decodes live counter state, which
     an operator may prefer to keep off an exposed debug port)."""
 
-    enabled: bool = False
+    enabled: bool = True
     # Census cadence in seconds.
     interval_s: float = 5.0
     # Tenants surfaced in /debug/vars, /metrics, and gubtop.
@@ -562,7 +563,7 @@ def stats_config_from_env() -> StatsConfig:
     startup instead of crashing a constructor later."""
     try:
         return StatsConfig(
-            enabled=_env("GUBER_STATS_ENABLED", "false").lower()
+            enabled=_env("GUBER_STATS_ENABLED", "true").lower()
             not in ("0", "false", "no"),
             interval_s=_env_float_s("GUBER_STATS_INTERVAL", 5.0),
             top_k=_env_int("GUBER_STATS_TOP_K", 16),

@@ -7,10 +7,11 @@ endpoint, the discovery pool, and readiness gating — all on one asyncio
 loop, so many daemons can share a process (the in-process cluster fixture
 depends on this, cluster/cluster.go:111-146).
 
-The port's daemon serves what the JAX daemon serves with its planes off:
-discovery kinds other than none and static, the chaos plane, the gubstat
-census and key peek, and the cold tier raise a ValueError at construction
-(the service refuses the other planes and Store/Loader).
+The port's daemon serves the JAX daemon's state plane: a Store and Loader,
+resharding with drain on close, the gubstat census, tenant ledger and key
+peek, and the cold tier.  Discovery kinds other than none and static and the
+chaos plane raise a ValueError at construction (the service refuses the
+hot-key, lease and region planes).
 """
 from __future__ import annotations
 
@@ -291,11 +292,6 @@ def refuse_unported_daemon(conf: DaemonConfig) -> None:
             "the chaos plane is not ported (ROADMAP, \"What the daemon "
             "still lacks\": chaos)"
         )
-    if conf.reshard_drain_on_close:
-        raise ValueError(
-            "reshard_drain_on_close: resharding is not ported yet (ROADMAP "
-            "queue 1 item 7, the state-plane kernels and their host planes)"
-        )
 
 
 class Daemon:
@@ -343,6 +339,14 @@ class Daemon:
                     pass  # another daemon in this process registered them
         self.service: Optional[Service] = None
         self.fastpath = None
+        # Gubstat census sampler (runtime/gubstat.py): armed in start()
+        # per GUBER_STATS_ENABLED, closed before the fast lane (its ring
+        # host jobs need the runner alive).
+        self.stats_sampler = None
+        # The cold tier's manager (runtime/coldtier.py): armed in start()
+        # per GUBER_TIER_ENABLED, closed before the fast lane (its promote
+        # jobs ride the ring's host-job lane).
+        self.tier = None
         self._grpc_server: Optional[grpc.aio.Server] = None
         self._grpc_tls_proxy = None  # net.tls.TLSTerminatingProxy
         self._grpc_backend_dir: Optional[str] = None
@@ -421,6 +425,38 @@ class Daemon:
             await asyncio.get_running_loop().run_in_executor(
                 None, self.fastpath._ring.warmup
             )
+        if cfg.stats.enabled:
+            # Gubstat census sampler: a periodic table_stats census off the
+            # request path (docs/observability.md).  Registered as a
+            # flight-recorder extra so breach dumps carry the last table
+            # block.
+            from gubernator_tpu_torch.runtime.gubstat import TableStatsSampler
+
+            self.stats_sampler = TableStatsSampler(
+                self.service,
+                fastpath=self.fastpath,
+                metrics=self.metrics,
+                interval_s=cfg.stats.interval_s,
+            )
+            self.stats_sampler.start()
+            if self.flightrec is not None:
+                self.flightrec.extras["table"] = (
+                    lambda: self.stats_sampler.last
+                )
+        if cfg.tier.enabled:
+            # The cold tier (docs/tiering.md): host-RAM rows under the
+            # device table, promote-on-access through the ring's host-job
+            # lane, watermark demotion on its own worker thread.
+            from gubernator_tpu_torch.runtime.coldtier import TierManager
+
+            self.tier = TierManager(
+                self.service,
+                cfg.tier,
+                fastpath=self.fastpath,
+                metrics=self.metrics,
+            )
+            self.service.tier = self.tier
+            self.tier.start()
         # gRPC server (daemon.go:101-126): both services on one listener.
         # 4MB recv cap: grpc-go's default, which reference peers assume.
         # Count-capped peer batches (batch_limit=1000) with long key strings
@@ -505,10 +541,26 @@ class Daemon:
             self.grpc_address, self.http_address,
         )
 
+    async def drain(self) -> int:
+        """Graceful scale-down (docs/resharding.md): migrate every owned
+        row to the ring without this node while all listeners stay up (the
+        autoscaler's preStop/SIGTERM hook).  Call before close(); returns
+        rows shipped."""
+        if self.service is None:
+            return 0
+        return await self.service.drain_for_shutdown()
+
     async def close(self) -> None:
         # Order: stop taking traffic (discovery, then listeners with a
         # drain grace) BEFORE tearing down the service — late requests must
         # drain, not crash into a closed device executor.
+        if getattr(self.conf, "reshard_drain_on_close", False):
+            # Migrate owned rows out while the listeners still serve
+            # (peers keep forwarding through the handoff window).
+            try:
+                await self.drain()
+            except Exception as e:  # noqa: BLE001 — close must proceed
+                log.warning("drain on close failed: %s", e)
         if self._peer_update_task is not None:
             self._peer_update_task.cancel()
             await asyncio.gather(
@@ -538,6 +590,18 @@ class Daemon:
         if self._http_runner is not None:
             await self._http_runner.cleanup()
             self._http_runner = None
+        if self.stats_sampler is not None:
+            # Before the fast lane: an in-flight sample may hold a ring
+            # host job that needs the runner to drain it.
+            await self.stats_sampler.close()
+            self.stats_sampler = None
+        if self.tier is not None:
+            # Same ordering rule: the tier worker's promote/demote jobs
+            # ride the ring host-job lane.
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.tier.close
+            )
+            self.tier = None
         if self.fastpath is not None:
             await self.fastpath.close()
             self.fastpath = None
@@ -554,6 +618,7 @@ class Daemon:
         app.router.add_get("/metrics", self._http_metrics)
         app.router.add_get("/debug/flightrec", self._http_flightrec)
         app.router.add_get("/debug/vars", self._http_vars)
+        app.router.add_get("/debug/key", self._http_debug_key)
         runner = web.AppRunner(app, access_log=None)
         await runner.setup()
         host, _, port = self.conf.http_listen_address.rpartition(":")
@@ -637,6 +702,10 @@ class Daemon:
                     self.metrics.circuit_state.labels(
                         peerAddr=peer.info().grpc_address
                     ).set(int(peer.breaker.state))
+            # Gubstat top-K tenant gauges, refreshed at scrape (the table
+            # census gauges refresh on the sampler's own cadence).
+            if self.service.tenants is not None:
+                self.service.tenants.publish(self.metrics)
         # Tracing span counters (runtime/tracing.py is process-global;
         # refreshed at scrape like the device gauges above).
         tv = tracing.debug_vars()
@@ -719,6 +788,24 @@ class Daemon:
                     addr: len(keys) for addr, keys in s._shadow.items()
                 },
             }
+            if s.reshard is not None:
+                # Live resharding (docs/resharding.md): per-peer handoff
+                # phases, row counters, shadow burns.
+                out["reshard"] = {
+                    **s.reshard.debug_vars(),
+                    "peer_updates_applied": self.peer_updates_applied,
+                }
+        if s is not None and s.tenants is not None:
+            # Gubstat per-tenant admission ledger (docs/observability.md).
+            out["tenants"] = s.tenants.debug_vars()
+        if self.stats_sampler is not None:
+            # Gubstat device-table census: the last sampled table block
+            # plus sampler health.
+            out["table"] = self.stats_sampler.debug_vars()
+        if self.tier is not None:
+            # The cold tier's ledger (docs/tiering.md): cold residents,
+            # promote/demote/cold-hit totals, promote latency histogram.
+            out["tier"] = self.tier.debug_vars()
         fp = self.fastpath
         if fp is not None:
             # Per-lane drain/pipeline counters (drains, overlap_drains,
@@ -739,6 +826,120 @@ class Daemon:
                 "last_dump_path": fr.last_dump_path,
             }
         return web.json_response(out)
+
+    @staticmethod
+    def _cache_item_json(item) -> Optional[dict]:
+        """Decoded host view of one slot-table row (CacheItem)."""
+        if item is None:
+            return None
+        out = {
+            "key": item.key,
+            "algorithm": int(item.algorithm),
+            "limit": int(item.limit),
+            "duration": int(item.duration),
+            "remaining": float(item.remaining),
+            "created_at": int(item.created_at),
+            "status": int(item.status),
+            "burst": int(item.burst),
+            "expire_at": int(item.expire_at),
+        }
+        if item.cached_resp is not None:
+            cr = item.cached_resp
+            out["cached_resp"] = {
+                "status": int(cr.status),
+                "limit": int(cr.limit),
+                "remaining": int(cr.remaining),
+                "reset_time": int(cr.reset_time),
+            }
+        return out
+
+    async def _http_debug_key(self, request: web.Request):
+        """Gubstat key inspection (docs/observability.md): the decoded live
+        row for `?name=...&key=...` plus its shadow-plane siblings.
+        READ-ONLY (the backend's point read of one bucket; no hits
+        applied) and owner-routed: a non-owner proxies to the owner's HTTP
+        listener, so any node answers for any key.  Gated by
+        GUBER_STATS_PEEK (row contents are operator data)."""
+        from gubernator_tpu_torch.ops.state import SHADOW_PLANES
+        from gubernator_tpu_torch.runtime.gubstat import PLANE_LABELS
+
+        s = self.service
+        if s is None:
+            return web.json_response({"error": "not started"}, status=503)
+        if not (s.cfg.stats.enabled and s.cfg.stats.peek):
+            return web.json_response(
+                {"error": "key peek disabled",
+                 "hint": "set GUBER_STATS_PEEK=1"},
+                status=403,
+            )
+        name = request.query.get("name", "")
+        key = request.query.get("key", "")
+        if not name:
+            return web.json_response({"error": "missing name"}, status=400)
+        hash_key = name + "_" + key
+        owner_addr = ""
+        if not s._owns_key(hash_key):
+            try:
+                info = s.get_peer(hash_key).info()
+            except Exception:
+                info = None
+            if info is not None:
+                owner_addr = info.grpc_address
+                if (
+                    info.http_address
+                    and request.query.get("noproxy", "") != "1"
+                ):
+                    # Route to the owner (one hop: the owner serves with
+                    # noproxy so a stale ring can't loop).
+                    import aiohttp
+
+                    scheme = "https" if self.tls is not None else "http"
+                    url = f"{scheme}://{info.http_address}/debug/key"
+                    ssl_ctx = (
+                        self.tls.client_ssl_context()
+                        if self.tls is not None
+                        else None
+                    )
+                    try:
+                        async with aiohttp.ClientSession() as sess:
+                            async with sess.get(
+                                url,
+                                params={
+                                    "name": name, "key": key,
+                                    "noproxy": "1",
+                                },
+                                ssl=ssl_ctx,
+                                timeout=aiohttp.ClientTimeout(total=5),
+                            ) as resp:
+                                body = await resp.json()
+                                body["proxied_via"] = self.http_address
+                                return web.json_response(
+                                    body, status=resp.status
+                                )
+                    except Exception as e:  # owner answers unreachable
+                        return web.json_response(
+                            {"error": f"owner proxy failed: {e}",
+                             "owner": owner_addr},
+                            status=502,
+                        )
+        be = s.backend
+        loop = asyncio.get_running_loop()
+        row = self._cache_item_json(await loop.run_in_executor(
+            None, be.get_cache_item, hash_key))
+        shadows = {}
+        for suffix, label in zip(SHADOW_PLANES, PLANE_LABELS):
+            shadows[label] = self._cache_item_json(await loop.run_in_executor(
+                None, be.get_cache_item, hash_key + suffix))
+        return web.json_response({
+            "name": name,
+            "key": key,
+            "hash_key": hash_key,
+            "served_by": self.grpc_address,
+            "owner": owner_addr or self.grpc_address,
+            "found": row is not None,
+            "row": row,
+            "shadows": shadows,
+        })
 
     # -- peers / discovery ----------------------------------------------
     def advertise_address(self) -> str:

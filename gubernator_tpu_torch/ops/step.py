@@ -129,6 +129,25 @@ def _sat_sub_i64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a - torch.minimum(torch.maximum(b, b_lo), b_hi)
 
 
+def _device_i64(x, dev) -> torch.Tensor:
+    """A 0-d int64 tensor of `x` on `dev`: a fill on the device for a host
+    number (torch.as_tensor would copy it over and wait for the stream)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.int64)
+    return torch.full((), int(x), dtype=torch.int64, device=dev)
+
+
+def _isin(x: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+    """torch.isin(x, pool) for int64 tensors, by a sort of `pool` and a
+    binary search: the same mask, with no host sync (torch.isin's sort
+    path waits on the host for two torch.unique calls)."""
+    if pool.numel() == 0:
+        return torch.zeros_like(x, dtype=torch.bool)
+    srt = torch.sort(pool).values
+    pos = torch.searchsorted(srt, x).clamp_(max=srt.numel() - 1)
+    return srt[pos] == x
+
+
 def _first_claim(tgt: torch.Tensor, attempt: torch.Tensor) -> torch.Tensor:
     """Of all lanes attempting the same target slot, the lowest lane wins
     (stable sort: equal slots keep lane order).  Returns bool[B]."""
@@ -196,7 +215,7 @@ def locate_slots(
             torch.where(found, match_slot, -1),
             torch.where(won, insert_slot, -1),
         ])
-        blocked = torch.isin(sidx, reserved)
+        blocked = _isin(sidx, reserved)
         vs = torch.where(blocked, inf, vscore)
         vmin = vs.min(dim=1).values
         vslot = bucket * ways + torch.argmin(vs, dim=1)
@@ -430,6 +449,139 @@ def apply_batch_packed_q(
     return table, pack_resp(r)
 
 
+def _put_rows(table: SlotTable, do_write: torch.Tensor, slot: torch.Tensor,
+              cols) -> None:
+    """Scatter lane values into the table at `slot` for `do_write` lanes
+    (the JAX forms' scatter with mode="drop" for the other lanes).
+    `cols` maps column name -> per-lane tensor, 0-d tensor or number.
+    The lanes are listed once (one host sync), and every column gathers
+    its values by that list."""
+    idx = do_write.nonzero().squeeze(1)
+    tgt = slot[idx]
+    for f, val in cols.items():
+        col = getattr(table, f)
+        if isinstance(val, torch.Tensor) and val.dim() > 0:
+            val = val[idx]
+        col[tgt] = val.to(col.dtype) if isinstance(val, torch.Tensor) else val
+
+
+class BucketRows(NamedTuple):
+    """A batch of full bucket rows for bulk upsert: the device side of the
+    Loader restore stream (workers.go:340-426), of Store.Get seeding
+    (algorithms.go:45-51) and of a migrated row's landing.  key_hash 0 =
+    inactive lane."""
+
+    key_hash: torch.Tensor     # int64[B]
+    algo: torch.Tensor         # int32[B]
+    limit: torch.Tensor        # int64[B]
+    duration: torch.Tensor     # int64[B]
+    remaining: torch.Tensor    # int64[B]
+    remaining_f: torch.Tensor  # float64[B]
+    t0: torch.Tensor           # int64[B]
+    status: torch.Tensor       # int32[B]
+    burst: torch.Tensor        # int64[B]
+    expire_at: torch.Tensor    # int64[B]
+
+
+def load_rows(
+    table: SlotTable,
+    rows: BucketRows,
+    now,
+    ways: int = 8,
+) -> SlotTable:
+    """Upsert full KIND_BUCKET rows, updating the table in place and
+    returning it.  Keys unique within the batch.  A lane that claims no
+    slot (a fourth same-bucket contender past INSERT_ROUNDS, or a full
+    bucket of live rows already claimed this batch) is dropped, as the
+    JAX form's scatter with mode="drop" drops it."""
+    h = rows.key_hash
+    now = _device_i64(now, h.device)
+    active = h != 0
+    _, persist, slot, _ = locate_slots(table, h, active, now, ways)
+    _put_rows(table, persist & active, slot, {
+        "key": h,
+        "algo": rows.algo,
+        "kind": KIND_BUCKET,
+        "limit": rows.limit,
+        "duration": rows.duration,
+        "remaining": rows.remaining,
+        "remaining_f": rows.remaining_f,
+        "t0": rows.t0,
+        "status": rows.status,
+        "burst": rows.burst,
+        "expire_at": rows.expire_at,
+        "touched": now,
+    })
+    return table
+
+
+def probe_batch(
+    table: SlotTable,
+    h: torch.Tensor,
+    now,
+    ways: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Read-only batched lookup: (found bool[B], slot int64[B], 0 where not
+    found).  The batched analog of a cache-miss test
+    (lrucache.go:111-127): Store seeding asks which keys are resident, and
+    write-through reads back written rows.  The first matching way wins
+    (argmax over an integer cast of the match mask; torch's argmax takes
+    the first maximum, as jnp.argmax does)."""
+    S = table.key.shape[0]
+    nb = S // ways
+    bucket = h & (nb - 1)
+    sidx = bucket[:, None] * ways + torch.arange(ways, device=h.device)[None, :]
+    match = (
+        (table.key[sidx] == h[:, None])
+        & (h[:, None] != 0)
+        & (table.expire_at[sidx] > now)
+    )
+    found = match.any(dim=1)
+    slot = bucket * ways + torch.argmax(match.to(torch.int32), dim=1)
+    return found, torch.where(found, slot, 0)
+
+
+# Row order of gather_rows' packed int output; remaining_f travels as a
+# separate float64 column (the JAX package's wire shape).
+GATHER_ROW_FIELDS = (
+    "found", "kind", "algo", "limit", "duration", "remaining",
+    "t0", "status", "burst", "expire_at",
+)
+
+
+def _pack_row_fields(first: torch.Tensor, table: SlotTable,
+                     src: torch.Tensor) -> torch.Tensor:
+    """int64[10, B]: `first` then the nine row fields of GATHER_ROW_FIELDS
+    read at `src`."""
+    return torch.stack([
+        first.to(torch.int64),
+        table.kind[src].to(torch.int64),
+        table.algo[src].to(torch.int64),
+        table.limit[src],
+        table.duration[src],
+        table.remaining[src],
+        table.t0[src],
+        table.status[src].to(torch.int64),
+        table.burst[src],
+        table.expire_at[src],
+    ])
+
+
+def gather_rows(
+    table: SlotTable,
+    h: torch.Tensor,
+    now,
+    ways: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Columnar row read-back: probe + gather every CacheItem field for a
+    hash batch as (int64[10, B] in GATHER_ROW_FIELDS order, float64[B]
+    remaining_f).  Both are fresh tensors, so a fetch of them queued right
+    after this call reads this table version whatever runs later.  h = 0
+    lanes read as not found (their other fields are slot 0's)."""
+    found, slot = probe_batch(table, h, now, ways)
+    return _pack_row_fields(found, table, slot), table.remaining_f[slot]
+
+
 class CachedRows(NamedTuple):
     """A batch of owner-broadcast statuses (UpdatePeerGlobal rows,
     peers.proto:52-56): key fingerprint + the authoritative RateLimitResp."""
@@ -456,27 +608,21 @@ def store_cached_rows(
     Keys must be unique within the batch.  Lanes that claim no slot are
     dropped, as the JAX form's scatter with mode="drop" drops them."""
     h = rows.key_hash
-    now = torch.as_tensor(now, dtype=torch.int64, device=h.device)
+    now = _device_i64(now, h.device)
     active = h != 0
     _, persist, slot, _ = locate_slots(table, h, active, now, ways)
-    do_write = persist & active
-    tgt = slot[do_write]
-
-    def put(col: torch.Tensor, val) -> None:
-        val = torch.as_tensor(val, device=h.device)
-        val = val.expand(do_write.shape) if val.dim() == 0 else val
-        col[tgt] = val[do_write].to(col.dtype)
-
-    put(table.key, h)
-    put(table.algo, rows.algo)
-    put(table.kind, KIND_CACHED_RESP)
-    put(table.limit, rows.limit)
-    put(table.duration, 0)
-    put(table.remaining, rows.remaining)
-    put(table.remaining_f, 0.0)
-    put(table.t0, 0)
-    put(table.status, rows.status)
-    put(table.burst, 0)
-    put(table.expire_at, rows.reset_time)
-    put(table.touched, now)
+    _put_rows(table, persist & active, slot, {
+        "key": h,
+        "algo": rows.algo,
+        "kind": KIND_CACHED_RESP,
+        "limit": rows.limit,
+        "duration": 0,
+        "remaining": rows.remaining,
+        "remaining_f": 0.0,
+        "t0": 0,
+        "status": rows.status,
+        "burst": 0,
+        "expire_at": rows.reset_time,
+        "touched": now,
+    })
     return table

@@ -38,8 +38,14 @@ import torch
 
 from gubernator_tpu_torch.core import clock as clock_mod
 from gubernator_tpu_torch.core.config import DeviceConfig
-from gubernator_tpu_torch.core.hashing import bulk_key_hash64
-from gubernator_tpu_torch.core.types import RateLimitReq, RateLimitResp, Status
+from gubernator_tpu_torch.core.hashing import bulk_key_hash64, key_hash64
+from gubernator_tpu_torch.core.types import (
+    Algorithm,
+    CacheItem,
+    RateLimitReq,
+    RateLimitResp,
+    Status,
+)
 from gubernator_tpu_torch.ops.batch import DeviceBatch, pack_batch_q, pack_requests
 from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.ops.kernels.serve_kernel import (
@@ -47,12 +53,27 @@ from gubernator_tpu_torch.ops.kernels.serve_kernel import (
     persistent_serve_step,
 )
 from gubernator_tpu_torch.ops.state import (
+    COLUMN_DTYPES,
+    KIND_CACHED_RESP,
     SlotTable,
+    TableStats,
+    demote_extract,
     init_table,
+    migrate_extract,
+    migrate_inject,
     table_from_host,
-    table_to_host,
+    table_stats,
 )
-from gubernator_tpu_torch.ops.step import RESP_ROWS, CachedRows, store_cached_rows
+from gubernator_tpu_torch.ops.step import (
+    GATHER_ROW_FIELDS,
+    RESP_ROWS,
+    BucketRows,
+    CachedRows,
+    gather_rows,
+    load_rows,
+    probe_batch,
+    store_cached_rows,
+)
 
 
 def resolve_tiers(cfg: DeviceConfig) -> Tuple[int, ...]:
@@ -103,19 +124,29 @@ class PendingFetch:
     __slots__ = ("_host", "_event")
 
     def __init__(self, tensors: Sequence[torch.Tensor],
-                 stream: Optional["torch.cuda.Stream"]) -> None:
+                 stream: Optional["torch.cuda.Stream"],
+                 host: Optional[Sequence[torch.Tensor]] = None) -> None:
+        """`host`: preallocated host buffers (pinned on the card) to copy
+        into, so a caller holding a lock only queues the copies.  Without
+        it the CPU path keeps `tensors` themselves, which is right only
+        for fresh tensors (a dispatch's outputs), never for live table
+        columns."""
         self._event = None
-        if stream is None:
+        if host is not None:
+            for h, t in zip(host, tensors):
+                h.copy_(t, non_blocking=stream is not None)
+            self._host = list(host)
+        elif stream is None:
             self._host = list(tensors)
-            return
-        host = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        self._host = host
-        self._event = torch.cuda.Event()
-        self._event.record(stream)
+        else:
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+        if stream is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
 
     def wait(self) -> List[np.ndarray]:
         if self._event is not None:
@@ -196,7 +227,249 @@ def unmarshal_responses(
     return out, tally
 
 
-class TorchBackend:
+# Host dtypes of the BucketRows columns.
+_ROW_DTYPES = {f: np.int64 for f in BucketRows._fields}
+_ROW_DTYPES.update(algo=np.int32, status=np.int32, remaining_f=np.float64)
+
+
+def probe_bucket(
+    rows: Dict[str, np.ndarray],
+    ways: int,
+    key: str,
+    now: int,
+    include_cached: bool = True,
+) -> Optional[CacheItem]:
+    """The live item for `key` among one bucket's host rows, if any (the
+    WorkerPool.GetCacheItem analog, workers.go:614-646; expired rows read
+    as misses like lrucache.go:115-127).  With include_cached=False a
+    GLOBAL broadcast row (KIND_CACHED_RESP) reads as a miss."""
+    h = int(np.uint64(key_hash64(key)).view(np.int64))
+    for w in range(ways):
+        if rows["key"][w] == h and rows["expire_at"][w] > now:
+            if not include_cached and rows["kind"][w] == KIND_CACHED_RESP:
+                return None
+            return _row_to_item(rows, w, key)
+    return None
+
+
+def _row_to_item(snap: Dict[str, np.ndarray], s: int, key: str) -> CacheItem:
+    algo = Algorithm(int(snap["algo"][s]))
+    remaining: float
+    if algo == Algorithm.LEAKY_BUCKET:
+        remaining = float(snap["remaining_f"][s])
+    else:
+        remaining = int(snap["remaining"][s])
+    return CacheItem(
+        key=key,
+        algorithm=algo,
+        expire_at=int(snap["expire_at"][s]),
+        limit=int(snap["limit"][s]),
+        duration=int(snap["duration"][s]),
+        remaining=remaining,
+        created_at=int(snap["t0"][s]),
+        status=Status(int(snap["status"][s])),
+        burst=int(snap["burst"][s]),
+    )
+
+
+def _h64s(hashes: Sequence[int]) -> np.ndarray:
+    """Unsigned 64-bit key fingerprints -> the int64 view stored on device."""
+    return np.array(hashes, dtype=np.uint64).view(np.int64)
+
+
+def _u64(fp) -> int:
+    """int64 table fingerprint -> the unsigned int the keymap is keyed by."""
+    return int(np.int64(fp).view(np.uint64))
+
+
+class PersistenceHost:
+    """Host-side Store/Loader plumbing (the SPI semantics of
+    store.go:49-78 / workers.go:340-530), as in the JAX package.
+
+    The backend provides the device hooks `_found_mask(keys, hashes, now)`
+    (bool residency per unsigned hash; caller holds `_lock`),
+    `_bulk_upsert(rows, hashes, now)` (caller holds `_lock`),
+    `_read_items_locked(keys)`, `key_column()` and `snapshot()`, plus the
+    attributes `cfg`, `clock`, `store`, `_keymap` and `_lock`."""
+
+    def _maybe_prune_keymap(self) -> None:
+        """Bound the fingerprint->key map: the table holds at most
+        num_slots live rows, so once the map is 4x that, drop fingerprints
+        no longer resident.  The rebuild holds `_keymap_lock`: the object
+        path's executor, the fast-lane pool and the ring runner all write
+        the map concurrently."""
+        assert self._keymap is not None
+        if len(self._keymap) <= max(4 * self.cfg.num_slots, 65_536):
+            return
+        resident = set(self.key_column().view(np.uint64).tolist())
+        with self._keymap_lock:
+            self._keymap = {
+                fp: k for fp, k in self._keymap.items() if fp in resident
+            }
+
+    def _seed_from_store(self, reqs, packed, now: int) -> None:
+        """Consult Store.get for batch keys not resident on device and bulk
+        upsert the hits (the batched analog of algorithms.go:45-51).
+        Caller holds `_lock`."""
+        uniq: Dict[str, RateLimitReq] = {}
+        for i, r in enumerate(reqs):
+            if i not in packed.errors:
+                uniq.setdefault(r.hash_key(), r)
+        keys = list(uniq.keys())
+        if not keys:
+            return
+        hashes = [key_hash64(k) for k in keys]
+        found = self._found_mask(keys, hashes, now)
+        self._store_seed_misses(hashes, [uniq[k] for k in keys], found, now)
+
+    def _store_seed_misses(self, hashes, reqs, found, now: int):
+        """Store-consult core shared by the object path (probe-derived
+        `found`) and the fast lane's cold-key repair (the step's own
+        `found` column): Store.get for each miss, one bulk upsert of the
+        live items.  Caller holds `_lock`.  Returns the indices (into the
+        input lists) that were seeded."""
+        from gubernator_tpu_torch.runtime.store import item_to_row_fields
+
+        rows: List[dict] = []
+        row_hashes: List[int] = []
+        seeded: List[int] = []
+        for i, (h, r, f) in enumerate(zip(hashes, reqs, found)):
+            if f:
+                continue
+            item = self.store.get(r)
+            if item is None or item.is_expired(now):
+                continue
+            rows.append(item_to_row_fields(item))
+            row_hashes.append(h)
+            seeded.append(i)
+        if rows:
+            self._bulk_upsert(rows, row_hashes, now)
+        return seeded
+
+    def _init_write_through(self) -> None:
+        """Write-through delivery ordering + keymap-writer state."""
+        self._wt_seq = 0
+        self._wt_next = 0
+        self._wt_cond = threading.Condition()
+        self._keymap_lock = threading.Lock()
+
+    def _wt_ticket(self) -> int:
+        """Next write-through delivery ticket (caller holds `_lock`).
+        Tickets order Store.on_change delivery across concurrent batches:
+        without them a slower thread could deliver an OLDER captured state
+        after a newer one and the store would diverge from the table (the
+        reference orders delivery by calling OnChange inside the per-key
+        worker).  Every ticket MUST be redeemed via _deliver_write_through
+        (even with an empty capture) or later deliveries stall."""
+        seq = self._wt_seq
+        self._wt_seq = seq + 1
+        return seq
+
+    def _capture_write_through(
+        self, reqs, packed, use_cached=None
+    ) -> List[Tuple[RateLimitReq, CacheItem]]:
+        """Read back post-step rows for persisted requests while the caller
+        STILL HOLDS `_lock` (the reference calls OnChange synchronously
+        inside the algorithm, algorithms.go:154-158).  Lanes served from
+        the GLOBAL broadcast cache (use_cached) are excluded: their rows
+        are replicated responses, not authoritative bucket state."""
+        seen: set = set()
+        key_req: List[Tuple[str, RateLimitReq]] = []
+        for i, r in enumerate(reqs):
+            if i in packed.errors:
+                continue
+            if use_cached is not None and use_cached[i]:
+                continue
+            key = r.hash_key()
+            if key in seen:
+                continue
+            seen.add(key)
+            key_req.append((key, r))
+        if not key_req:
+            return []
+        items = self._read_items_locked([k for k, _ in key_req])
+        return [(r, items[k]) for k, r in key_req if k in items]
+
+    def _deliver_write_through(self, captured, seq: int) -> None:
+        """Hand captured post-step items to Store.on_change in capture
+        order (`seq` from `_wt_ticket`).  Runs OUTSIDE `_lock` (on_change
+        is user code), but a FIFO ticket wait preserves step order."""
+        cond = self._wt_cond
+        with cond:
+            while self._wt_next != seq:
+                cond.wait()
+        try:
+            for r, item in captured:
+                self.store.on_change(r, item)
+        finally:
+            with cond:
+                self._wt_next += 1
+                cond.notify_all()
+
+    def _note_keys(self, keys: Sequence[str]) -> None:
+        """Record fingerprint -> key for `keys` (key tracking only)."""
+        if self._keymap is None or not keys:
+            return
+        hs = bulk_key_hash64(list(keys)).view(np.uint64).tolist()
+        with self._keymap_lock:
+            km = self._keymap
+            for h, k in zip(hs, keys):
+                km[h] = k
+
+    def load_items(self, items) -> int:
+        """Bulk upsert CacheItems (Loader restore, workers.go:340-426)."""
+        from gubernator_tpu_torch.runtime.store import item_to_row_fields
+
+        chunk = 4 * self.cfg.batch_size
+        now = self.clock.millisecond_now()
+        n = 0
+        rows: List[dict] = []
+        hashes: List[int] = []
+        for item in items:
+            h = key_hash64(item.key)
+            if self._keymap is not None:
+                with self._keymap_lock:
+                    self._keymap[h] = item.key
+            rows.append(item_to_row_fields(item))
+            hashes.append(h)
+            n += 1
+            if len(rows) >= chunk:
+                with self._lock:
+                    self._bulk_upsert(rows, hashes, now)
+                rows, hashes = [], []
+        if rows:
+            with self._lock:
+                self._bulk_upsert(rows, hashes, now)
+        return n
+
+    def live_items(self) -> List[CacheItem]:
+        """All live rows as CacheItems (Loader save, workers.go:467-530).
+        Requires key tracking (a Store/Loader attached at construction).
+        KIND_CACHED_RESP rows are replicated GLOBAL broadcast responses,
+        not bucket state: saving them would resurrect them as owner
+        buckets on restore."""
+        if self._keymap is None:
+            raise RuntimeError(
+                "live_items() needs key tracking; construct the backend "
+                "with a store or track_keys=True"
+            )
+        snap = self.snapshot()
+        now = self.clock.millisecond_now()
+        live = np.flatnonzero(
+            (snap["key"] != 0)
+            & (snap["expire_at"] > now)
+            & (snap["kind"] != KIND_CACHED_RESP)
+        )
+        out: List[CacheItem] = []
+        for s in live:
+            key = self._keymap.get(_u64(snap["key"][s]))
+            if key is None:
+                continue
+            out.append(_row_to_item(snap, s, key))
+        return out
+
+
+class TorchBackend(PersistenceHost):
     """Single-table rate-limit engine on one torch device."""
 
     def __init__(
@@ -204,11 +477,23 @@ class TorchBackend:
         cfg: Optional[DeviceConfig] = None,
         clock=None,
         metrics=None,
+        store=None,
+        track_keys: bool = False,
     ) -> None:
         self.cfg = cfg or DeviceConfig()
         # Any object with millisecond_now() and now() will do.
         self.clock = clock or clock_mod.default_clock()
         self.metrics = metrics
+        # Store write-through (runtime/store.py) and the fingerprint ->
+        # key map that persistence needs to name device rows.
+        self.store = store
+        self._keymap: Optional[Dict[int, str]] = (
+            {} if (store is not None or track_keys) else None
+        )
+        self._init_write_through()
+        # Seconds the last bulk table copy (snapshot, key column) held
+        # `_lock`: serving waits that long.
+        self.last_copy_lock_s = 0.0
         self.device = torch.device(self.cfg.device)
         self.stream: Optional[torch.cuda.Stream] = None
         if self.device.type == "cuda":
@@ -337,13 +622,37 @@ class TorchBackend:
         (gubernator.go:434-447).
         """
         packed = pack_requests(reqs, self.cfg.batch_size, self.clock, use_cached)
+        now = self.clock.millisecond_now()
+        if self._keymap is not None:
+            self._note_keys([
+                r.hash_key() for i, r in enumerate(reqs)
+                if i not in packed.errors
+            ])
+            self._maybe_prune_keymap()
         round_host: List[Dict[str, np.ndarray]] = []
+        captured = None
         t_start = time.monotonic()
-        if packed.rounds:
-            with self._lock:
-                resps = self._dispatch_rounds_locked(packed.rounds)
-                pending = self._fetch_later(resps)
-            round_host = packed_rounds_to_host(pending)
+        pending = None
+        with self._lock:
+            if self.store is not None:
+                self._seed_from_store(reqs, packed, now)
+            if packed.rounds:
+                pending = self._fetch_later(
+                    self._dispatch_rounds_locked(packed.rounds))
+            if self.store is not None:
+                # Read-back inside the lock: a concurrent batch must not
+                # mutate a key between this batch's step and on_change.
+                captured = self._capture_write_through(
+                    reqs, packed, use_cached)
+                wt_seq = self._wt_ticket()
+        try:
+            if pending is not None:
+                round_host = packed_rounds_to_host(pending)
+        finally:
+            # The ticket MUST be redeemed even if the fetch fails (the
+            # step already happened, so delivering the capture is right).
+            if captured is not None:
+                self._deliver_write_through(captured, wt_seq)
         step_s = time.monotonic() - t_start
         if self.metrics is not None:
             self.metrics.device_step_duration.observe(step_s)
@@ -486,7 +795,10 @@ class TorchBackend:
         two packages' tables stay equal slot for slot); run the
         broadcast-receive upsert once on an empty batch.  Nothing is
         compiled per shape: these launches only load the kernel and size
-        its scratch."""
+        its scratch.  Then the state plane's ops run once each with no
+        active lane (probe, row gather, upsert, census), so a Store seed,
+        a write-through capture or the first census loads no module inside
+        a request.  None of this touches persistence or the keymap."""
         now = self.clock.millisecond_now()
         packed = pack_requests(
             [RateLimitReq(name="__warmup__", unique_key="w", hits=0,
@@ -498,6 +810,15 @@ class TorchBackend:
                 self._launch(np.zeros((1, 12, t), dtype=np.int64),
                              np.full(1, now, dtype=np.int64), 0)
             self._dispatch_rounds_locked(packed.rounds)
+            zeros = np.zeros(self.cfg.batch_size, dtype=np.int64)
+            self._probe_padded(zeros, now)
+            self._gather_rows_finish(
+                self._gather_rows_dispatch(zeros, now), len(zeros))
+            with self._on_stream():
+                load_rows(self.table, self._upload_rows(
+                    {f: np.zeros(1) for f in BucketRows._fields},
+                    slice(None)), now, self.cfg.ways)
+        self.table_stats_dispatch(np.zeros((5, 8), dtype=np.int64))()
         self.apply_cached_rows([])
         if self.stream is not None:
             self.stream.synchronize()
@@ -507,6 +828,7 @@ class TorchBackend:
         """Upsert owner-broadcast statuses: rows of
         (hash_key_str, algorithm, limit, remaining, status, reset_time) —
         the UpdatePeerGlobals receive path (gubernator.go:464-479)."""
+        self._note_keys([c[0] for c in rows])
         B = self.cfg.batch_size
         now = self.clock.millisecond_now()
         with self._lock, self._on_stream():
@@ -531,11 +853,44 @@ class TorchBackend:
                     self.table, cr, now, ways=self.cfg.ways)
 
     # -- state -----------------------------------------------------------
+    def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
+                       n: Optional[int] = None) -> PendingFetch:
+        """Start copying table columns [lo, lo + n) to the host.  The host
+        buffers (pinned on the card) are allocated before the lock is
+        taken, so `_lock` is held only while the copies are queued on the
+        backend's stream: they read the columns at that point of the
+        stream, and launches queued later cannot change what they copy.
+        On the CPU the copy itself runs under the lock."""
+        n = self.cfg.num_slots - lo if n is None else n
+        pin = self.stream is not None
+        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
+                for f in fields]
+        t0 = time.monotonic()
+        with self._lock, self._on_stream():
+            pending = PendingFetch(
+                [getattr(self.table, f)[lo:lo + n] for f in fields],
+                self.stream, host=host,
+            )
+        self.last_copy_lock_s = time.monotonic() - t0
+        return pending
+
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Copy the whole table to the host, in the snapshot dict format of
-        gubernator_tpu's DeviceBackend."""
-        with self._lock, self._on_stream():
-            return table_to_host(self.table)
+        gubernator_tpu's DeviceBackend (the Loader-save and checkpoint
+        path)."""
+        fields = SlotTable._fields
+        return dict(zip(fields, self._columns_fetch(fields).wait()))
+
+    def key_column(self) -> np.ndarray:
+        """Host copy of the fingerprint column (the keymap prune)."""
+        return self._columns_fetch(("key",)).wait()[0]
+
+    def key_snapshot(self):
+        """(key int64[S], kind int32[S], expire_at int64[S]) host copies:
+        the reshard plane's remap-delta input (three columns, not the
+        whole table)."""
+        return tuple(
+            self._columns_fetch(("key", "kind", "expire_at")).wait())
 
     def _install_table(self, arrays: Dict[str, np.ndarray]) -> None:
         """Replace the live table from host arrays (snapshot format)."""
@@ -550,3 +905,258 @@ class TorchBackend:
     def occupancy(self) -> int:
         with self._lock, self._on_stream():
             return int(self.table.occupancy())
+
+    # -- persistence device hooks (PersistenceHost) ----------------------
+    def _chunks(self, n: int):
+        B = self.cfg.batch_size
+        return [(lo, min(lo + B, n)) for lo in range(0, n, B)]
+
+    def _probe_padded(self, hashes: np.ndarray, now: int) -> np.ndarray:
+        """found mask for an int64 hash vector, probed in batch_size chunks
+        (caller holds `_lock`); one fetch for all chunks."""
+        if not len(hashes):
+            return np.zeros(0, dtype=bool)
+        with self._on_stream():
+            h = self._upload(np.asarray(hashes, dtype=np.int64))
+            found = torch.cat([
+                probe_batch(self.table, h[lo:hi], now, self.cfg.ways)[0]
+                for lo, hi in self._chunks(len(hashes))
+            ])
+            return PendingFetch([found], self.stream).wait()[0]
+
+    def _found_mask(self, keys, hashes, now: int) -> np.ndarray:
+        return self._probe_padded(_h64s(hashes), now)
+
+    def _upload_rows(self, cols: Dict[str, np.ndarray], sel) -> BucketRows:
+        """BucketRows of the lanes `sel` of host columns (BucketRows field
+        names), uploaded in one pinned copy: the columns travel as the rows
+        of one int64 array (int32 columns widened, remaining_f as its
+        bits) and are split and narrowed back on the device."""
+        parts = [np.asarray(cols[f], dtype=_ROW_DTYPES[f])[sel]
+                 for f in BucketRows._fields]
+        packed = np.empty((len(parts), len(parts[0])), dtype=np.int64)
+        for i, a in enumerate(parts):
+            packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
+        dev = self._upload(packed)
+        return BucketRows(*[
+            dev[i].view(torch.float64) if a.dtype == np.float64
+            else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
+            for i, a in enumerate(parts)
+        ])
+
+    def _bulk_upsert(
+        self, rows: List[dict], hashes: List[int], now: int
+    ) -> None:
+        """load_rows over batch_size chunks (caller holds `_lock`)."""
+        if not rows:
+            return
+        cols = {f: np.array([r[f] for r in rows], dtype=_ROW_DTYPES[f])
+                for f in BucketRows._fields if f != "key_hash"}
+        cols["key_hash"] = _h64s(hashes)
+        with self._on_stream():
+            for lo, hi in self._chunks(len(rows)):
+                load_rows(self.table, self._upload_rows(cols, slice(lo, hi)),
+                          now, self.cfg.ways)
+
+    def _gather_rows_dispatch(self, h64: np.ndarray, now: int):
+        """Dispatch row gathers for int64 fingerprints (caller holds
+        `_lock`) and start their copies to the host.  The gathers are
+        fresh tensors and their copies are queued right behind them, so
+        the caller may release the lock before `_gather_rows_finish`:
+        later launches cannot change what was gathered."""
+        parts: List[torch.Tensor] = []
+        if len(h64):
+            with self._on_stream():
+                h = self._upload(np.asarray(h64, dtype=np.int64))
+                for lo, hi in self._chunks(len(h64)):
+                    parts.extend(gather_rows(
+                        self.table, h[lo:hi], now, self.cfg.ways))
+        return self._fetch_later(*parts) if parts else None
+
+    def _gather_rows_finish(self, token, m: int):
+        """Wait for a gather token: (int64[10, m] in GATHER_ROW_FIELDS
+        order, float64[m] remaining_f)."""
+        if token is None:
+            return (np.zeros((len(GATHER_ROW_FIELDS), 0), dtype=np.int64),
+                    np.zeros(0))
+        host = token.wait()
+        return (np.concatenate(host[0::2], axis=1)[:, :m],
+                np.concatenate(host[1::2])[:m])
+
+    def read_items_bulk(
+        self, keys: Sequence[str], include_cached: bool = False
+    ) -> Dict[str, CacheItem]:
+        """Batched point reads: probe + row gather in batch_size chunks,
+        one host fetch.  KIND_CACHED_RESP rows (the GLOBAL broadcast
+        cache, not bucket state) are skipped unless asked for."""
+        with self._lock:
+            return self._read_items_locked(keys, include_cached)
+
+    def _read_items_locked(
+        self, keys: Sequence[str], include_cached: bool = False
+    ) -> Dict[str, CacheItem]:
+        """read_items_bulk body; caller holds `_lock` (write-through
+        capture reads back rows in the same critical section as the
+        step)."""
+        if not keys:
+            return {}
+        now = self.clock.millisecond_now()
+        hashes = bulk_key_hash64(list(keys))
+        packed, rf = self._gather_rows_finish(
+            self._gather_rows_dispatch(hashes, now), len(keys))
+        rows = {f: packed[i] for i, f in enumerate(GATHER_ROW_FIELDS)}
+        rows["remaining_f"] = rf
+        out: Dict[str, CacheItem] = {}
+        for j, k in enumerate(keys):
+            if not rows["found"][j]:
+                continue
+            if rows["kind"][j] == KIND_CACHED_RESP and not include_cached:
+                continue
+            out[k] = _row_to_item(rows, j, k)
+        return out
+
+    def get_cache_item(self, key: str) -> Optional[CacheItem]:
+        """Point read of one key; copies only the key's bucket (`ways`
+        slots), not the whole table."""
+        ways = self.cfg.ways
+        nb = self.cfg.num_slots // ways
+        bucket = key_hash64(key) & (nb - 1)
+        now = self.clock.millisecond_now()
+        fields = SlotTable._fields
+        rows = dict(zip(fields, self._columns_fetch(
+            fields, bucket * ways, ways).wait()))
+        return probe_bucket(rows, ways, key, now)
+
+    # -- live slot migration (runtime/reshard.py) ------------------------
+    def migrate_extract_rows(self, fps: np.ndarray):
+        """Atomically gather-and-clear the rows for int64 fingerprints
+        `fps`: one ops/state.migrate_extract per batch_size chunk under the
+        lock, fetched after it is released.  Returns (int64[10, n] in
+        GATHER_ROW_FIELDS order, packed[0] the found mask, float64[n]
+        remaining_f)."""
+        n = len(fps)
+        if not n:
+            return np.zeros((10, 0), dtype=np.int64), np.zeros(0)
+        now = self.clock.millisecond_now()
+        parts: List[torch.Tensor] = []
+        with self._lock, self._on_stream():
+            h = self._upload(np.asarray(fps, dtype=np.int64))
+            for lo, hi in self._chunks(n):
+                self.table, packed, rf = migrate_extract(
+                    self.table, h[lo:hi], now, self.cfg.ways)
+                parts += [packed, rf]
+            pending = PendingFetch(parts, self.stream)
+        host = pending.wait()
+        return (np.concatenate(host[0::2], axis=1),
+                np.concatenate(host[1::2]))
+
+    def _inject_chunks(self, cols, chunks, now: int) -> PendingFetch:
+        """migrate_inject over the lane index chunks `chunks` (caller
+        holds `_lock`); a fetch of the resident-before masks."""
+        masks = []
+        with self._on_stream():
+            for sel in chunks:
+                self.table, resident = migrate_inject(
+                    self.table, self._upload_rows(cols, sel), now,
+                    self.cfg.ways)
+                masks.append(resident)
+            return PendingFetch(masks, self.stream)
+
+    @staticmethod
+    def _inject_counts(pending: PendingFetch, chunks, cols):
+        """(injected, merged) from the resident masks of active lanes."""
+        injected = merged = 0
+        key = np.asarray(cols["key_hash"], dtype=np.int64)
+        for res, sel in zip(pending.wait(), chunks):
+            act = key[sel] != 0
+            injected += int((act & ~res).sum())
+            merged += int((act & res).sum())
+        return injected, merged
+
+    def migrate_inject_rows(self, cols: Dict[str, np.ndarray]):
+        """Inject-if-absent / merge-if-resident of migrated row columns
+        (BucketRows field names): one ops/state.migrate_inject per
+        batch_size chunk.  Rows are NOT spread across dispatches, so a
+        fourth same-bucket insert in one chunk is dropped, as in the JAX
+        backend.  Returns (injected, merged)."""
+        n = len(cols["key_hash"])
+        if not n:
+            return 0, 0
+        now = self.clock.millisecond_now()
+        chunks = [slice(lo, hi) for lo, hi in self._chunks(n)]
+        with self._lock:
+            pending = self._inject_chunks(cols, chunks, now)
+        return self._inject_counts(pending, chunks, cols)
+
+    # -- the state plane's dispatches (gubstat, the cold tier) -----------
+    def table_stats_dispatch(self, shadow_fps: np.ndarray):
+        """Dispatch the gubstat census (ops/state.table_stats) under the
+        lock and return a zero-arg fetch closure that waits on the
+        census's own copy event.  Every leaf of the fetched TableStats
+        carries a leading shard axis (length 1 here)."""
+        now = self.clock.millisecond_now()
+        fps = np.asarray(shadow_fps, dtype=np.int64)
+        with self._lock, self._on_stream():
+            st = table_stats(self.table, self._upload(fps), now,
+                             self.cfg.ways)
+            pending = PendingFetch(list(st), self.stream)
+
+        def fetch() -> TableStats:
+            return TableStats(*[a[None] for a in pending.wait()])
+
+        return fetch
+
+    def occupancy_dispatch(self):
+        """Dispatch the resident-slot count under the lock; the returned
+        closure fetches it (the tier manager's watermark read)."""
+        with self._lock, self._on_stream():
+            pending = PendingFetch([self.table.occupancy()], self.stream)
+        return lambda: int(pending.wait()[0])
+
+    def demote_extract_dispatch(self, protect_fps: np.ndarray, batch: int):
+        """ONE ops/state.demote_extract under the lock: the `batch` coldest
+        unprotected live bucket rows are gathered and their slots cleared
+        together.  Returns a zero-arg fetch closure yielding (int64[10,
+        batch] in DEMOTE_ROW_FIELDS order, float64[batch] remaining_f)."""
+        now = self.clock.millisecond_now()
+        fps = np.asarray(protect_fps, dtype=np.int64)
+        with self._lock, self._on_stream():
+            self.table, packed, rf = demote_extract(
+                self.table, self._upload(fps), now, self.cfg.ways, batch)
+            pending = PendingFetch([packed, rf], self.stream)
+
+        def fetch():
+            packed_h, rf_h = pending.wait()
+            return packed_h.reshape(10, batch), rf_h
+
+        return fetch
+
+    def migrate_inject_dispatch(self, cols: Dict[str, np.ndarray]):
+        """Dispatch-only inject for the tier's promote path; the returned
+        closure resolves (injected, merged).  locate_slots resolves at most
+        INSERT_ROUNDS (= 3) same-bucket inserts per call, so same-bucket
+        rows are spread over successive dispatches (waves of three) and
+        every lane can claim a slot."""
+        n = len(cols["key_hash"])
+        now = self.clock.millisecond_now()
+        nb = self.cfg.num_slots // self.cfg.ways
+        fps = np.asarray(cols["key_hash"], dtype=np.int64)
+        bucket = fps.view(np.uint64) & np.uint64(nb - 1)
+        rank = np.zeros(n, dtype=np.int64)
+        seen: Dict[int, int] = {}
+        for i in range(n):
+            b = int(bucket[i])
+            rank[i] = seen.get(b, 0)
+            seen[b] = int(rank[i]) + 1
+        wave = rank // 3
+        B = self.cfg.batch_size
+        chunks = []
+        for w in range(int(wave.max()) + 1 if n else 0):
+            widx = np.flatnonzero(wave == w)
+            for lo in range(0, len(widx), B):
+                chunks.append(widx[lo:lo + B])
+        if not chunks:
+            return lambda: (0, 0)
+        with self._lock:
+            pending = self._inject_chunks(cols, chunks, now)
+        return lambda: self._inject_counts(pending, chunks, cols)

@@ -1,0 +1,630 @@
+"""Guberberg — the host-RAM cold tier under the HBM slot table.
+
+The device table (ops/state.py) holds the HOT working set; this module
+holds everybody else.  Two pieces:
+
+* ``ColdTier`` — an open-addressed, linear-probed hash table over
+  columnar numpy arrays in the ``MigratedRows`` field layout
+  (proto/peers.proto), keyed by the int64 key fingerprint.  The same
+  column set the reshard wire and the checkpoint payload already use,
+  so serialization of the cold tier is a slice, not a format.
+
+* ``TierManager`` — the residency policy.  Demotion pressure comes
+  from the occupancy watermark knobs (high/low water): when the
+  table crosses the high water mark the manager runs bounded demote
+  passes until occupancy is back at the low mark (hysteresis — no
+  demotion starts below high water).  The device picks candidates by
+  pseudo-LRU (``demote_extract``'s last-touch ranking); the manager's
+  own HostCMS then ranks the extracted candidates by estimated
+  frequency and sends only the provably-coldest to the cold tier,
+  re-injecting the rest.  Promotion is access-driven: the request path
+  calls ``note_access`` with each served batch; a fingerprint that
+  hits the cold tier rides a FIFO host job (ring.submit_host) that
+  pops the row and injects it via the ``migrate_inject`` merge path —
+  the request that observed the miss was already served from a fresh
+  row, the NEXT round sees the merged history.  The inject retries
+  once and on repeated failure the row goes back to the cold tier, so
+  counters are conserved in every outcome.
+
+Correctness bound (docs/tiering.md): a cold-resident key served
+before its promote lands is admitted from a fresh row, so each
+demote/promote cycle widens admission by at most one limit-window —
+``migrate_inject`` merges by subtracting the consumed budget, clamped
+at zero, the same algebra the reshard/mirror/lease planes prove.
+
+Locking: ``coldtier._lock`` ranks BELOW every request-path lock
+(tools/gubguard/lockorder.py rank 54) — it is only ever taken alone,
+never across device work, and the request path's only use is the
+O(batch) membership probe in ``note_access``.
+
+Protocol spec: tools/gubproof/specs/tier.json — residency moves are
+tracked by their ColdTier calls (put_rows / pop_rows / prune_expired);
+each call site must map to a declared hot/cold/dropped edge and the
+explorer reproduces the per-cycle admission bound exactly.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+log = logging.getLogger("gubernator.coldtier")
+
+# Columnar field set — the MigratedRows wire layout (proto/peers.proto)
+# and ops/step.BucketRows' field names, so cold rows flow verbatim into
+# migrate_inject and out of demote_extract.
+COLD_FIELDS: Tuple[str, ...] = (
+    "key_hash", "algo", "limit", "duration", "remaining",
+    "remaining_f", "t0", "status", "burst", "expire_at",
+)
+
+_DTYPES: Dict[str, np.dtype] = {
+    "key_hash": np.dtype(np.int64),
+    "algo": np.dtype(np.int32),
+    "limit": np.dtype(np.int64),
+    "duration": np.dtype(np.int64),
+    "remaining": np.dtype(np.int64),
+    "remaining_f": np.dtype(np.float64),
+    "t0": np.dtype(np.int64),
+    "status": np.dtype(np.int32),
+    "burst": np.dtype(np.int64),
+    "expire_at": np.dtype(np.int64),
+}
+
+_EMPTY, _FULL, _TOMB = 0, 1, 2
+
+# Fibonacci hashing of the fingerprint picks the home slot.  The JAX
+# package's `fp & mask` clusters: the device demotes tied rows in slot
+# order, so a demotion's fingerprints share their low (bucket) bits and
+# linear probing turns each insert into a walk over the whole cluster
+# (ROADMAP queue 3).  Membership, drops and returned rows do not depend on
+# the home slot.
+_GOLDEN = 0x9E3779B97F4A7C15
+_U64 = (1 << 64) - 1
+
+
+def _empty_cols(n: int) -> Dict[str, np.ndarray]:
+    return {f: np.zeros(n, dtype=_DTYPES[f]) for f in COLD_FIELDS}
+
+
+class ColdTier:
+    """Open-addressed cold store: linear probing over power-of-two
+    capacity, a state byte per slot (empty / full / tombstone), and a
+    side fingerprint set for O(1) request-path membership checks.
+
+    Fixed capacity by design — host RAM is budgeted up front
+    (``GUBER_TIER_COLD_CAPACITY``), and an insert into a full table is
+    DROPPED and counted (``capacity_drops``), never grown: dropping a
+    cold row only costs the bounded over-admission window the tier
+    already documents, while unbounded growth would turn a keyspace
+    storm into an OOM."""
+
+    def __init__(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError(
+                f"cold tier capacity must be >= 1, got {capacity}"
+            )
+        # Probe math wants a power of two; size for the requested
+        # residency at <= ~0.8 load so probes stay short.
+        cap = 8
+        while cap * 8 < capacity * 10:
+            cap *= 2
+        self.capacity = int(capacity)
+        self._cap = cap
+        self._mask = cap - 1
+        self._shift = 64 - (cap.bit_length() - 1)
+        self._lock = threading.Lock()  # coldtier._lock, gubguard rank 54
+        self.cols = _empty_cols(cap)
+        self._state = np.zeros(cap, dtype=np.uint8)
+        self._members: set = set()
+        self._tombstones = 0
+        self.capacity_drops = 0
+
+    # -- probe ---------------------------------------------------------
+    def _find(self, fp: int) -> Tuple[int, bool]:
+        """(slot, found): the slot holding `fp`, or the insert slot
+        (first tombstone on the probe path, else the empty stop)."""
+        i = ((int(fp) & _U64) * _GOLDEN & _U64) >> self._shift
+        first_tomb = -1
+        key = self.cols["key_hash"]
+        for _ in range(self._cap):
+            s = self._state[i]
+            if s == _EMPTY:
+                return (first_tomb if first_tomb >= 0 else i), False
+            if s == _TOMB:
+                if first_tomb < 0:
+                    first_tomb = i
+            elif key[i] == fp:
+                return i, True
+            i = (i + 1) & self._mask
+        return (first_tomb, False)  # table saturated with fulls+tombs
+
+    def _rebuild(self) -> None:
+        """Compact in place: re-insert live rows, dropping tombstones
+        (probe chains shorten back to their no-deletion length)."""
+        live = np.flatnonzero(self._state == _FULL)
+        old = {f: self.cols[f][live].copy() for f in COLD_FIELDS}
+        self.cols = _empty_cols(self._cap)
+        self._state[:] = _EMPTY
+        self._tombstones = 0
+        key = self.cols["key_hash"]
+        slots = np.empty(len(live), dtype=np.int64)
+        for j, fp in enumerate(old["key_hash"].tolist()):
+            slot, _ = self._find(fp)
+            key[slot] = fp
+            self._state[slot] = _FULL
+            slots[j] = slot
+        for f in COLD_FIELDS[1:]:
+            self.cols[f][slots] = old[f]
+
+    # -- bulk row traffic ---------------------------------------------
+    def put_rows(self, cols: Dict[str, np.ndarray]) -> int:
+        """Insert/overwrite a batch of columnar rows (COLD_FIELDS
+        layout; key_hash 0 lanes are padding and skipped).  Returns the
+        number of rows resident after the call that came from this
+        batch; rows that found the table full are dropped and counted.
+        """
+        fps = np.asarray(cols["key_hash"], dtype=np.int64)
+        put = 0
+        slots: List[int] = []
+        rows: List[int] = []
+        with self._lock:
+            key = self.cols["key_hash"]
+            for j, fp in enumerate(fps.tolist()):
+                if fp == 0:
+                    continue
+                slot, found = self._find(fp)
+                if not found and len(self._members) >= self.capacity:
+                    self.capacity_drops += 1
+                    continue
+                if slot < 0:
+                    self.capacity_drops += 1
+                    continue
+                if self._state[slot] == _TOMB:
+                    self._tombstones -= 1
+                key[slot] = fp
+                self._state[slot] = _FULL
+                self._members.add(fp)
+                slots.append(slot)
+                rows.append(j)
+                put += 1
+            if slots:
+                # The other columns in one scatter a field; a slot written
+                # twice (a fingerprint repeated in the batch) keeps its
+                # last row, as row-by-row writes would.
+                s = np.asarray(slots)[::-1]
+                s, first = np.unique(s, return_index=True)
+                r = np.asarray(rows)[::-1][first]
+                for f in COLD_FIELDS[1:]:
+                    self.cols[f][s] = np.asarray(cols[f])[r].astype(
+                        _DTYPES[f], copy=False)
+        return put
+
+    def pop_rows(self, fps) -> Dict[str, np.ndarray]:
+        """Remove and return the rows for the fingerprints that are
+        resident (columnar, COLD_FIELDS layout; absent fps simply don't
+        appear).  Tombstones mark the vacated slots so later probe
+        chains still pass through."""
+        out: List[int] = []
+        with self._lock:
+            for fp in fps:
+                fp = int(fp)
+                if fp == 0 or fp not in self._members:
+                    continue
+                slot, found = self._find(fp)
+                if not found:
+                    continue
+                out.append(slot)
+                self._state[slot] = _TOMB
+                self._tombstones += 1
+                self._members.discard(fp)
+            cols = {f: self.cols[f][out].copy() for f in COLD_FIELDS}
+            if self._tombstones > self._cap // 4:
+                self._rebuild()
+        return cols
+
+    def member_hits(self, fps: np.ndarray) -> np.ndarray:
+        """bool[n]: which fingerprints are cold-resident right now.
+        The request path's only cold-tier touch — a set probe per lane
+        under the lock, no device work, no allocation beyond the mask.
+        """
+        n = len(fps)
+        with self._lock:
+            if not self._members:
+                return np.zeros(n, dtype=bool)
+            mem = self._members
+            return np.fromiter(
+                (int(f) in mem for f in fps), dtype=bool, count=n
+            )
+
+    # -- census / lifecycle -------------------------------------------
+    def residents(self) -> int:
+        with self._lock:
+            return len(self._members)
+
+    def prune_expired(self, now_ms: int) -> int:
+        """Drop rows whose window already expired — a demoted bucket
+        whose TTL lapsed carries no admission state worth promoting."""
+        with self._lock:
+            live = self._state == _FULL
+            dead = live & (self.cols["expire_at"] <= np.int64(now_ms))
+            idx = np.flatnonzero(dead)
+            for i in idx:
+                self._members.discard(int(self.cols["key_hash"][i]))
+                self._state[i] = _TOMB
+                self._tombstones += 1
+            if self._tombstones > self._cap // 4:
+                self._rebuild()
+            return int(len(idx))
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Compacted columnar copy of every resident row — the
+        checkpoint payload's `coldtier` entry (COLD_FIELDS layout, so
+        restore is geometry-independent re-insertion)."""
+        with self._lock:
+            live = np.flatnonzero(self._state == _FULL)
+            return {f: self.cols[f][live].copy() for f in COLD_FIELDS}
+
+    def restore(self, arrays: Dict[str, np.ndarray]) -> int:
+        """Re-insert a snapshot's rows (capacity may differ from the
+        saving daemon's — rows beyond the new budget are dropped and
+        counted, same rule as live inserts)."""
+        return self.put_rows(arrays)
+
+
+class TierManager:
+    """The two-tier residency policy: watermark-driven demotion on a
+    background worker, access-driven promotion through the ring's FIFO
+    host-job lane.  One instance per daemon, armed by
+    ``GUBER_TIER_ENABLED`` (daemon.py wires ``service.tier`` so the
+    request path's ``note_traffic`` feeds it)."""
+
+    MAX_DEMOTE_PASSES = 8
+
+    def __init__(
+        self,
+        service: Any,
+        cfg: Any,
+        fastpath: Optional[Any] = None,
+        metrics: Optional[Any] = None,
+    ) -> None:
+        from gubernator_tpu_torch.runtime.metrics import LATENCY_BUCKETS
+        from gubernator_tpu_torch.runtime.sketch_backend import HostCMS
+
+        self.service = service
+        self.backend = service.backend
+        self.cfg = cfg
+        self.fastpath = fastpath
+        self.metrics = metrics
+        self.cold = ColdTier(cfg.cold_capacity)
+        # The manager's OWN sketch: residency ranking must reflect
+        # all-time-recent traffic at this node, independent of the
+        # hot-key detector's tumbling windows.
+        self.cms = HostCMS()
+        self.promotes = 0
+        self.demotes = 0
+        self.cold_hits = 0
+        self.promote_retries = 0
+        self.promote_failures = 0
+        self.demote_passes = 0
+        self.ticks = 0
+        self._buckets = tuple(LATENCY_BUCKETS)
+        self._hist = [0] * (len(self._buckets) + 1)  # +Inf tail
+        self._lat_sum = 0.0
+        self._pending: set = set()
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle -----------------------------------------------------
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._run, name="tier-manager", daemon=True
+        )
+        self._thread.start()
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5.0)
+            self._thread = None
+
+    # -- request-path hook (service.note_traffic) ----------------------
+    def note_access(self, key_hashes: np.ndarray, hits) -> None:
+        """One served batch: feed the residency sketch, and schedule a
+        promote for any fingerprint that is cold-resident.  Cheap by
+        contract — a CMS update plus a set probe; the actual promote
+        rides the worker thread + ring host-job lane."""
+        if not len(key_hashes):
+            return
+        kh = np.asarray(key_hashes, dtype=np.int64)
+        w = np.asarray(hits, dtype=np.int64) if hits is not None else (
+            np.ones(len(kh), dtype=np.int64)
+        )
+        self.cms.update(kh, w)
+        hit = self.cold.member_hits(kh)
+        if not hit.any():
+            return
+        fps = np.unique(kh[hit])
+        t0 = time.monotonic()
+        with self._cv:
+            fresh = [int(f) for f in fps if int(f) not in self._pending]
+            if not fresh:
+                return
+            self._pending.update(fresh)
+            self._q.append((fresh, t0))
+            self._cv.notify_all()
+        self.cold_hits += int(hit.sum())
+
+    # -- worker --------------------------------------------------------
+    def _run(self) -> None:
+        interval = max(float(self.cfg.interval_s), 0.05)
+        next_tick = time.monotonic() + interval
+        while True:
+            with self._cv:
+                while (
+                    not self._stop
+                    and not self._q
+                    and time.monotonic() < next_tick
+                ):
+                    self._cv.wait(
+                        timeout=max(next_tick - time.monotonic(), 0.01)
+                    )
+                if self._stop:
+                    return
+                batch: List[Tuple[List[int], float]] = []
+                while self._q:
+                    batch.append(self._q.popleft())
+            for fps, t0 in batch:
+                try:
+                    self._promote(fps, t0)
+                except Exception:
+                    log.debug("promote failed", exc_info=True)
+                    with self._cv:
+                        self._pending.difference_update(fps)
+            if time.monotonic() >= next_tick:
+                next_tick = time.monotonic() + interval
+                try:
+                    self.cold.prune_expired(
+                        self.service.backend.clock.millisecond_now()
+                    )
+                    self.demote_once_sync()
+                    self.publish()
+                except Exception:
+                    # A closing ring/backend mid-tick is expected at
+                    # shutdown; pressure returns next tick.
+                    log.debug("demote tick failed", exc_info=True)
+
+    def _run_job(self, fn: Callable[[], Any]) -> Any:
+        """Run a dispatch callable FIFO with the serving rounds when a
+        ring is live (never on the request path, never blocking the
+        runner beyond the dispatch itself); direct call otherwise.
+        Returns fn's result — by convention a zero-arg fetch closure
+        the CALLER resolves on this worker thread."""
+        from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+        ring = getattr(self.fastpath, "_ring", None)
+        if ring is not None and ring.available():
+            try:
+                return ring.submit_host(fn)()
+            except RingClosedError:
+                pass
+        return fn()
+
+    # -- promote path --------------------------------------------------
+    def _promote(self, fps: List[int], t0: float) -> int:
+        cols = self.cold.pop_rows(fps)
+        n = len(cols["key_hash"])
+        if n == 0:
+            with self._cv:
+                self._pending.difference_update(fps)
+            return 0
+        try:
+            try:
+                fetch = self._run_job(
+                    lambda: self.backend.migrate_inject_dispatch(cols)
+                )
+                fetch()
+            except Exception:
+                # Retry ONCE (a broken ring falls back to a direct
+                # dispatch); then conserve the rows back to cold.
+                self.promote_retries += 1
+                try:
+                    fetch = self._run_job(
+                        lambda: self.backend.migrate_inject_dispatch(
+                            cols
+                        )
+                    )
+                    fetch()
+                except Exception:
+                    self.promote_failures += 1
+                    self.cold.put_rows(cols)
+                    raise
+            self.promotes += n
+            self._observe_latency(time.monotonic() - t0, n)
+            return n
+        finally:
+            with self._cv:
+                self._pending.difference_update(fps)
+
+    def drain_promotes_sync(self) -> int:
+        """Synchronously promote everything queued — the test/smoke
+        entry point (the daemon path drains on the worker thread)."""
+        done = 0
+        while True:
+            with self._cv:
+                if not self._q:
+                    return done
+                fps, t0 = self._q.popleft()
+            done += self._promote(fps, t0)
+
+    # -- demote path ---------------------------------------------------
+    def _protect_grid(self) -> np.ndarray:
+        """Derived-slot fingerprints (lease carves, mirrors, shadows)
+        padded to a power of two >= 8 — the same recompile-tier rule as
+        the gubstat shadow grid.  Derived slots never demote: they
+        re-home by re-creation, not by copy."""
+        fps = self.service.derived_slot_fps()
+        cap = 1 << max(3, int(max(len(fps), 1) - 1).bit_length())
+        grid = np.zeros(cap, dtype=np.int64)
+        grid[: len(fps)] = fps
+        return grid
+
+    def demote_need(self, occ: int) -> int:
+        """Watermark hysteresis as a pure function (pinned by
+        tests/test_tiering.py against the pymodel oracle): no pressure
+        below the high mark; above it, demote down to the LOW mark so
+        occupancy oscillates between the marks instead of sawing at
+        high water."""
+        S = self.backend.cfg.num_slots
+        high = int(self.cfg.high_water * S)
+        low = int(self.cfg.low_water * S)
+        if occ < high:
+            return 0
+        return max(occ - low, 0)
+
+    def demote_once_sync(self) -> int:
+        """One watermark evaluation: bounded demote passes until the
+        need is met or the device runs out of eligible victims.
+        Returns rows demoted to cold."""
+        self.ticks += 1
+        occ = self._run_job(self.backend.occupancy_dispatch)()
+        need = self.demote_need(occ)
+        if need <= 0:
+            return 0
+        total = 0
+        batch = int(self.cfg.demote_batch)
+        for _ in range(self.MAX_DEMOTE_PASSES):
+            if need <= 0:
+                break
+            grid = self._protect_grid()
+            fetch = self._run_job(
+                lambda: self.backend.demote_extract_dispatch(
+                    grid, batch
+                )
+            )
+            packed, rf = fetch()
+            self.demote_passes += 1
+            sel = np.flatnonzero(packed[0] != 0)
+            if not len(sel):
+                break
+            fps = packed[0][sel]
+            # The device ranked by last-touch; the sketch now ranks by
+            # estimated frequency so only provably-colder rows leave
+            # HBM — the hotter tail of the extract goes straight back.
+            order = sel[np.argsort(self.cms.estimate(fps),
+                                   kind="stable")]
+            ncold = min(need, len(order))
+            cold_idx = order[:ncold]
+            keep_idx = order[ncold:]
+            self.cold.put_rows(self._cols_from_packed(
+                packed, rf, cold_idx
+            ))
+            self.demotes += int(ncold)
+            if len(keep_idx):
+                keep = self._cols_from_packed(packed, rf, keep_idx)
+                self._run_job(
+                    lambda: self.backend.migrate_inject_dispatch(keep)
+                )()
+            need -= int(ncold)
+            total += int(ncold)
+        return total
+
+    @staticmethod
+    def _cols_from_packed(
+        packed: np.ndarray, rf: np.ndarray, idx: np.ndarray
+    ) -> Dict[str, np.ndarray]:
+        """DEMOTE_ROW_FIELDS planes -> COLD_FIELDS columns (packed[1]
+        is the kind plane — always KIND_BUCKET, the kernel's
+        eligibility mask; dropped here)."""
+        return {
+            "key_hash": packed[0][idx],
+            "algo": packed[2][idx].astype(np.int32),
+            "limit": packed[3][idx],
+            "duration": packed[4][idx],
+            "remaining": packed[5][idx],
+            "remaining_f": rf[idx],
+            "t0": packed[6][idx],
+            "status": packed[7][idx].astype(np.int32),
+            "burst": packed[8][idx],
+            "expire_at": packed[9][idx],
+        }
+
+    # -- observability -------------------------------------------------
+    def _observe_latency(self, seconds: float, n: int) -> None:
+        for i, edge in enumerate(self._buckets):
+            if seconds <= edge:
+                self._hist[i] += n
+                break
+        else:
+            self._hist[-1] += n
+        self._lat_sum += seconds * n
+
+    def promote_latency_cumulative(self) -> List[int]:
+        """Cumulative bucket counts on LATENCY_BUCKETS (+Inf tail) —
+        metrics.estimate_quantile's input shape."""
+        out, acc = [], 0
+        for c in self._hist:
+            acc += c
+            out.append(acc)
+        return out
+
+    def debug_vars(self) -> dict:
+        from gubernator_tpu_torch.runtime.metrics import estimate_quantile
+
+        cum = self.promote_latency_cumulative()
+        return {
+            "enabled": True,
+            "cold_residents": self.cold.residents(),
+            "cold_capacity": self.cold.capacity,
+            "capacity_drops": self.cold.capacity_drops,
+            "promotes": self.promotes,
+            "demotes": self.demotes,
+            "cold_hits": self.cold_hits,
+            "promote_retries": self.promote_retries,
+            "promote_failures": self.promote_failures,
+            "demote_passes": self.demote_passes,
+            "ticks": self.ticks,
+            "high_water": float(self.cfg.high_water),
+            "low_water": float(self.cfg.low_water),
+            "demote_batch": int(self.cfg.demote_batch),
+            "promote_latency": {
+                "buckets": list(self._buckets),
+                "cumulative": cum,
+                "sum_s": self._lat_sum,
+                "p99_s": estimate_quantile(self._buckets, cum, 0.99),
+            },
+        }
+
+    def publish(self) -> None:
+        """Push the tier block into the prometheus bundle (the worker
+        does this after each tick; gubstat's sampler pattern)."""
+        m = self.metrics
+        if m is None:
+            return
+        m.tier_cold_residents.set(self.cold.residents())
+        m.tier_capacity_drops.set(self.cold.capacity_drops)
+        _set_counter(m.tier_promotes, self.promotes)
+        _set_counter(m.tier_demotes, self.demotes)
+        _set_counter(m.tier_cold_hits, self.cold_hits)
+        for edge, c in zip(
+            self._buckets, self.promote_latency_cumulative()
+        ):
+            m.tier_promote_latency.labels(le=str(edge)).set(c)
+
+
+def _set_counter(counter, value: int) -> None:
+    """Advance a prometheus Counter to an absolute total (the manager
+    keeps its own totals; the collector mirrors them)."""
+    cur = counter._value.get()
+    if value > cur:
+        counter.inc(value - cur)

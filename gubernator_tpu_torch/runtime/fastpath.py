@@ -26,6 +26,13 @@ runtime/service.py) by concatenating their columns before packing.
 Eligibility — anything else falls back to the object path, which remains
 the semantic reference:
   - native library loadable (built at first use, native/__init__.py);
+  - a Store / Loader attached stays ON the lane: residency comes from
+    the step's own `found` column (no pre-step probe), Store.get runs only
+    for cold keys, whose drains repair in place (_repair_cold_store_keys),
+    and write-through rows are captured with one row gather per drain
+    (ticketed on_change delivery, like the object path).  The SPI takes
+    Python objects, so the lane decodes one request per UNIQUE key per
+    drain; on_change fires once per unique key per drain;
   - GLOBAL is served HERE — use_cached lanes for non-owned reads, queued
     hits/updates for the managers; MULTI_REGION serves like a plain lane
     with owner-side hits queued to the region manager (one decode per
@@ -41,11 +48,10 @@ the semantic reference:
     construction, so the fast lane also serves the owner side of
     forwarded traffic in a cluster.
 
-This is the JAX package's fast lane without the parts that serve planes
-not ported yet: the Store/Loader seeding and write-through capture
-(ROADMAP queue 1 item 6), the mesh's engine lane and shard grids (item 9),
-and the hot-key, reshard and region routing (the host planes).  The
-service refuses configurations that arm them.
+This is the JAX package's fast lane without the mesh's engine lane and
+shard grids (ROADMAP queue 1 item 9) and the hot-key and region routing
+(the service refuses configurations that arm them).  While a reshard
+handoff is active on this node the lane steps aside for the object path.
 """
 from __future__ import annotations
 
@@ -670,6 +676,14 @@ class FastPath:
             # same counters) can't double-count.  There is no await
             # between here and _serve_routed's ring read, so the router
             # below never sees an empty ring.
+            self.fallbacks += 1
+            return None
+        rs = self.s.reshard
+        if rs is not None and rs.active():
+            # A handoff is in flight on this node (docs/resharding.md):
+            # covered keys must forward back / serve the bounded shadow
+            # and rerouted keys must leave this table — per-key routing
+            # the object path owns.  The lane steps aside for the window.
             self.fallbacks += 1
             return None
         cols = native.parse_reqs(payload)
@@ -1508,6 +1522,19 @@ class FastPath:
         from gubernator_tpu_torch.runtime.backend import packed_rounds_to_host
 
         backend = self.s.backend
+        store = backend.store
+        uniq = (
+            self._persist_decode(entries)
+            if (store is not None or backend._keymap is not None)
+            else None
+        )
+        if uniq and backend._keymap is not None:
+            with backend._keymap_lock:
+                km = backend._keymap
+                for fp, (key, _r, _c) in uniq.items():
+                    km[int(np.int64(fp).view(np.uint64))] = key
+            backend._maybe_prune_keymap()
+        do_store = store is not None and bool(uniq)
         if plan is None:
             h_mach, hits_mach = h, hits
         else:
@@ -1528,7 +1555,9 @@ class FastPath:
         # Ring-eligible merge (plain): scatter the parsed columns
         # STRAIGHT into ring slot layout — no DeviceBatch objects exist
         # between the C++ parse and the device loop.
-        ring = self._ring_live() if plan is None else None
+        ring = (
+            self._ring_live() if (plan is None and not do_store) else None
+        )
         ring_qs = None
         if ring is not None:
             ring_qs, order, bounds = _build_rounds_q(
@@ -1576,7 +1605,7 @@ class FastPath:
                 t_step0,
             )
 
-        if plan is None:
+        if plan is None and not do_store:
             if ring is not None:
                 # Ring merge (docs/ring.md): the pre-packed slots enter
                 # the request ring and the device loop applies them; this
@@ -1630,21 +1659,48 @@ class FastPath:
         # single-writer discipline as every other mutation path).  The
         # write-back itself needs no response sync: the replay already
         # produced every response, and dispatch order serializes it.
+        #
+        # Store drains take this branch too, with NO pre-step residency
+        # probe: the step answers residency through its `found` column,
+        # so a warm drain pays one response fetch, as a storeless one
+        # does (algorithms.go:45-51 consults the store only on a miss;
+        # misses repair below).  The lock is held through the response
+        # fetch: a cold key was served from a FRESH row that the repair
+        # replaces, and no other drain may observe the interim state.
+        # The capture's copy is queued in the lock, right behind the step
+        # (or the repair) it reads; its wait and the Store.on_change
+        # delivery run on the fetch stage.
+        cap_token = wt_seq = cap_fps = None
+
         def locked_merge() -> None:
             # The whole locked window, wrapped so the ring discipline can
             # run it verbatim on the ring runner (submit_host) — its
             # in-lock host sync then happens off the request path, FIFO
-            # with the ring iterations.
+            # with the ring iterations, and write-through tickets keep
+            # dispatch order against ring steps.
+            nonlocal cap_token, wt_seq, cap_fps
             with backend._lock:
                 resps = backend._dispatch_rounds_locked(rounds)
-                host_box.append(packed_rounds_to_host(
-                    backend._fetch_later(resps)))
+                pending = backend._fetch_later(resps)
+                if do_store:
+                    now_ms = backend.clock.millisecond_now()
+                    cap_fps = np.array(
+                        [fp for fp, v in uniq.items() if v[2] is not None],
+                        dtype=np.int64,
+                    )
+                    # Optimistic capture, queued with the step; a repair
+                    # below re-dispatches it.
+                    cap_token = backend._gather_rows_dispatch(
+                        cap_fps, now_ms)
+                host_box.append(packed_rounds_to_host(pending))
                 gather(host_box[0])
-                wb = _run_cascade(
-                    plan, h, hits, lim, dur, algo, burst,
-                    status, out_lim, remaining, reset, stored, cachedv,
-                    stored_st,
-                )
+                wb = None
+                if plan is not None:
+                    wb = _run_cascade(
+                        plan, h, hits, lim, dur, algo, burst,
+                        status, out_lim, remaining, reset, stored, cachedv,
+                        stored_st,
+                    )
                 if wb is not None:
                     (wb_h, wb_hits, wb_lim, wb_dur, wb_algo,
                      wb_burst) = wb
@@ -1662,6 +1718,27 @@ class FastPath:
                         wvals, wrnd, wlane, wn, B,
                     )
                     backend._dispatch_rounds_locked(wb_rounds)
+                    if do_store:
+                        # The write-back changed the rows the optimistic
+                        # capture read: capture again behind it.
+                        cap_token = backend._gather_rows_dispatch(
+                            cap_fps, now_ms)
+                if do_store:
+                    rep = self._repair_cold_store_keys(
+                        backend, uniq, foundv, h, dict(
+                            hits=hits, limit=lim, duration=dur, algo=algo,
+                            burst=burst, reset_remaining=reset_remaining,
+                            is_greg=is_greg, greg_expire=ge,
+                            greg_duration=gd, use_cached=use_cached,
+                        ),
+                        B, now_ms, cap_fps,
+                        (status, out_lim, remaining, reset, stored,
+                         cachedv, stored_st),
+                    )
+                    if rep is not None:
+                        # Rows changed under the optimistic capture.
+                        cap_token = rep
+                    wt_seq = backend._wt_ticket()
 
         ring = self._ring_live()
         wait_locked = None
@@ -1680,11 +1757,151 @@ class FastPath:
             locked_merge()
 
         def fetch_locked_merge() -> List[Tuple[np.ndarray, ...]]:
+            # Fetch stage of a cascade/store merge: the response host sync
+            # already happened inside the lock; what remains is the
+            # capture's wait and build and the Store.on_change delivery —
+            # user code plus a ticket wait that must never block the next
+            # merge's dispatch.
             if wait_locked is not None:
                 wait_locked()
+            if do_store:
+                captured: list = []
+                try:
+                    a_cols, rf_col = backend._gather_rows_finish(
+                        cap_token, len(cap_fps))
+                    captured = self._build_captured(
+                        uniq, cap_fps, a_cols, rf_col)
+                finally:
+                    # The ticket MUST be redeemed even if the fetch fails
+                    # (the step already happened; a skipped redemption
+                    # wedges every later delivery).
+                    backend._deliver_write_through(captured, wt_seq)
             return finish()
 
         return fetch_locked_merge
+
+    # -- persistence SPI on the lane -------------------------------------
+    def _persist_decode(self, entries) -> Dict[int, list]:
+        """Per-unique-key request decodes for the persistence SPI
+        (Store.get / Store.on_change / the Loader keymap take Python
+        objects — the one per-KEY host cost the lane pays with
+        persistence attached; everything else stays columnar).
+
+        Returns fp(int64) -> [hash_key_str, first_req, capture_req], in
+        first-arrival entry order.  `capture_req` is None when every
+        occurrence is a GLOBAL cached read (use_cached): such keys are
+        left out of write-through, as _capture_write_through leaves them
+        out."""
+        uniq: Dict[int, list] = {}
+        for e in entries:
+            valid = np.flatnonzero(e.cols.hash != 0)
+            for req, group in self._decode_unique(e.payload, e.cols, valid):
+                fp = int(e.cols.hash[group[0]])
+                uc = e.use_cached[group]
+                cap = None
+                if not uc.all():
+                    cap = req if not uc[0] else self._decode_req(
+                        e.payload, e.cols, int(group[~uc][0])
+                    )
+                cur = uniq.get(fp)
+                if cur is None:
+                    uniq[fp] = [req.hash_key(), req, cap]
+                elif cur[2] is None and cap is not None:
+                    cur[2] = cap
+        return uniq
+
+    def _repair_cold_store_keys(
+        self, backend, uniq, foundv, h, cols_d, B, now_ms, cap_fps,
+        out_arrays,
+    ):
+        """Post-step Store.get for COLD keys (backend lock held, response
+        already fetched): the step's `found` column replaces a pre-step
+        residency probe.
+
+        A key whose first occurrence missed (`found` False: absent or
+        expired, the probe's liveness test) consults the Store
+        (algorithms.go:45-51).  Live store state REPAIRS the drain: the
+        store row replaces the fresh bucket the step created (load_rows
+        overwrites in place on a key match), every occurrence of the key
+        re-runs on the seeded row, and the re-run's responses overwrite
+        the originals, so the final row and responses equal the object
+        path's seed-then-step.  The lone divergence: under full-bucket
+        insert pressure the fresh insert or the repair upsert may each go
+        transient, the acceptable-loss corner every insert path shares
+        (architecture.md:5-11).
+
+        Returns None when nothing needed repair, else the capture token
+        re-dispatched behind the repair."""
+        from gubernator_tpu_torch.runtime.backend import packed_rounds_to_host
+
+        uq, first = np.unique(h, return_index=True)
+        fidx = dict(zip(uq.tolist(), first.tolist()))
+        fps = list(uniq.keys())
+        seeded = backend._store_seed_misses(
+            [int(np.int64(fp).view(np.uint64)) for fp in fps],
+            [uniq[fp][1] for fp in fps],
+            [bool(foundv[fidx[fp]]) for fp in fps],
+            now_ms,
+        )
+        if not seeded:
+            return None
+        rep_fps = np.array([fps[i] for i in seeded], dtype=np.int64)
+        R = np.flatnonzero(np.isin(h, rep_fps))
+        rrnd, rlane, rn = native.assign_rounds(h[R], None, 1, B)
+        rvals = {"key_hash": h[R]}
+        rvals.update({k: v[R] for k, v in cols_d.items()})
+        r_rounds, r_order, r_bounds = _build_rounds(
+            rvals, rrnd, rlane, rn, B
+        )
+        r_pending = backend._fetch_later(
+            backend._dispatch_rounds_locked(r_rounds))
+        cap_token = backend._gather_rows_dispatch(cap_fps, now_ms)
+        rhost = packed_rounds_to_host(r_pending)
+        (status, out_lim, remaining, reset, stored, cachedv,
+         stored_st) = out_arrays
+        for r_idx in range(rn):
+            sub = r_order[r_bounds[r_idx]:r_bounds[r_idx + 1]]
+            sel = R[sub]
+            hr = rhost[r_idx]
+            idx = rlane[sub]
+            status[sel] = hr["status"][idx]
+            out_lim[sel] = hr["limit"][idx]
+            remaining[sel] = hr["remaining"][idx]
+            reset[sel] = hr["reset_time"][idx]
+            stored[sel] = hr["stored"][idx]
+            cachedv[sel] = hr["cached"][idx]
+            stored_st[sel] = hr["stored_status"][idx]
+        return cap_token
+
+    def _build_captured(self, uniq, cap_fps, a, rf) -> list:
+        """(capture req, CacheItem) pairs from the gathered columns
+        (GATHER_ROW_FIELDS order); misses and KIND_CACHED_RESP rows are
+        skipped, as _read_items_locked skips them."""
+        from gubernator_tpu_torch.core.types import Algorithm, CacheItem, Status
+        from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP
+
+        out = []
+        for j, fp in enumerate(cap_fps):
+            if not a[0, j] or a[1, j] == KIND_CACHED_RESP:
+                continue
+            key, _req, cap_req = uniq[int(fp)]
+            algo = Algorithm(int(a[2, j]))
+            remaining = (
+                float(rf[j]) if algo == Algorithm.LEAKY_BUCKET
+                else int(a[5, j])
+            )
+            out.append((cap_req, CacheItem(
+                key=key,
+                algorithm=algo,
+                expire_at=int(a[9, j]),
+                limit=int(a[3, j]),
+                duration=int(a[4, j]),
+                remaining=remaining,
+                created_at=int(a[6, j]),
+                status=Status(int(a[7, j])),
+                burst=int(a[8, j]),
+            )))
+        return out
 
     def _finish_process(
         self, entries, host, rounds, h, h_mach, foundv, persv,
@@ -1726,6 +1943,33 @@ class FastPath:
             # count them as fake transients (a healthy hot key would
             # self-degrade under Zipfian traffic).
             self._note_spill_pressure(entries, h_mach, foundv, persv)
+
+        # Gubstat per-tenant ledger: the same validity stance as the tally
+        # above.  Fast-lane traffic is plane-direct (derived shadow keys
+        # are only made on the object path), and name strings decode
+        # lazily, at most once per newly admitted tenant.
+        ta = self.s.tenants
+        if ta is not None:
+            if len(entries) == 1:
+                t_names = entries[0].cols.name_hash
+                t_hits = entries[0].cols.hits
+            else:
+                t_names = np.concatenate(
+                    [e.cols.name_hash for e in entries]
+                )
+                t_hits = np.concatenate([e.cols.hits for e in entries])
+
+            def _decode_tenant(i: int):
+                off2 = 0
+                for e in entries:
+                    if i < off2 + e.cols.n:
+                        return self._decode_req(
+                            e.payload, e.cols, i - off2
+                        ).name
+                    off2 += e.cols.n
+                return None
+
+            ta.record_fast(t_names, t_hits, status, valid, _decode_tenant)
 
         # GLOBAL broadcast capture validity, judged over the WHOLE merged
         # drain (entries are concurrent RPCs; a per-entry view would miss

@@ -1,0 +1,504 @@
+"""Gubstat: device-table state introspection + per-tenant admission
+accounting (docs/observability.md).
+
+Two planes live here, deliberately decoupled from the request path:
+
+**TableStatsSampler** periodically runs the `table_stats` census kernel
+(ops/state.py) against the live serving table.  The census is
+read-only, so a sample never perturbs serving state; the dispatch
+is serialized with serving steps (backend lock, or a FIFO host job on
+the ring runner in ring mode) but the device->host FETCH always happens
+on an executor thread — the ring runner and the event loop never block
+on a stats readback, and the fast lane's `blocking_fetches` ledger
+stays untouched (pinned by tests/test_gubstat.py).
+
+**TenantAccounting** attributes admitted/denied/shed HITS to limit
+names, bounded to a top-K working set: a count-min sketch (HostCMS)
+ranks every name ever seen while an exact space-saving table holds the
+current heavy hitters.  Serves from the shadow planes — hot-key
+mirrors, lease-grant carves, degraded local shadows, reshard handoff
+shadows — are classified by their reserved key suffix and tallied as
+**over-admission** per (name, plane): the paper's bounded-staleness
+admission bounds (limit x (1 + fraction)) become live production
+metrics instead of test-only assertions.
+
+Counting stance: only LOCAL device serves are recorded (the object
+path's `_check_local` tail and the fast lane's `_finish_process`).
+Forwarded responses are counted by the owner that served them, so a
+cluster-wide sum over scrapes never double-counts a hit.
+"""
+from __future__ import annotations
+
+import asyncio
+import logging
+import threading
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from gubernator_tpu_torch.ops.state import (
+    AGE_BIN_EDGES_MS,
+    SHADOW_PLANES,
+    TableStats,
+)
+
+log = logging.getLogger("gubernator.gubstat")
+
+# Human-readable labels for the census histogram bins (ops/state.py
+# AGE_BIN_EDGES_MS = 1s, 10s, 1m, 10m, 1h).
+AGE_BIN_LABELS = ("le_1s", "le_10s", "le_1m", "le_10m", "le_1h", "inf")
+
+# Prometheus label values for the shadow planes (suffix minus the dot).
+PLANE_LABELS = tuple(p.lstrip(".") for p in SHADOW_PLANES)
+
+_OUTCOMES = ("allowed", "denied", "shed")
+
+
+def classify_plane(unique_key: str) -> str:
+    """Shadow-plane label for a request's unique_key ("" = direct).
+
+    Every derived-key machinery suffixes the ORIGINAL unique_key with
+    its reserved class suffix (hotkey.py MIRROR_SUFFIX, lease.py
+    LEASE_SUFFIX, service.py SHADOW_SUFFIX, reshard.py HANDOFF_SUFFIX),
+    so one suffix match at the device choke point classifies every
+    plane without new plumbing.
+    """
+    for suffix, label in zip(SHADOW_PLANES, PLANE_LABELS):
+        if unique_key.endswith(suffix):
+            return label
+    return ""
+
+
+class _Tenant:
+    __slots__ = ("name", "allowed", "denied", "shed", "over")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.allowed = 0
+        self.denied = 0
+        self.shed = 0
+        # plane label -> hits admitted through that shadow plane.
+        self.over: Dict[str, int] = {}
+
+    @property
+    def total(self) -> int:
+        return self.allowed + self.denied + self.shed
+
+
+class TenantAccounting:
+    """Bounded per-limit-name admission ledger (top-K + CMS tail).
+
+    The exact table holds up to ``4 x top_k`` names; when full, a new
+    name displaces the coldest resident only if the sketch estimate of
+    its lifetime traffic exceeds the resident's exact total (the
+    space-saving admission rule) — cardinality stays bounded under
+    open-world key sets while true heavy hitters always surface.
+
+    ``_lock`` is a leaf lock (tools/gubguard/lockorder.py rank 59):
+    taken from the event loop and fast-lane fetch threads while holding
+    nothing, and takes nothing.
+    """
+
+    def __init__(self, top_k: int = 16) -> None:
+        from gubernator_tpu_torch.runtime.sketch_backend import HostCMS
+
+        self.top_k = max(1, int(top_k))
+        self._cap = max(4 * self.top_k, 64)
+        self._lock = threading.Lock()
+        self._cms = HostCMS(depth=4, width=4096)
+        self._tenants: Dict[int, _Tenant] = {}
+        self.dropped = 0  # admissions lost to the cardinality bound
+        self.recorded_hits = 0
+        # Label tuples currently exported — publish() removes stale ones.
+        self._hit_labels: set = set()
+        self._over_labels: set = set()
+
+    # -- name fingerprints (XXH64, same stance as the parser's
+    # name_hash column — fast-lane and object-path tallies merge). ----
+    @staticmethod
+    def name_fingerprints(names: List[str]) -> np.ndarray:
+        from gubernator_tpu_torch import native
+
+        return native.hash_keys(names)
+
+    def _admit_locked(
+        self, fp: int, name_fn: Callable[[], Optional[str]]
+    ) -> Optional[_Tenant]:
+        t = self._tenants.get(fp)
+        if t is not None:
+            return t
+        if len(self._tenants) >= self._cap:
+            victim_fp, victim = min(
+                self._tenants.items(), key=lambda kv: kv[1].total
+            )
+            if int(self._cms.estimate_one(fp)) <= victim.total:
+                self.dropped += 1
+                return None
+            del self._tenants[victim_fp]
+        name = name_fn()
+        if not name:
+            self.dropped += 1
+            return None
+        t = _Tenant(name)
+        self._tenants[fp] = t
+        return t
+
+    def record(
+        self,
+        name: str,
+        hits: int,
+        outcome: str,
+        plane: str = "",
+        fp: Optional[int] = None,
+    ) -> None:
+        """Tally one serve (object path).  hits==0 peeks add nothing."""
+        hits = int(hits)
+        if hits <= 0:
+            return
+        if fp is None:
+            fp = int(self.name_fingerprints([name])[0])
+        with self._lock:
+            self._cms.update(
+                np.array([fp], dtype=np.int64),
+                np.array([hits], dtype=np.int64),
+            )
+            self.recorded_hits += hits
+            t = self._admit_locked(fp, lambda: name)
+            if t is None:
+                return
+            if outcome == "allowed":
+                t.allowed += hits
+                if plane:
+                    t.over[plane] = t.over.get(plane, 0) + hits
+            elif outcome == "denied":
+                t.denied += hits
+            else:
+                t.shed += hits
+
+    def record_checks(self, reqs, resps) -> None:
+        """Tally one object-path device batch (the `_check_local` tail).
+        hits==0 peeks add nothing; shadow-plane serves are classified by
+        their unique_key suffix and counted as over-admission."""
+        names: List[str] = []
+        rows: List[tuple] = []
+        for r, resp in zip(reqs, resps):
+            if resp is None:
+                continue
+            hits = int(getattr(r, "hits", 0) or 0)
+            if hits <= 0:
+                continue
+            outcome = "denied" if int(resp.status) == 1 else "allowed"
+            names.append(r.name)
+            rows.append((hits, outcome, classify_plane(r.unique_key)))
+        if not names:
+            return
+        fps = self.name_fingerprints(names)
+        weights = np.array([h for h, _, _ in rows], dtype=np.int64)
+        with self._lock:
+            self._cms.update(np.asarray(fps, dtype=np.int64), weights)
+            for name, fp, (hits, outcome, plane) in zip(names, fps, rows):
+                self.recorded_hits += hits
+                t = self._admit_locked(int(fp), lambda n=name: n)
+                if t is None:
+                    continue
+                if outcome == "allowed":
+                    t.allowed += hits
+                    if plane:
+                        t.over[plane] = t.over.get(plane, 0) + hits
+                else:
+                    t.denied += hits
+
+    def record_shed(self, name: str, hits: int) -> None:
+        """Tally hits refused by the pressure-shedding gate."""
+        self.record(name, hits, "shed")
+
+    def record_fast(
+        self,
+        name_hash: np.ndarray,
+        hits: np.ndarray,
+        status: np.ndarray,
+        valid: np.ndarray,
+        decode_name: Callable[[int], Optional[str]],
+    ) -> None:
+        """Vectorized fast-lane tally (one call per pipelined drain).
+
+        ``status`` is the device verdict per lane (0 UNDER / 1 OVER);
+        ``valid`` masks lanes that actually ran (h != 0).  Fast-lane
+        traffic is always plane-direct — derived shadow keys are only
+        synthesized on the object path.  ``decode_name(i)`` lazily
+        decodes lane i's name string; it is called at most once per
+        NEW tenant admitted (the sort-group idiom the spill-pressure
+        tally uses), never per lane.
+        """
+        m = np.asarray(valid) & (np.asarray(hits) > 0)
+        if not m.any():
+            return
+        nh = np.asarray(name_hash)[m]
+        ht = np.asarray(hits)[m].astype(np.int64)
+        st = np.asarray(status)[m]
+        orig = np.flatnonzero(m)
+        uniq, first, inv = np.unique(nh, return_index=True, return_inverse=True)
+        n_u = len(uniq)
+        allowed = np.zeros(n_u, dtype=np.int64)
+        denied = np.zeros(n_u, dtype=np.int64)
+        ok = st == 0
+        np.add.at(allowed, inv[ok], ht[ok])
+        np.add.at(denied, inv[~ok], ht[~ok])
+        with self._lock:
+            self._cms.update(uniq, allowed + denied)
+            self.recorded_hits += int(ht.sum())
+            for j in range(n_u):
+                fp = int(uniq[j])
+                lane = int(orig[first[j]])
+                t = self._admit_locked(fp, lambda i=lane: decode_name(i))
+                if t is None:
+                    continue
+                t.allowed += int(allowed[j])
+                t.denied += int(denied[j])
+
+    def top(self, k: Optional[int] = None) -> List[dict]:
+        """The current top-k tenants by total hits, hottest first."""
+        k = self.top_k if k is None else k
+        with self._lock:
+            ranked = sorted(
+                self._tenants.values(), key=lambda t: t.total, reverse=True
+            )[:k]
+            return [
+                {
+                    "name": t.name,
+                    "allowed": t.allowed,
+                    "denied": t.denied,
+                    "shed": t.shed,
+                    "over_admitted": dict(t.over),
+                }
+                for t in ranked
+            ]
+
+    def debug_vars(self) -> dict:
+        with self._lock:
+            tracked = len(self._tenants)
+        return {
+            "top": self.top(),
+            "tracked": tracked,
+            "cap": self._cap,
+            "dropped": self.dropped,
+            "recorded_hits": self.recorded_hits,
+        }
+
+    def publish(self, metrics) -> None:
+        """Refresh the gubernator_tenant_* gauges for the CURRENT top-K
+        and remove labels for tenants that fell out (the reshard_state
+        label-removal stance — a scrape never shows a stale tenant)."""
+        top = self.top()
+        hit_labels = set()
+        over_labels = set()
+        for t in top:
+            for outcome in _OUTCOMES:
+                metrics.tenant_hits.labels(
+                    name=t["name"], outcome=outcome
+                ).set(t[outcome])
+                hit_labels.add((t["name"], outcome))
+            for plane, n in t["over_admitted"].items():
+                metrics.tenant_over_admitted.labels(
+                    name=t["name"], plane=plane
+                ).set(n)
+                over_labels.add((t["name"], plane))
+        for stale in self._hit_labels - hit_labels:
+            try:
+                metrics.tenant_hits.remove(*stale)
+            except KeyError:
+                pass
+        for stale in self._over_labels - over_labels:
+            try:
+                metrics.tenant_over_admitted.remove(*stale)
+            except KeyError:
+                pass
+        self._hit_labels = hit_labels
+        self._over_labels = over_labels
+
+
+class TableStatsSampler:
+    """Periodic device-table census off the request path.
+
+    Each sample: enumerate the service's derived-key fingerprints per
+    shadow plane, pad to a power-of-two grid (bounded recompiles),
+    dispatch `table_stats` against the live table — via a FIFO host
+    job on the ring runner when the fast lane's ring is armed (the
+    dispatch slots between serving rounds), else directly under the
+    backend lock on an executor thread — then fetch the result on an
+    executor thread and publish it to /debug/vars, the
+    gubernator_table_* gauges, and the flight recorder.
+    """
+
+    def __init__(
+        self,
+        service,
+        fastpath=None,
+        metrics=None,
+        interval_s: float = 5.0,
+    ) -> None:
+        self.service = service
+        self.fastpath = fastpath
+        self.metrics = metrics
+        self.interval_s = float(interval_s)
+        self.samples = 0
+        self.errors = 0
+        self.last: Optional[dict] = None
+        self._task: Optional[asyncio.Task] = None
+
+    # -- lifecycle ----------------------------------------------------
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._task = None
+
+    async def _run(self) -> None:
+        while True:
+            try:
+                await self.sample()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # Sampling must never take the daemon down; a closing
+                # ring/backend mid-sample is expected at shutdown.
+                self.errors += 1
+                log.debug("table-stats sample failed", exc_info=True)
+            await asyncio.sleep(self.interval_s)
+
+    # -- one sample ---------------------------------------------------
+    def _shadow_grid(self) -> np.ndarray:
+        """[len(SHADOW_PLANES), M] fingerprint grid, M a power of two
+        >= 8 (recompile tiers: 8, 16, 32, ... — the backend warmup
+        compiles the base tier)."""
+        by_plane = self.service.derived_slot_fps_by_plane()
+        m = max([8] + [len(v) for v in by_plane.values()])
+        cap = 1 << (int(m) - 1).bit_length()
+        grid = np.zeros((len(SHADOW_PLANES), cap), dtype=np.int64)
+        for i, plane in enumerate(SHADOW_PLANES):
+            fps = by_plane.get(plane)
+            if fps is not None and len(fps):
+                grid[i, : len(fps)] = fps
+        return grid
+
+    async def sample(self) -> dict:
+        """Take one census now; returns the published table block."""
+        from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+        backend = self.service.backend
+        grid = self._shadow_grid()
+        loop = asyncio.get_running_loop()
+
+        def dispatch():
+            return backend.table_stats_dispatch(grid)
+
+        ring = getattr(self.fastpath, "_ring", None)
+        fetch = None
+        if ring is not None:
+            # Ring mode: the dispatch must interleave with the runner's
+            # serving loop — submit it as a FIFO host job.  wait() only
+            # blocks THIS executor thread for the runner's round edge;
+            # the fetch below never runs on the runner.
+            try:
+                wait = ring.submit_host(dispatch)
+                fetch = await loop.run_in_executor(None, wait)
+            except RingClosedError:
+                fetch = None
+        if fetch is None:
+            fetch = await loop.run_in_executor(None, dispatch)
+        st = await loop.run_in_executor(None, fetch)
+        block = self._publish(st, grid)
+        return block
+
+    def sample_sync(self) -> dict:
+        """Blocking census for CLIs/smokes running outside the loop."""
+        backend = self.service.backend
+        grid = self._shadow_grid()
+        st = backend.table_stats_dispatch(grid)()
+        return self._publish(st, grid)
+
+    def _publish(self, st: TableStats, grid: np.ndarray) -> dict:
+        # Every leaf carries a leading shard axis (length 1 on the
+        # single-device backend); totals sum it away, the per-shard
+        # occupancy row keeps it (mesh skew visibility).
+        occ_shards = np.asarray(st.occupancy).astype(np.int64)
+        tot = TableStats(
+            *[np.asarray(a).astype(np.int64).sum(axis=0) for a in st]
+        )
+        frac = np.asarray(tot.remaining_fraction)
+        shadow = np.asarray(tot.shadow_slots)
+        enumerated = (np.asarray(grid) != 0).sum(axis=1)
+        block = {
+            "samples": self.samples + 1,
+            "occupancy": int(tot.occupancy),
+            "live": int(tot.live),
+            "expired_resident": int(tot.expired_resident),
+            "per_shard_occupancy": [int(x) for x in occ_shards],
+            "bucket_fill": [int(x) for x in np.asarray(tot.bucket_fill)],
+            "slot_age_ms": {
+                AGE_BIN_LABELS[i]: int(x)
+                for i, x in enumerate(np.asarray(tot.slot_age))
+            },
+            "ttl_remaining_ms": {
+                AGE_BIN_LABELS[i]: int(x)
+                for i, x in enumerate(np.asarray(tot.ttl_remaining))
+            },
+            "remaining_fraction": {
+                "token": [int(x) for x in frac[0]],
+                "leaky": [int(x) for x in frac[1]],
+            },
+            "shadow_slots": {
+                PLANE_LABELS[i]: int(x) for i, x in enumerate(shadow)
+            },
+            "shadow_enumerated": {
+                PLANE_LABELS[i]: int(x) for i, x in enumerate(enumerated)
+            },
+            "age_bin_edges_ms": list(AGE_BIN_EDGES_MS),
+        }
+        self.last = block
+        self.samples += 1
+        m = self.metrics
+        if m is not None:
+            m.table_occupancy.set(block["occupancy"])
+            m.table_live.set(block["live"])
+            m.table_expired_resident.set(block["expired_resident"])
+            for i, v in enumerate(block["bucket_fill"]):
+                m.table_bucket_fill.labels(fill=str(i)).set(v)
+            for label, v in block["slot_age_ms"].items():
+                m.table_slot_age.labels(bucket=label).set(v)
+            for label, v in block["ttl_remaining_ms"].items():
+                m.table_ttl_remaining.labels(bucket=label).set(v)
+            for algo in ("token", "leaky"):
+                for i, v in enumerate(block["remaining_fraction"][algo]):
+                    m.table_remaining_fraction.labels(
+                        algo=algo, bucket=str(i)
+                    ).set(v)
+            for label, v in block["shadow_slots"].items():
+                m.table_shadow_slots.labels(plane=label).set(v)
+            m.table_stats_samples.inc()
+            fr = getattr(m, "flightrec", None)
+            if fr is not None:
+                fr.record(
+                    "table_stats",
+                    occupancy=block["occupancy"],
+                    live=block["live"],
+                    expired_resident=block["expired_resident"],
+                    shadow_slots=block["shadow_slots"],
+                )
+        return block
+
+    def debug_vars(self) -> dict:
+        out = {
+            "samples": self.samples,
+            "errors": self.errors,
+            "interval_s": self.interval_s,
+        }
+        if self.last is not None:
+            out.update(self.last)
+        return out

@@ -30,12 +30,13 @@ and flush to the key's owner in every OTHER region with the MULTI_REGION flag
 cleared (same loop-prevention trick as GLOBAL broadcasts), giving each region
 an eventually-consistent view of cross-region hit pressure over DCN.
 
-This is the JAX package's service without the mesh backend and its
-collective GlobalEngine (ROADMAP queue 1 item 9), the Store/Loader (item 6)
-and the host planes (hot keys and shedding, leases, resharding, regions,
-gubstat, the cold tier).  A config that arms any of them raises a
-ValueError naming its ROADMAP item; the planes' peer RPCs answer as the JAX
-service answers them with the planes disabled.
+This is the JAX package's service with the Store/Loader, the reshard
+plane (runtime/reshard.py), the gubstat tenant ledger (runtime/gubstat.py)
+and the cold tier's promote-on-access hook (runtime/coldtier.py), but
+without the mesh backend and its collective GlobalEngine (ROADMAP queue 1
+item 9) and without the hot-key, lease and region planes.  A config that
+arms one of those raises a ValueError naming its ROADMAP item; their peer
+RPCs answer as the JAX service answers them with the planes disabled.
 """
 from __future__ import annotations
 
@@ -83,26 +84,20 @@ def refuse_unported(cfg) -> None:
     """Raise for any part of `cfg` this port does not serve yet, naming
     the ROADMAP item that brings it (a silently ignored knob would serve
     different semantics than the operator configured)."""
-    if cfg.store is not None or cfg.loader is not None:
-        raise ValueError(
-            "Store/Loader persistence is not ported yet (ROADMAP queue 1 "
-            "item 6, persistence and the GLOBAL cache rows)"
-        )
     planes = (
         ("hotkey", "the hot-key survival plane and SLO shedding"),
         ("lease", "client-side admission leases"),
-        ("reshard", "elastic membership and live slot migration"),
         ("region", "planet-scale regions"),
-        ("stats", "gubstat state-plane introspection"),
-        ("tier", "the two-tier cold table"),
     )
     for field, what in planes:
         if getattr(cfg, field).enabled:
             raise ValueError(
-                f"{field}.enabled: {what} is not ported yet (ROADMAP "
-                "queue 1 item 7, the state-plane kernels and their host "
-                f"planes); set GUBER_{field.upper()}_ENABLED=false"
+                f"{field}.enabled: {what} is not ported yet (ROADMAP, "
+                "\"What the daemon still lacks\": the hot-key, lease and "
+                f"region planes); set GUBER_{field.upper()}_ENABLED=false"
             )
+
+_EMPTY_I64 = np.empty(0, dtype=np.int64)
 
 HEALTHY = "healthy"
 UNHEALTHY = "unhealthy"
@@ -160,7 +155,11 @@ class Service:
             self.backend = backend
         else:
             self.backend = TorchBackend(
-                self.cfg.device, clock=self.clock, metrics=self.metrics,
+                self.cfg.device,
+                clock=self.clock,
+                metrics=self.metrics,
+                store=self.cfg.store,
+                track_keys=(self.cfg.loader is not None),
             )
         self._inflight_checks = 0
         self._peer_credentials = peer_credentials
@@ -225,11 +224,47 @@ class Service:
             # Every actual spill — policy-driven or operator-called —
             # hits the Prometheus counter.
             self.sketch_backend.on_spill = self.metrics.sketch_spillover.inc
+        # The planes this port does not serve (refuse_unported) stay None,
+        # so the shared code that asks for them sees them disabled.
+        self.hotkeys = None
+        self.leases = None
+        self.regions = None
+        self._mirror_resets: Dict[int, RateLimitReq] = {}
+        # The cold tier's manager (runtime/coldtier.py): the daemon arms it
+        # when GUBER_TIER_ENABLED; note_traffic feeds its promote-on-access
+        # path.
+        self.tier = None
+        # Gubstat per-tenant admission ledger (runtime/gubstat.py), fed at
+        # the LOCAL serve choke points only (_check_local's tail, the fast
+        # lane's drain), so a cluster-wide sum never counts a hit twice.
+        self.tenants = None
+        if self.cfg.stats.enabled:
+            from gubernator_tpu_torch.runtime.gubstat import TenantAccounting
+
+            self.tenants = TenantAccounting(self.cfg.stats.top_k)
+        # Elastic membership (runtime/reshard.py): a remap streams moved
+        # rows old owner -> new owner instead of orphaning them.  None when
+        # disabled: a remap then resets the moved keys' counters, as the
+        # reference does.
+        self.reshard = None
+        if self.cfg.reshard.enabled:
+            from gubernator_tpu_torch.runtime.reshard import ReshardManager
+
+            self.reshard = ReshardManager(
+                self, self.cfg.reshard, metrics=self.metrics
+            )
+        # The ring as it stood before the latest remap (the inbound
+        # handoff's covered-key test, reshard.inbound_covering).
+        self._prev_picker = None
+        self._reshard_watch_task: Optional[asyncio.Task] = None
         self.global_mgr = GlobalManager(self)
         self.multi_region_mgr = MultiRegionManager(self)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._closed = False
         self._started = False
+        if self.cfg.loader is not None:
+            n = self.backend.load_items(self.cfg.loader.load())
+            log.info("loader restored %d items", n)
 
     async def start(self) -> None:
         """Start the background replication loops; requires a running event
@@ -241,6 +276,10 @@ class Service:
         self._loop = asyncio.get_running_loop()
         self.global_mgr.start()
         self.multi_region_mgr.start()
+        if self.reshard is not None:
+            self._reshard_watch_task = asyncio.ensure_future(
+                self._reshard_watch_loop()
+            )
         # Load the kernels and launch each batch tier once, so the first
         # client request pays for no build or module load inside an RPC
         # deadline.
@@ -283,6 +322,15 @@ class Service:
 
             old_local, old_region = self.local_picker, self.region_picker
             self.local_picker, self.region_picker = local, region
+            self._prev_picker = old_local
+
+        # Live resharding (docs/resharding.md): the remap may have moved
+        # arcs this node owned — stream their rows to the new owners
+        # instead of orphaning them.  Spawned (the delta needs a device
+        # fetch); routing already follows the NEW ring, and the handoff
+        # protocol bounds the window's double admission.
+        if self.reshard is not None and old_local.size() > 0:
+            self.reshard.on_remap(old_local, local)
 
         shutdown: List[PeerClient] = []
         for peer in old_local.peers():
@@ -324,19 +372,131 @@ class Service:
     def peer_list(self) -> List[PeerClient]:
         return self.local_picker.peers()
 
+    def _owns_key(self, key: str) -> bool:
+        """Does THIS node own `key` under the current ring?  An empty
+        pool owns everything (single-node mode)."""
+        if self.local_picker.size() == 0:
+            return True
+        try:
+            return self.get_peer(key).info().is_owner
+        except PoolEmptyError:
+            return True
+
+    # ------------------------------------------------------------------
+    # elastic membership (runtime/reshard.py; docs/resharding.md)
+    # ------------------------------------------------------------------
+    def _derived_slot_keys(self) -> List[str]:
+        """Hash-key strings of every derived slot this node knows about,
+        each ending with its reserved suffix class: the degraded shadows
+        and, while a handoff is inbound, the handoff shadows (the lease,
+        hot-mirror and region planes are not served by this port)."""
+        keys: List[str] = []
+        for pending in self._shadow.values():
+            keys.extend(pending.keys())
+        if self.reshard is not None:
+            from gubernator_tpu_torch.runtime.reshard import HANDOFF_SUFFIX
+
+            with self.reshard._lock:
+                for ib in self.reshard._inbound.values():
+                    keys.extend(k + HANDOFF_SUFFIX for k in ib.shadow)
+        return keys
+
+    def derived_slot_fps(self) -> np.ndarray:
+        """int64 fingerprints of the derived slots this node can
+        invalidate locally.  The reshard plane excludes them from
+        migration and the cold tier never demotes them: derived state
+        re-homes by re-creation at its new home, never by copy."""
+        keys = self._derived_slot_keys()
+        if not keys:
+            return _EMPTY_I64
+        from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+        return bulk_key_hash64(keys)
+
+    def derived_slot_fps_by_plane(self) -> Dict[str, np.ndarray]:
+        """The same enumeration grouped by reserved suffix class (the
+        ops/state.SHADOW_PLANES census order): the gubstat sampler's
+        input."""
+        from gubernator_tpu_torch.core.hashing import key_hash64
+        from gubernator_tpu_torch.ops.state import SHADOW_PLANES
+
+        grouped: Dict[str, List[int]] = {p: [] for p in SHADOW_PLANES}
+        for k in self._derived_slot_keys():
+            for p in SHADOW_PLANES:
+                if k.endswith(p):
+                    grouped[p].append(
+                        int(np.uint64(key_hash64(k)).view(np.int64))
+                    )
+                    break
+        return {
+            p: np.array(v, dtype=np.int64) if v else _EMPTY_I64
+            for p, v in grouped.items()
+        }
+
+    async def _reshard_watch_loop(self) -> None:
+        """Watchdog cadence for the reshard plane: self-cutover inbound
+        handoffs whose old owner went silent, expire released outbound
+        records past the stale-router linger."""
+        interval = max(self.cfg.reshard.timeout_s / 4.0, 0.05)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await self.reshard.check_timeouts()
+            except Exception as e:  # noqa: BLE001 — keep the cadence
+                log.warning("reshard watchdog failed: %s", e)
+
     async def handoff(
         self, from_addr: str, epoch: int, phase: str, total_rows: int
     ) -> Tuple[bool, str]:
-        """Peer-facing Handoff receive: resharding is not ported, so every
-        handoff is refused as the JAX service refuses it with the plane
-        disabled."""
-        return False, "resharding disabled"
+        """Peer-facing Handoff receive (docs/resharding.md)."""
+        if self.reshard is None:
+            return False, "resharding disabled"
+        return await self.reshard.on_handoff(
+            from_addr, epoch, phase, total_rows
+        )
 
     async def migrate(
         self, from_addr: str, epoch: int, rows, final: bool
     ) -> Tuple[int, int]:
-        """Peer-facing Migrate receive: refused (resharding disabled)."""
-        raise ApiError("FAILED_PRECONDITION", "resharding disabled")
+        """Peer-facing Migrate receive: inject one chunk of packed rows
+        for an active inbound handoff."""
+        if self.reshard is None:
+            raise ApiError(
+                "FAILED_PRECONDITION", "resharding disabled"
+            )
+        try:
+            return await self.reshard.on_migrate(
+                from_addr, epoch, rows, final
+            )
+        except KeyError as e:
+            raise ApiError("FAILED_PRECONDITION", str(e)) from None
+
+    async def drain_for_shutdown(self) -> int:
+        """Graceful scale-down: migrate every owned row to the ring
+        without this node (the autoscaler's SIGTERM/preStop drain), then
+        keep forwarding stale-routed checks until close.  Returns rows
+        shipped; 0 when resharding is disabled or single-node."""
+        if self.reshard is None:
+            return 0
+        return await self.reshard.drain_all()
+
+    def note_traffic(
+        self, key_hashes: np.ndarray, hits: np.ndarray
+    ) -> None:
+        """Feed one batch of served traffic to the cold tier: a served key
+        that is cold-resident schedules a FIFO promote (this batch was
+        already answered from whatever the device had).  Called once per
+        batch by the path that serves it."""
+        tier = self.tier
+        if tier is not None and len(key_hashes):
+            tier.note_access(key_hashes, hits)
+
+    def spawn_task(self, coro) -> None:
+        """Fire-and-forget a coroutine on the service loop, tracked so
+        shutdown can await it (the shadow-task discipline)."""
+        t = asyncio.ensure_future(coro)
+        self._shadow_tasks.add(t)
+        t.add_done_callback(self._shadow_tasks.discard)
 
     def _strip_sketch_global(
         self, reqs: Sequence[RateLimitReq]
@@ -400,8 +560,18 @@ class Service:
         local_cached: List[bool] = []
         local_owner_meta: List[Optional[str]] = []
         forwards: List[Tuple[int, PeerClient, RateLimitReq, str]] = []
+        covered: List[Tuple[int, RateLimitReq, str, object]] = []
 
         reqs = self._strip_sketch_global(reqs)
+        if self.tier is not None:
+            valid = [r for r in reqs if r.unique_key and r.name]
+            if valid:
+                from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+                self.note_traffic(
+                    bulk_key_hash64([r.hash_key() for r in valid]),
+                    np.array([r.hits for r in valid], dtype=np.int64),
+                )
 
         single_node = self.local_picker.size() == 0
         for i, req in enumerate(reqs):
@@ -436,12 +606,32 @@ class Service:
                     f"rate limit '{key}': {e}"
                 )
                 continue
+            is_global = has_behavior(req.behavior, Behavior.GLOBAL)
             if peer.info().is_owner:
+                rs = self.reshard
+                if rs is not None and rs.active() and not is_global:
+                    # Live resharding (docs/resharding.md): a key whose
+                    # arc is mid-handoff must not be served from this
+                    # node's (absent or not-yet-authoritative) row.
+                    ib = rs.inbound_covering(key)
+                    if ib is not None:
+                        # We are the NEW owner and the handoff is still
+                        # in flight: forward back / bounded shadow.
+                        covered.append((i, req, key, ib))
+                        continue
+                    tgt = rs.reroute_target(key)
+                    if tgt is not None:
+                        # We are a draining OLD owner whose rows are
+                        # gone: forwards-or-serves says forward.
+                        tp = self.local_picker.get_by_address(tgt)
+                        if tp is not None:
+                            forwards.append((i, tp, req, key))
+                            continue
                 self.metrics.getratelimit_counter.labels("local").inc()
                 local_idx.append(i)
                 local_cached.append(False)
                 local_owner_meta.append(None)
-            elif has_behavior(req.behavior, Behavior.GLOBAL):
+            elif is_global:
                 self.metrics.getratelimit_counter.labels("global").inc()
                 # Serve locally from replicated cache; queue the hit for the
                 # owner (gubernator.go:272-283, 420-460).
@@ -455,6 +645,12 @@ class Service:
         tasks = [
             asyncio.ensure_future(self._forward(peer, req, key))
             for (_, peer, req, key) in forwards
+        ]
+        covered_tasks = [
+            asyncio.ensure_future(
+                self.reshard.serve_covered(req, key, ib)
+            )
+            for (_, req, key, ib) in covered
         ]
 
         try:
@@ -477,6 +673,18 @@ class Service:
                         responses[i] = RateLimitResp(
                             error=f"Error while fetching rate limit "
                             f"'{key}' from peer: {resp}"
+                        )
+                    else:
+                        responses[i] = resp
+            if covered_tasks:
+                results = await asyncio.gather(
+                    *covered_tasks, return_exceptions=True
+                )
+                for (i, _, key, _ib), resp in zip(covered, results):
+                    if isinstance(resp, BaseException):
+                        responses[i] = RateLimitResp(
+                            error=f"Error serving resharding key "
+                            f"'{key}': {resp}"
                         )
                     else:
                         responses[i] = resp
@@ -537,12 +745,20 @@ class Service:
                     out[i] = sk_resps[j]
                 for j, i in enumerate(ex_idx):
                     out[i] = ex_resps[j]
+                if self.tenants is not None:
+                    self.tenants.record_checks(reqs, out)
                 self._touch_global_captures(
                     [reqs[i] for i in ex_idx],
                     [use_cached[i] for i in ex_idx] if use_cached else None,
                 )
                 return out  # type: ignore[return-value]
         resps = await self._local_batcher.check(reqs, use_cached)
+        # Gubstat: every LOCAL device serve, direct or a shadow plane's
+        # (degraded and handoff shadows ride through here with their
+        # suffixed unique_key), tallies into the tenant ledger exactly
+        # once, at this choke point.
+        if self.tenants is not None:
+            self.tenants.record_checks(reqs, resps)
         self._touch_global_captures(reqs, use_cached)
         return resps
 
@@ -838,6 +1054,68 @@ class Service:
         # client's original bytes — re-strip here so a GLOBAL+sketch
         # request never queues an exact-table broadcast for a sketch key.
         reqs = self._strip_sketch_global(reqs)
+        if self.tier is not None:
+            # Owner-side promote-on-access: forwarded traffic is the
+            # traffic this owner serves.
+            valid = [r for r in reqs if r.unique_key and r.name]
+            if valid:
+                from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+                self.note_traffic(
+                    bulk_key_hash64([r.hash_key() for r in valid]),
+                    np.array([r.hits for r in valid], dtype=np.int64),
+                )
+        rs = self.reshard
+        special: Dict[int, object] = {}
+        if rs is not None and rs.active():
+            # Live resharding (docs/resharding.md): forwarded checks for
+            # mid-handoff keys must not apply on this node's table.
+            # Covered inbound keys (we are the new owner, handoff in
+            # flight) forward back / serve the bounded shadow; rerouted
+            # outbound keys (our rows are gone) forward to the new owner.
+            for i, r in enumerate(reqs):
+                if not r.unique_key or not r.name:
+                    continue
+                if has_behavior(r.behavior, Behavior.GLOBAL):
+                    continue
+                key = r.hash_key()
+                ib = rs.inbound_covering(key)
+                if ib is not None:
+                    special[i] = ("covered", key, ib)
+                    continue
+                tgt = rs.reroute_target(key)
+                if tgt is not None:
+                    tp = self.local_picker.get_by_address(tgt)
+                    if tp is not None:
+                        special[i] = ("reroute", key, tp)
+        if special:
+            async def _serve_special(spec, r):
+                kind, key, arg = spec
+                if kind == "covered":
+                    return await rs.serve_covered(r, key, arg)
+                return await self._forward(arg, r, key)
+
+            kept = [r for i, r in enumerate(reqs) if i not in special]
+            inner_task = asyncio.gather(*(
+                _serve_special(special[i], reqs[i])
+                for i in sorted(special)
+            ), return_exceptions=True)
+            inner = await self._check_local(kept) if kept else []
+            spec_resps = dict(zip(sorted(special), await inner_task))
+            it = iter(inner)
+            out: List[RateLimitResp] = []
+            for i, r in enumerate(reqs):
+                if i in special:
+                    resp = spec_resps[i]
+                    if isinstance(resp, BaseException):
+                        resp = RateLimitResp(
+                            error="Error serving forwarded key "
+                            f"'{r.hash_key()}': {resp}"
+                        )
+                    out.append(resp)
+                else:
+                    out.append(next(it))
+            return out
         return await self._check_local(reqs)
 
     async def update_peer_globals(
@@ -914,6 +1192,11 @@ class Service:
                     f"Pressure on peer {peer.info().grpc_address}: "
                     f"advertised p99 at {ratio:.2f}x its SLO target"
                 )
+        # Migration-state lines (docs/resharding.md): in-flight handoffs
+        # are advisory — the node IS serving, just with covered keys
+        # routed through the handoff protocol.
+        if self.reshard is not None and self.reshard.active():
+            pressure_lines.extend(self.reshard.health_lines())
         if pressure_lines:
             extra = "|".join(pressure_lines)
             h.message = f"{h.message}|{extra}" if h.message else extra
@@ -932,13 +1215,26 @@ class Service:
         return h
 
     async def close(self) -> None:
-        """Flush managers, shut down peers (gubernator.go:159-189)."""
+        """Flush managers, run the Loader save, shut down peers
+        (gubernator.go:159-189)."""
         if self._closed:
             return
         self._closed = True
+        if self._reshard_watch_task is not None:
+            self._reshard_watch_task.cancel()
+            await asyncio.gather(
+                self._reshard_watch_task, return_exceptions=True
+            )
+            self._reshard_watch_task = None
         await self.global_mgr.close()
         await self.multi_region_mgr.close()
         await self._local_batcher.close()
+        if self.cfg.loader is not None:
+            loop = asyncio.get_running_loop()
+            items = await loop.run_in_executor(
+                self._dev_executor, self.backend.live_items
+            )
+            self.cfg.loader.save(iter(items))
         peers = set(self.local_picker.peers()) | set(
             self.region_picker.peers()
         )

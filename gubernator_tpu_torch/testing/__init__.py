@@ -255,3 +255,42 @@ def cross_chunk_lanes(
     hits[rows, lane] = 1
     lim[rows, lane] = cross
     return kh, hits, lim, lane
+
+
+# -- the state plane -------------------------------------------------------
+
+def random_bucket_rows(rng: np.random.Generator, ks: KeySpace,
+                       table_keys: np.ndarray, B: int,
+                       now: int) -> Dict[str, np.ndarray]:
+    """BucketRows columns (numpy, field names of ops.step.BucketRows) for
+    one upsert / inject batch of B lanes, keys unique: about a quarter are
+    keys already in the table (live, expired and cached rows: the inject's
+    merge lanes), four or more fresh keys in each hot (full) bucket, so a
+    fourth contender finds no slot, fresh keys elsewhere, and ~10% inactive
+    lanes (fingerprint 0) holding garbage.  Leaky rows carry fractional
+    remaining."""
+    present = np.unique(table_keys[table_keys != 0])
+    cand = np.concatenate([
+        rng.choice(present, min(len(present), B // 4), replace=False),
+        ks.in_bucket(np.repeat(ks.hot, 5)),
+        ks.in_bucket(rng.integers(0, ks.nb, B)),
+    ])
+    cand = cand[np.sort(np.unique(cand, return_index=True)[1])][:B]
+    key = np.zeros(B, dtype=np.int64)
+    key[:len(cand)] = rng.permutation(cand)
+    limit = rng.choice([1, 10, 100, 2000], B).astype(np.int64)
+    cols = dict(
+        key_hash=key,
+        algo=rng.integers(0, 2, B).astype(np.int32),
+        limit=limit,
+        duration=rng.choice([1000, 60_000], B).astype(np.int64),
+        remaining=rng.integers(-2, 2100, B).astype(np.int64),
+        remaining_f=rng.random(B) * 2100.0,
+        t0=now - rng.integers(0, 100_000, B),
+        status=rng.integers(0, 2, B).astype(np.int32),
+        burst=rng.choice([0, 10, 2000], B).astype(np.int64),
+        expire_at=now + rng.integers(1, 120_000, B),
+    )
+    off = rng.random(B) < 0.1
+    cols["key_hash"][off] = 0
+    return cols

@@ -63,31 +63,68 @@ class Cluster:
         datacenters: Sequence[str],
         device: Optional[DeviceConfig] = None,
         conf_template: Optional[DaemonConfig] = None,
+        addresses: Optional[Sequence[str]] = None,
     ) -> "Cluster":
         """Start one daemon per entry of `datacenters`
-        (cluster.StartWith, cluster/cluster.go:111-146)."""
+        (cluster.StartWith, cluster/cluster.go:111-146), on `addresses`
+        when given (fixed gRPC ports: the ring places keys by hashing the
+        addresses, so two clusters on the same ports place keys alike)."""
         c = cls()
 
         async def boot() -> None:
-            for dc in datacenters:
-                base = conf_template or DaemonConfig()
-                conf = replace(
-                    base,
-                    grpc_listen_address="127.0.0.1:0",
-                    http_listen_address="127.0.0.1:0",
-                    data_center=dc,
-                    behaviors=fast_test_behaviors(),
-                    device=device or TEST_DEVICE,
+            for i, dc in enumerate(datacenters):
+                d = await c._boot_one(
+                    conf_template, device, dc,
+                    addresses[i] if addresses else "127.0.0.1:0",
                 )
-                d = Daemon(conf)
-                await d.start()
-                d.conf.advertise_address = d.grpc_address
                 c.daemons.append(d)
             await c._push_peers()
             await wait_for_connect([d.grpc_address for d in c.daemons])
 
         c.run(boot(), timeout=300.0)
         return c
+
+    async def _boot_one(self, conf_template, device, dc: str,
+                        grpc_address: str) -> Daemon:
+        conf = replace(
+            conf_template or DaemonConfig(),
+            grpc_listen_address=grpc_address,
+            http_listen_address="127.0.0.1:0",
+            data_center=dc,
+            behaviors=fast_test_behaviors(),
+            device=device or TEST_DEVICE,
+        )
+        d = Daemon(conf)
+        await d.start()
+        d.conf.advertise_address = d.grpc_address
+        return d
+
+    # -- membership changes (static set_peers) ----------------------------
+    def boot(
+        self,
+        device: Optional[DeviceConfig] = None,
+        conf_template: Optional[DaemonConfig] = None,
+        data_center: str = "",
+        grpc_address: str = "127.0.0.1:0",
+    ) -> Daemon:
+        """Start one more daemon on the cluster loop WITHOUT pushing the
+        peer set: a joiner before it joins."""
+        return self.run(
+            self._boot_one(conf_template, device, data_center, grpc_address),
+            timeout=300.0,
+        )
+
+    def join(self, d: Daemon) -> None:
+        """Add a booted daemon to every member's static peer set (the
+        remap a scale-out applies)."""
+        self.daemons.append(d)
+        self.run(self._push_peers(), timeout=60.0)
+
+    def leave(self, d: Daemon) -> None:
+        """Remove `d` from the survivors' peer sets; `d` keeps running
+        until the caller closes it (drain first for a graceful leave)."""
+        self.daemons.remove(d)
+        self.run(self._push_peers(), timeout=60.0)
 
     async def _push_peers(self) -> None:
         peers = [

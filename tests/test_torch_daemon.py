@@ -64,7 +64,8 @@ def conf_for(pkg, grpc_addr, http_addr, peers=()):
                                      platform="cpu"),
             behaviors=pcfg.fast_test_behaviors(),
             peer_discovery_type="static" if peers else "none",
-            static_peers=list(peers), peer_debounce_ms=0)
+            static_peers=list(peers), peer_debounce_ms=0,
+            stats=pcfg.StatsConfig(enabled=False))
     return jcfg.DaemonConfig(
         grpc_listen_address=grpc_addr, http_listen_address=http_addr,
         advertise_address=grpc_addr if peers else "",
@@ -125,6 +126,10 @@ def test_one_node_wire_health_http_and_metrics(frozen_clock):
                     out.append(await r.json())
                 async with s.get(base + "/v1/HealthCheck") as r:
                     out.append(await r.json())
+                # The fixture's GLOBAL key queues an owner broadcast whose
+                # hits=0 re-read is one more counted check: let it land
+                # before the scrape, in both packages.
+                await asyncio.sleep(0.6)
                 async with s.get(base + "/metrics") as r:
                     text = await r.text()
                 async with s.get(base + "/debug/vars") as r:

@@ -119,3 +119,94 @@ def test_port_daemon_serves_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "DAEMON-ISOLATED-OK" in proc.stdout
+
+
+STATE_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent("""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from gubernator_tpu_torch.cli import gubtop
+    from gubernator_tpu_torch.core.config import (
+        Config,
+        DaemonConfig,
+        DeviceConfig,
+        TierConfig,
+    )
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.core.types import RateLimitReq
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.runtime.checkpoint import TableCheckpointer
+    from gubernator_tpu_torch.runtime.coldtier import TierManager
+    from gubernator_tpu_torch.runtime.reshard import compute_moved
+    from gubernator_tpu_torch.runtime.service import Service
+    from gubernator_tpu_torch.runtime.store import MockLoader, MockStore
+
+    dev = DeviceConfig(num_slots=256, ways=8, batch_size=16, platform="cpu")
+    reqs = [RateLimitReq(name="iso", unique_key=f"k{i}", hits=2, limit=5,
+                         duration=60_000) for i in range(20)]
+
+    async def persistence():
+        store, loader = MockStore(), MockLoader()
+        svc = Service(Config(device=dev, store=store, loader=loader))
+        await svc.start()
+        await svc.get_rate_limits(reqs)
+        be = svc.backend
+        with tempfile.TemporaryDirectory() as d:
+            TableCheckpointer(d).save(be, step=1)
+            TableCheckpointer(d).restore(be)
+        st = be.table_stats_dispatch(np.zeros((5, 8), dtype=np.int64))()
+        assert int(st.live[0]) == 20, st
+        packed, rf = be.migrate_extract_rows(bulk_key_hash64(
+            [r.hash_key() for r in reqs[:4]]))
+        assert (packed[0] != 0).all()
+        tier = TierManager(svc, TierConfig(enabled=True, cold_capacity=64,
+                                           high_water=0.05, low_water=0.02,
+                                           demote_batch=8))
+        assert tier.demote_once_sync() > 0
+        await svc.close()
+        assert len(store.data) == 20 and loader.called["save"] == 1
+        assert compute_moved(np.zeros(0, dtype=np.int64), svc.local_picker,
+                             svc.local_picker) == {}
+
+    async def daemon():
+        d = Daemon(DaemonConfig(
+            grpc_listen_address="127.0.0.1:0",
+            http_listen_address="127.0.0.1:0", device=dev,
+            tier=TierConfig(enabled=True, cold_capacity=64)))
+        await d.start()
+        try:
+            await d.service.get_rate_limits(reqs[:1])
+            assert d.stats_sampler is not None and d.tier is not None
+            assert d.service.reshard is not None
+            block = await d.stats_sampler.sample()
+            assert block["live"] >= 1, block
+        finally:
+            await d.close()
+
+    asyncio.run(asyncio.wait_for(persistence(), 60))
+    asyncio.run(asyncio.wait_for(daemon(), 60))
+    assert callable(gubtop.render)
+    bad = sorted(m for m in sys.modules if blocked(m))
+    assert not bad, bad
+    for m in ("runtime.checkpoint", "runtime.coldtier", "runtime.reshard",
+              "runtime.gubstat", "runtime.store", "cli.gubtop"):
+        assert "gubernator_tpu_torch." + m in sys.modules, m
+    print("STATE-ISOLATED-OK")
+""")
+
+
+def test_port_state_plane_runs_without_jax():
+    """With jax and the JAX package blocked, the state plane runs on the
+    CPU: Store and Loader, a checkpoint, the census, a migrate extract, a
+    tier demote, and a daemon with the sampler, the tier and the reshard
+    plane armed."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", STATE_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "STATE-ISOLATED-OK" in proc.stdout

@@ -39,6 +39,8 @@ def _one_torch_thread():
 
 
 def port_service(clock, **kw) -> Service:
+    kw.setdefault("reshard", pcfg.ReshardConfig(enabled=False))
+    kw.setdefault("stats", pcfg.StatsConfig(enabled=False))
     return Service(pcfg.Config(
         device=pcfg.DeviceConfig(num_slots=SLOTS, ways=WAYS, batch_size=B,
                                  platform="cpu"),
@@ -246,28 +248,36 @@ def test_unported_configurations_raise_naming_their_roadmap_item():
     cpu = pcfg.DeviceConfig(num_slots=256, ways=8, batch_size=16,
                             platform="cpu")
     cases = [
-        dict(store=object()), dict(loader=object()),
         dict(hotkey=pcfg.HotKeyConfig(enabled=True)),
         dict(lease=pcfg.LeaseConfig(enabled=True)),
-        dict(reshard=pcfg.ReshardConfig(enabled=True)),
         dict(region=pcfg.RegionConfig(enabled=True, name="a")),
-        dict(stats=pcfg.StatsConfig(enabled=True)),
-        dict(tier=pcfg.TierConfig(enabled=True)),
     ]
     for kw in cases:
         with pytest.raises(ValueError, match="ROADMAP"):
             Service(pcfg.Config(device=cpu, **kw))
     with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
         pcfg.DeviceConfig(num_slots=256, ways=8, num_shards=2)
+    # The state plane is served: a Store, a Loader, resharding, gubstat
+    # and the cold tier's config construct, and reshard and stats are on
+    # by default, as in the JAX package.
+    from gubernator_tpu_torch.runtime.store import MockLoader, MockStore
+
+    assert pcfg.ReshardConfig().enabled and pcfg.StatsConfig().enabled
+    assert not pcfg.TierConfig().enabled
+    for kw in (dict(store=MockStore()), dict(loader=MockLoader()),
+               dict(tier=pcfg.TierConfig(enabled=True))):
+        svc = Service(pcfg.Config(device=cpu, **kw))
+        assert svc.reshard is not None and svc.tenants is not None
+        svc._dev_executor.shutdown()
 
     from gubernator_tpu_torch.daemon import Daemon
 
     for kw in (dict(peer_discovery_type="dns"),
                dict(peer_discovery_type="gossip"),
-               dict(chaos_plan="plan.json"),
-               dict(reshard_drain_on_close=True)):
+               dict(chaos_plan="plan.json")):
         with pytest.raises(ValueError, match="ROADMAP"):
             Daemon(pcfg.DaemonConfig(device=cpu, **kw))
+    Daemon(pcfg.DaemonConfig(device=cpu, reshard_drain_on_close=True))
 
 
 def test_default_platform_is_the_card():
