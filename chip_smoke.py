@@ -77,6 +77,22 @@ Phases (any failure exits non-zero and prints no result line):
      of each state-plane op replays on CPU copies of its inputs; the
      state-plane line (ms, launches per path, bound) precedes the kernel
      line.
+ 14. the hot-key and lease planes at full width: a 3-node pipelined
+     cluster at 2^24 slots a node, each warmed through K1 to 1M live keys;
+     two LeasedClients and a V1Client admit exactly 100 x (1 + 2 x 0.25)
+     of one key; 64 LeasedClients over 1000 keys each run 20 checks a key
+     (checks/s, RPCs per 1000 checks, Lease RPC p50/p99) and every owner
+     row then holds every hit; a pressured owner's hot key promotes on its
+     next-arc mirror, which serves it on the compiled lane's serve_mirror
+     split within exactly limit x (1 + mirrors x fraction), and collapses
+     when the pressure clears; a seeded chaos partition between a holder's
+     daemon and the owner keeps admission under the closed-form bound, and
+     the burned hits reconcile exactly once after the heal.  Every K1
+     dispatch of the phase replays through the plain version.
+
+Phases 10-13 run with the JAX package's defaults: the hot-key and lease
+planes on, the flight recorder off, so no owner advertises pressure; each
+requires that nothing promoted and no mirror served.
 
 Needs torch with CUDA, nvcc and a C++ compiler, and the daemon's wire
 stack (grpcio, protobuf, aiohttp, prometheus_client, xxhash); imports no
@@ -290,9 +306,12 @@ def phase_random(dev) -> float:
     return err
 
 
-def phase_warm(be, dev, label="phase 3") -> None:
-    """Fill the table with synthetic fingerprints through the kernel."""
+def phase_warm(be, dev, label="phase 3", keys=None) -> None:
+    """Fill the table with `keys` (WARM_KEYS) synthetic fingerprints
+    through the kernel."""
     import torch
+
+    keys = WARM_KEYS if keys is None else keys
 
     rng = np.random.default_rng(SEED)
     now = be.clock.millisecond_now()
@@ -302,9 +321,9 @@ def phase_warm(be, dev, label="phase 3") -> None:
     t0 = time.perf_counter()
     n_launch = 0
     while True:
-        if fed >= WARM_KEYS:
+        if fed >= keys:
             occ = be.occupancy()
-            if occ >= WARM_KEYS:
+            if occ >= keys:
                 break
         h = rng.integers(-(2**63), 2**63 - 1, size=(k, BATCH),
                          dtype=np.int64, endpoint=True)
@@ -322,7 +341,7 @@ def phase_warm(be, dev, label="phase 3") -> None:
         _, seq = be.persistent_serve_dispatch(qs, nows, seq)
         fed += k * BATCH
         n_launch += 1
-        if fed >= WARM_KEYS:
+        if fed >= keys:
             k = 1  # top up one round at a time
     torch.cuda.synchronize()
     log(f"{label}: fed {fed} fingerprints in {n_launch} launches "
@@ -1204,6 +1223,23 @@ def start_daemons(dev, n, slots, mode, **conf):
         conf_template=DaemonConfig(serve_mode=mode, sketch=sketch, **conf))
 
 
+def require_planes_inactive(label, daemons) -> None:
+    """The hot-key and lease planes are armed, as by default, and with the
+    flight recorder off no owner advertised pressure: nothing promoted and
+    no mirror served."""
+    for d in daemons:
+        s = d.service
+        if s.hotkeys is None or s.leases is None:
+            raise AssertionError(f"{label}: the hot-key or lease plane is "
+                                 "off under the defaults")
+        if s.hotkeys.promotions or s.mirror_served:
+            raise AssertionError(
+                f"{label}: {s.hotkeys.promotions} promotions, "
+                f"{s.mirror_served} mirror serves without pressure")
+    log(f"{label}: hot-key and lease planes on in {len(daemons)} daemon(s); "
+        "promotions 0, mirror_served 0 (flight recorder off)")
+
+
 def percentiles_ms(lat):
     a = np.sort(np.asarray(lat)) * 1e3
     return [float(np.percentile(a, q)) for q in (50, 99, 99.9)]
@@ -1237,12 +1273,15 @@ def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
         per_client = [rpc_requests(rng, rpcs, first_key=1 + 10_000 * j)
                       for j in range(clients)]
         rec = DispatchRecorder(be, sb)
+        spent = {}
+        time_calls(d.service, "note_traffic", spent)
         serve_kernel.launches = cms_kernel.launches = 0
         # The clients share the daemon's event loop: grpc.aio serves one
         # loop per process.
         wall, lat, counts = c.run(drive_rpcs(d.grpc_address, per_client),
                                   timeout=900)
         k1, k2 = serve_kernel.launches, cms_kernel.launches
+        del d.service.note_traffic
         c.run(control_key(d.grpc_address))
         n = clients * rpcs * RPC_REQS
         if sum(counts) != n or k1 == 0 or k2 == 0:
@@ -1263,6 +1302,16 @@ def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
                 f"{v['dispatch_ms_total']:.1f}, fetch {v['fetch_ms_total']:.1f}"
                 f", waiting for a fetch slot {v['bubble_ms_total']:.1f}"
                 for lane, v in lanes.items()))
+        calls, note_s, _, note_cpu = spent["note_traffic"]
+        merges = max(lanes.get("mach", {}).get("drains", 0), 1)
+        log(f"phase 10/11: {mode} hot-key plane: note_traffic {calls} calls "
+            f"of {RPC_REQS} requests, per machinery-lane merge "
+            f"{note_s * 1e3 / merges:.4f} ms host wall ({note_s * 1e3:.3f} "
+            f"ms in all, {note_s * 1e3 / max(calls, 1):.4f} a call, waits "
+            f"for the interpreter lock included) and "
+            f"{note_cpu * 1e3 / merges:.4f} ms of the calling thread's CPU "
+            f"({note_cpu * 1e3 / max(calls, 1):.4f} a call), over {merges} "
+            f"merges")
         if profile:
             profile_daemon(c, d, rng, clients)
         rec.close()
@@ -1286,6 +1335,7 @@ def serve_mode_run(dev, mode, slots, clients, rpcs, rng, smi, warm=False,
             f"exact on the wire")
         if after is not None:
             err = max(err, after(c, d))
+        require_planes_inactive(f"phase 10/11 ({mode})", c.daemons)
         return err, k1, k2
     finally:
         c.stop()
@@ -1414,6 +1464,8 @@ def cluster_path(dev, smi) -> float:
                     raise AssertionError(
                         f"GLOBAL through node 0: {len(bad)} bad answers, "
                         f"{remote} from replicas, {len(owners)} owners")
+                require_planes_inactive("phase 11 (3-node cluster)",
+                                        c.daemons)
                 log(f"phase 11: 3-node cluster ({SMALL_SLOTS} slots each, "
                     f"pipelined): {CLUSTER_RPCS} RPCs through node 0, "
                     f"{fwd} answers forwarded to other owners; 128 GLOBAL "
@@ -1697,21 +1749,23 @@ async def send_sequential(addr, payloads):
 
 
 def time_calls(obj, name, spent):
-    """Wrap the method `name` of `obj` so that each call adds one call and
-    its host seconds to spent[name] = [calls, seconds, lock]."""
+    """Wrap the method `name` of `obj` so that each call adds one call, its
+    host seconds and the calling thread's CPU seconds to spent[name] =
+    [calls, seconds, lock, CPU seconds]."""
     import threading
 
     fn = getattr(obj, name)
-    acc = spent.setdefault(name, [0, 0.0, threading.Lock()])
+    acc = spent.setdefault(name, [0, 0.0, threading.Lock(), 0.0])
 
     def timed(*a, **k):
-        t = time.perf_counter()
+        t, c0 = time.perf_counter(), time.thread_time()
         try:
             return fn(*a, **k)
         finally:
             with acc[2]:
                 acc[0] += 1
                 acc[1] += time.perf_counter() - t
+                acc[3] += time.thread_time() - c0
 
     setattr(obj, name, timed)
 
@@ -1800,6 +1854,7 @@ def phase_checkpoint(c, d, dev, smi, state) -> float:
             err = max(err, rec.replay(dev, t, sk))
         if answers[0] != answers[1]:
             raise AssertionError("the restored daemon answers differently")
+        require_planes_inactive("phase 12 (restored daemon)", [d2])
         log(f"phase 12: 8 RPCs of {RPC_REQS} (PERF.md §4 mix, 1/8 sketch) "
             f"byte-equal on the wire from the saved and the restored "
             f"daemon; {len(recs[0].k1)}+{len(recs[1].k1)} K1 and "
@@ -2025,11 +2080,94 @@ def phase_tier(c, d, dev, smi, snap, now):
         f"drain_promotes_sync) in {promote_s * 1e3:.3f} ms (host clock), "
         f"each equal to its cold row (none had a fresh row to merge with); "
         f"promote latency p99 bucket {tm.debug_vars()['promote_latency']['p99_s']}")
+    tier_lane_promote(c, d, tm)
+
+
+# Named keys written before the census so that the tier demotes some: every
+# row is stamped at the frozen instant, so a demote pass takes the live rows
+# in slot order, and these sit in the first 1/16 of the buckets.
+TIER_KEYS = 64
+TIER_KEY_HITS = 3
+
+
+def tier_key_names(be):
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+
+    nb = np.uint64(be.cfg.num_slots // be.cfg.ways)
+    out, i = [], 0
+    while len(out) < TIER_KEYS:
+        names = [f"tk{j}" for j in range(i, i + 4096)]
+        b = bulk_key_hash64([f"tier_{n}" for n in names]).view(np.uint64) % nb
+        out += [n for n, x in zip(names, b) if x < nb // np.uint64(16)]
+        i += 4096
+    return out[:TIER_KEYS]
+
+
+def tier_payload(names, hits):
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    return pb.GetRateLimitsReq(requests=[pb.RateLimitReq(
+        name="tier", unique_key=n, hits=hits, limit=100,
+        duration=3_600_000) for n in names]).SerializeToString()
+
+
+def plant_tier_keys(c, d):
+    """TIER_KEYS named token keys, TIER_KEY_HITS hits each, on the wire."""
+    c.run(send_sequential(d.grpc_address, [tier_payload(
+        tier_key_names(d.service.backend), TIER_KEY_HITS)]), timeout=120)
+
+
+def tier_lane_promote(c, d, tm):
+    """Phase 13b under the defaults: one demoted key checked through the
+    compiled lane answers from a fresh row, the lane's note_traffic (hot
+    keys on) queues its promote, and the promote merges the cold row's
+    consumption: the served row then holds the cold hits plus the new."""
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    names = tier_key_names(d.service.backend)
+    fps = bulk_key_hash64([f"tier_{n}" for n in names])
+    cold = np.flatnonzero(tm.cold.member_hits(fps))
+    if not len(cold):
+        raise AssertionError("tier: none of the planted keys was demoted")
+    name = names[int(cold[0])]
+    snap = tm.cold.snapshot()
+    row = np.flatnonzero(snap["key_hash"] == fps[int(cold[0])])[0]
+    cold_used = 100 - int(snap["remaining"][row])
+    fp = d.fastpath
+    served, fallbacks, hits0 = fp.served, fp.fallbacks, tm.cold_hits
+    d.service.tier = tm
+    try:
+        raw = c.run(send_sequential(d.grpc_address,
+                                    [tier_payload([name], 2)]))[0]
+        resp = pb.GetRateLimitsResp.FromString(raw).responses[0]
+        queued = tm.cold_hits - hits0
+        promoted = tm.drain_promotes_sync()
+    finally:
+        d.service.tier = None
+    item = d.service.backend.get_cache_item(f"tier_{name}")
+    if (fp.served != served + 1 or fp.fallbacks != fallbacks
+            or resp.error or resp.remaining != 100 - 2 or queued != 1
+            or promoted != 1 or cold_used != TIER_KEY_HITS
+            or int(item.remaining) != 100 - cold_used - 2):
+        raise AssertionError(
+            f"tier: compiled-lane promote of tier_{name}: served "
+            f"{fp.served - served}, fallbacks {fp.fallbacks - fallbacks}, "
+            f"answer {resp.remaining} {resp.error!r}, queued {queued}, "
+            f"promoted {promoted}, cold used {cold_used}, row "
+            f"{item and item.remaining}")
+    log(f"phase 13: {len(cold)} of {TIER_KEYS} planted keys demoted; "
+        f"tier_{name} checked through the compiled lane with 2 hits answered "
+        f"remaining {resp.remaining} from a fresh row, its note_traffic "
+        f"queued 1 promote, and the promote merged the cold row's "
+        f"{cold_used} hits: the row holds remaining {int(item.remaining)} "
+        f"= 100 - {cold_used} - 2")
 
 
 def phase10_state(state, dev, name, smi, times):
     """Phases 12a and 13a-b on phase 10's persistent daemon."""
     def after(c, d):
+        plant_tier_keys(c, d)
         before = state.counts()
         err = phase_checkpoint(c, d, dev, smi, state)
         snap, now = phase_gubstat(c, d, dev, smi, state)
@@ -2200,6 +2338,7 @@ def phase_store(dev, smi, state) -> float:
                      for k in final["key"][live][tracked
                                                  & (final["kind"][live]
                                                     != KIND_CACHED_RESP)]}
+        require_planes_inactive("phase 12 (Store and Loader)", c.daemons)
     finally:
         c.stop()
     saved = {i.key for i in loader.contents}
@@ -2358,7 +2497,7 @@ def phase_reshard(dev, smi, state) -> float:
         log("phase 13: inside the handoffs (host clock, both senders and the "
             "joiner): " + "; ".join(
                 f"{m} {n} calls, {s:.3f} s ({s / max(n, 1) * 1e3:.3f} ms a "
-                f"call)" for m, (n, s, _) in spent.items()))
+                f"call)" for m, (n, s, _, _) in spent.items()))
         pick = np.random.default_rng(SEED + 1100).choice(
             landed, RESHARD_CHECKS, replace=False)
         reqs = [RateLimitReq(name="rs", unique_key=f"u{i}", hits=1,
@@ -2406,6 +2545,7 @@ def phase_reshard(dev, smi, state) -> float:
             raise AssertionError(f"{diff} of {len(reqs)} checks on moved "
                                  "keys differ from the plain step on the "
                                  "old owner's pre-remap rows")
+        require_planes_inactive("phase 13 (reshard)", c.daemons)
         end = state.counts()
         STATE_PATHS["reshard"] = {k: end[k] - at_start[k] for k in STATE_OPS}
         log(f"phase 13: {RESHARD_CHECKS} checks on moved keys through node "
@@ -2416,6 +2556,490 @@ def phase_reshard(dev, smi, state) -> float:
         c.stop()
     state.replay("phase 13 (reshard)")
     return err
+
+
+# -- phase 14: the hot-key and lease planes at full width ---------------------
+PLANES_WARM = 1_000_000      # live keys warmed into each node (not 10M)
+LEASE_CLIENTS = 64           # LeasedClients of the steady-state run
+LEASE_WORKERS = 4            # their processes, each client after the other
+LEASE_KEYS = 1000            # token keys of each client's own
+LEASE_ROUNDS = 20            # checks a key
+BOUND_LIMIT = 100
+HOT_LIMIT = 200
+PART_LIMIT = 400
+PLANES_TIMEOUT_S = 60.0      # each wait of the phase
+# The peer deadlines of phase 14's cluster (forwards, lease proxies, GLOBAL
+# hit flushes), raised from the rig's 2 s: after phases 10-13 one of the
+# three in-process daemons has stalled past 2 s in 14b, and a forward that
+# times out may or may not have applied its hits, which 14b's exact ledger
+# cannot allow (PERF.md §6, PR 6).
+PLANES_PEER_DEADLINE_S = 30.0
+# The cluster's leases: the over-admission fixture of tests/test_lease.py
+# (2 holders, a quarter of the limit each, grants that outlive the phase).
+BOUND_LEASE = dict(fraction=0.25, max_holders=2, ttl_ms=60_000,
+                   reconcile_ms=60_000, low_water=0.0)
+# The hot-key windows of tests/test_hotkey.py's cluster (0.3 s), so that a
+# promotion and a collapse each take a few seconds.
+HOT_CFG = dict(threshold=50.0, mirrors=1, fraction=0.25, window_s=0.3,
+               promote_windows=2, demote_windows=2, pressure_ttl_s=1.5)
+
+
+def admitted(resp) -> bool:
+    from gubernator_tpu_torch.core.types import Status
+
+    return resp.error == "" and resp.status == Status.UNDER_LIMIT
+
+
+def wait_for(cond, what):
+    deadline = time.monotonic() + PLANES_TIMEOUT_S
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 14: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def wall_clock() -> None:
+    """Freeze the daemons' clock at the wall time: a LeasedClient judges a
+    grant's expiry by time.time(), the owner stamps it by the service
+    clock."""
+    from gubernator_tpu_torch.core import clock as clock_mod
+
+    clock_mod.freeze(time.time_ns())
+
+
+def has_grant(lc) -> bool:
+    return any(v.allowance_left > 0 for v in lc.table._leases.values())
+
+
+def planes_lease_bound(c, smi) -> None:
+    """14a: two LeasedClients and a V1Client saturate one key through node
+    0 with reconcile quiesced: exactly limit x (1 + 2 x 0.25) admitted."""
+    from gubernator_tpu_torch.client import LeasedClient, V1Client
+    from gubernator_tpu_torch.core.config import LeaseConfig
+    from gubernator_tpu_torch.core.types import RateLimitReq, Status
+    from gubernator_tpu_torch.runtime.lease import LEASE_SUFFIX
+
+    wall_clock()
+    addr = c.daemons[0].grpc_address
+    cfg = LeaseConfig(**BOUND_LEASE)
+    req = RateLimitReq(name="lease", unique_key="bound", hits=1,
+                       limit=BOUND_LIMIT, duration=60_000)
+    holders = [LeasedClient(addr, lease=cfg, client_id=f"bound{i}")
+               for i in range(BOUND_LEASE["max_holders"])]
+    direct = V1Client(addr)
+    try:
+        n = sum(admitted(lc.get_rate_limits([req])[0]) for lc in holders)
+        wait_for(lambda: all(map(has_grant, holders)), "the two grants")
+        allowance = int(BOUND_LIMIT * BOUND_LEASE["fraction"])
+        for lc in holders:
+            n += sum(admitted(lc.get_rate_limits([req])[0])
+                     for _ in range(allowance + 10))
+        n += sum(map(admitted, direct.get_rate_limits(
+            [req] * (BOUND_LIMIT + 20), timeout=120)))
+        bound = int(BOUND_LIMIT * (1 + BOUND_LEASE["max_holders"]
+                                   * BOUND_LEASE["fraction"]))
+        after = [cl.get_rate_limits([req])[0] for cl in [direct] + holders]
+        owner = c.owner_daemon_of(req.hash_key())
+        be = owner.service.backend
+        row = be.get_cache_item(req.hash_key())
+        slot = be.get_cache_item(req.hash_key() + LEASE_SUFFIX)
+        if (n != bound or any(r.status != Status.OVER_LIMIT for r in after)
+                or int(row.remaining) != 0 or int(slot.remaining) != 0
+                or slot.limit != 2 * allowance):
+            raise AssertionError(
+                f"14a: admitted {n} of bound {bound}; after: "
+                f"{[(r.status, r.error) for r in after]}; row remaining "
+                f"{row.remaining}, carve slot {slot.limit}/{slot.remaining}")
+    finally:
+        for lc in holders:
+            lc.close()
+        direct.close()
+    log(f"phase 14a ({smi}): 2 LeasedClients + 1 V1Client on one key of "
+        f"limit {BOUND_LIMIT} through node 0: admitted exactly {n} = "
+        f"{BOUND_LIMIT} x (1 + 2 x 0.25); every path then OVER_LIMIT; the "
+        f"owner's row and its .lease-grant slot (limit {slot.limit}) both "
+        f"at remaining 0")
+
+
+def lease_client_worker(addrs, first, count, keys_n, rounds, limit):
+    """One client process of 14b: LeasedClients `first`.. `first+count-1`
+    (default client settings), client j on daemon j % len(addrs), each
+    over keys_n token keys of its own, one after another.  A client's
+    first call (one check a key) falls back and asks for the grants; once
+    it holds all of them, its other rounds are timed; then it closes (the
+    release reconcile).  Returns the timed seconds, the clients' stats,
+    the Lease RPC latencies and the checks that were not admitted."""
+    import threading
+
+    from gubernator_tpu_torch.client import LeasedClient
+    from gubernator_tpu_torch.core.config import LeaseConfig
+    from gubernator_tpu_torch.core.types import RateLimitReq
+
+    lat, bad, lock = [], [], threading.Lock()
+
+    def timed(rpc):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return rpc(*a, **k)
+            finally:
+                with lock:
+                    lat.append(time.perf_counter() - t)
+        return call
+
+    def check(lc, keys):
+        for r in lc.get_rate_limits(keys, timeout=120):
+            if not admitted(r):
+                bad.append((int(r.status), r.error, dict(r.metadata or {})))
+
+    stats, burn_s = [], 0.0
+    for j in range(first, first + count):
+        lc = LeasedClient(addrs[j % len(addrs)], lease=LeaseConfig(),
+                          client_id=f"steady{j}")
+        lc._peers.Lease = timed(lc._peers.Lease)
+        keys = [RateLimitReq(name="steady", unique_key=f"c{j}k{i}", hits=1,
+                             limit=limit, duration=600_000)
+                for i in range(keys_n)]
+        check(lc, keys)
+        deadline = time.monotonic() + 60
+        while len(lc.table._leases) < keys_n and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t = time.perf_counter()
+        for _ in range(rounds - 1):
+            check(lc, keys)
+        burn_s += time.perf_counter() - t
+        stats.append(lc.stats())
+        lc.close()
+    return {"burn_s": burn_s, "stats": stats, "lat": lat, "bad": len(bad),
+            "first_bad": bad[:2]}
+
+
+def planes_lease_steady(c, smi) -> None:
+    """14b: LEASE_CLIENTS LeasedClients in LEASE_WORKERS processes of their
+    own, as a deployment's clients are; then every owner row holds every
+    hit.  The three daemons share one interpreter, which serves about as
+    many checks a second as one daemon: 64 clients' first calls and
+    reconciles all at once overran its peer deadlines (PERF.md §6, PR 6),
+    so 4 processes each run their clients one after another."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gubernator_tpu_torch.ops.kernels import serve_kernel
+
+    wall_clock()
+    limit = 1_000_000
+    addrs = c.addresses()
+    per = LEASE_CLIENTS // LEASE_WORKERS
+    k1_0 = serve_kernel.launches
+    with ProcessPoolExecutor(
+            LEASE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = [ex.submit(lease_client_worker, addrs, w * per, per,
+                          LEASE_KEYS, LEASE_ROUNDS, limit)
+                for w in range(LEASE_WORKERS)]
+        res = [f.result(timeout=600) for f in futs]
+    k1 = serve_kernel.launches - k1_0
+    nbad = sum(r["bad"] for r in res)
+    if nbad:
+        raise AssertionError(f"14b: {nbad} checks not admitted, e.g. "
+                             f"{[b for r in res for b in r['first_bad']][:2]}")
+    stats = [s for r in res for s in r["stats"]]
+    lat = [x for r in res for x in r["lat"]]
+    # The processes burn at once, each client after the other: the
+    # steady-state rate is the sum of the processes' rates.
+    per_proc = (LEASE_ROUNDS - 1) * LEASE_KEYS * per
+    rate = sum(per_proc / r["burn_s"] for r in res)
+    checks = sum(s["checks"] for s in stats)
+    rpcs = {f: sum(s[f] for s in stats)
+            for f in ("check_rpcs", "lease_rpcs", "reconcile_rpcs", "rpcs")}
+    local = sum(s["local_admitted"] for s in stats)
+    p50, p99, _ = percentiles_ms(lat)
+    # Every hit lands on its owner's row: checks that fell back at once,
+    # burned hits through the reconciles (the last at close).
+    by_owner = {}
+    for j in range(per * LEASE_WORKERS):
+        for i in range(LEASE_KEYS):
+            k = f"steady_c{j}k{i}"
+            by_owner.setdefault(c.owner_daemon_of(k), []).append(k)
+    want = limit - LEASE_ROUNDS
+
+    def settled():
+        for d, ks in by_owner.items():
+            items = d.service.backend.read_items_bulk(ks)
+            if len(items) != len(ks) or any(
+                    int(it.remaining) != want for it in items.values()):
+                return False
+        return True
+
+    t1 = time.perf_counter()
+    wait_for(settled, "every owner row to hold every hit")
+    probe = "steady_c0k0"
+    item = c.owner_daemon_of(probe).service.backend.get_cache_item(probe)
+    if int(item.remaining) != want:
+        raise AssertionError(f"14b: {probe} remaining {item.remaining}")
+    log(f"phase 14b ({smi}): {len(stats)} LeasedClients in {LEASE_WORKERS} "
+        f"processes x {LEASE_KEYS} keys x {LEASE_ROUNDS} checks over 3 "
+        f"nodes: {checks} checks; once a client held its grants its other "
+        f"{LEASE_ROUNDS - 1} rounds ran at {rate:.1f} checks/s summed over "
+        f"the processes (host clock); {local} burned locally; RPCs "
+        f"{rpcs['rpcs']} = {rpcs['rpcs'] / checks * 1000:.4f} per 1000 "
+        f"checks (GetRateLimits fallbacks {rpcs['check_rpcs']}, Lease "
+        f"{rpcs['lease_rpcs']}, Reconcile {rpcs['reconcile_rpcs']}; one "
+        f"release Reconcile a client at close besides); Lease RPC p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms over {len(lat)} calls; K1 launches "
+        f"{k1}; all {sum(map(len, by_owner.values()))} owner rows hold "
+        f"{LEASE_ROUNDS} hits each (read_items_bulk, and get_cache_item of "
+        f"{probe}) {time.perf_counter() - t1:.3f} s after the last close")
+
+
+def mirror_census(be, fp) -> int:
+    """Live .hot-mirror slots among [fp], by the device census."""
+    from gubernator_tpu_torch.ops.state import SHADOW_PLANES
+
+    grid = np.zeros((len(SHADOW_PLANES), 8), dtype=np.int64)
+    grid[SHADOW_PLANES.index(".hot-mirror"), 0] = fp
+    return int(np.asarray(be.table_stats_dispatch(grid)().shadow_slots)
+               [0][SHADOW_PLANES.index(".hot-mirror")])
+
+
+def planes_hot_key(c, smi) -> None:
+    """14c: the owner's row saturated, then its SLO target lowered on
+    purpose: node 0, the key's first next-arc mirror, promotes the key and
+    serves it on the compiled lane's serve_mirror split; the cluster admits
+    exactly limit x (1 + mirrors x fraction); restoring the target
+    collapses the widening."""
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.core.hashing import bulk_key_hash64
+    from gubernator_tpu_torch.core.types import RateLimitReq
+    from gubernator_tpu_torch.runtime.hotkey import MIRROR_SUFFIX
+
+    wall_clock()
+    d0 = c.daemons[0]
+    key = next(f"h{i}" for i in range(10_000) if (lambda cand: (
+        not cand[0].info().is_owner and cand[1].info().is_owner))(
+            d0.service.local_picker.get_n(f"hot_h{i}", 2)))
+    req = RateLimitReq(name="hot", unique_key=key, hits=1, limit=HOT_LIMIT,
+                       duration=600_000)
+    owner = c.owner_daemon_of(req.hash_key())
+    mirror_key = req.hash_key() + MIRROR_SUFFIX
+    mirror_fp = int(bulk_key_hash64([mirror_key])[0])
+    be0, fp0, svc0 = d0.service.backend, d0.fastpath, d0.service
+    window = HOT_CFG["window_s"]
+    fraction = HOT_CFG["fraction"]
+    direct, cl = V1Client(owner.grpc_address), V1Client(d0.grpc_address)
+    try:
+        n = sum(map(admitted, direct.get_rate_limits(
+            [req] * (HOT_LIMIT + 20), timeout=120)))
+        if n != HOT_LIMIT or svc0.mirror_served:
+            raise AssertionError(f"14c: {n} admitted before pressure, "
+                                 f"{svc0.mirror_served} mirror serves")
+        served, fallbacks = fp0.served, fp0.fallbacks
+        owner.flightrec.slo_p99_ms = 1e-4  # every RPC breaches: pressure
+        t0 = time.monotonic()
+        promoted_at, mirrored = None, 0
+        while mirrored <= int(HOT_LIMIT * fraction):
+            for r in cl.get_rate_limits([req] * 50, timeout=120):
+                n += admitted(r)
+                mirrored += (r.metadata or {}).get("hotkey") == "mirror"
+            if promoted_at is None and svc0.hotkeys.promotions:
+                promoted_at = time.monotonic()
+            if time.monotonic() - t0 > PLANES_TIMEOUT_S:
+                raise AssertionError(f"14c: {mirrored} mirror answers "
+                                     f"after {PLANES_TIMEOUT_S} s")
+        bound = int(HOT_LIMIT * (1 + HOT_CFG["mirrors"] * fraction))
+        slot = be0.get_cache_item(mirror_key)
+        census = mirror_census(be0, mirror_fp)
+        lane = fp0.served - served
+        if (n != bound or slot is None
+                or slot.limit != int(HOT_LIMIT * fraction)
+                or int(slot.remaining) != 0 or census != 1
+                or fp0.fallbacks != fallbacks or lane == 0
+                or svc0.mirror_served < mirrored):
+            raise AssertionError(
+                f"14c: admitted {n} of bound {bound}; mirror slot "
+                f"{slot and (slot.limit, slot.remaining)}, census {census}; "
+                f"lane served {lane}, fallbacks "
+                f"{fp0.fallbacks - fallbacks}, mirror_served "
+                f"{svc0.mirror_served} of {mirrored} mirror answers")
+        owner.flightrec.slo_p99_ms = 1e9
+        t1 = time.monotonic()
+        probe = RateLimitReq(name="probe", unique_key="p", hits=1,
+                             limit=HOT_LIMIT, duration=600_000)
+
+        def collapsed():
+            cl.get_rate_limits([probe], timeout=60)  # windows keep rolling
+            return (not svc0.hotkeys.hot_set
+                    and be0.get_cache_item(mirror_key) is None)
+
+        wait_for(collapsed, "the hot key to collapse")
+        collapse_s = time.monotonic() - t1
+        census_after = mirror_census(be0, mirror_fp)
+        if census_after or not svc0.hotkeys.demotions:
+            raise AssertionError(f"14c: census .hot-mirror {census_after}, "
+                                 f"demotions {svc0.hotkeys.demotions}")
+    finally:
+        owner.flightrec.slo_p99_ms = 1e9
+        direct.close()
+        cl.close()
+    log(f"phase 14c ({smi}): hot key {req.hash_key()} (limit {HOT_LIMIT}) "
+        f"owned by node {c.daemons.index(owner)}, node 0 its first next-arc "
+        f"mirror; the owner's SLO target lowered on purpose to 1e-4 ms (1e9 "
+        f"on every node otherwise, so nothing breaches organically): promoted "
+        f"{(promoted_at - t0) / window:.1f} windows of {window} s after, "
+        f"{mirrored} mirror answers on node 0's compiled lane ({lane} RPCs "
+        f"served, 0 fallbacks, mirror_served {svc0.mirror_served}); admitted "
+        f"exactly {n} = {HOT_LIMIT} x (1 + 1 x {fraction}), the mirror slot "
+        f"limit {int(HOT_LIMIT * fraction)}; target restored: collapsed "
+        f"{collapse_s / window:.1f} windows after (demotions "
+        f"{svc0.hotkeys.demotions}), the .hot-mirror slot reset, census "
+        f".hot-mirror 1 -> 0")
+
+
+def planes_partition(c, inj, smi) -> None:
+    """14d: a holder on node 0 with a live grant; a seeded chaos partition
+    between node 0 and the key's owner; the holder burns its allowance
+    locally and the owner serves its own clients; admission stays within
+    the closed-form bound; after the heal the burned hits reconcile once."""
+    from gubernator_tpu_torch.client import LeasedClient, V1Client
+    from gubernator_tpu_torch.core import clock as clock_mod
+    from gubernator_tpu_torch.core.config import LeaseConfig
+    from gubernator_tpu_torch.core.types import RateLimitReq
+    from gubernator_tpu_torch.runtime.lease import LEASE_SUFFIX
+
+    wall_clock()
+    d0 = c.daemons[0]
+    key = next(f"p{i}" for i in range(10_000)
+               if not d0.service.get_peer(f"part_p{i}").info().is_owner)
+    req = RateLimitReq(name="part", unique_key=key, hits=1,
+                       limit=PART_LIMIT, duration=600_000)
+    owner = c.owner_daemon_of(req.hash_key())
+    be = owner.service.backend
+    allowance = int(PART_LIMIT * BOUND_LEASE["fraction"])
+    direct_n = PART_LIMIT // 4
+    lc = LeasedClient(d0.grpc_address, lease=LeaseConfig(
+        **dict(BOUND_LEASE, reconcile_ms=500)), client_id="part")
+    direct = V1Client(owner.grpc_address)
+
+    def used():
+        it = be.get_cache_item(req.hash_key())
+        return PART_LIMIT - int(it.remaining)
+
+    try:
+        n = admitted(lc.get_rate_limits([req])[0])  # the fallback forward
+        wait_for(lambda: has_grant(lc), "the grant")
+        inj.partition({owner.grpc_address}, {d0.grpc_address})
+        burned = 0
+        for _ in range(allowance + 3):
+            r = lc.get_rate_limits([req], timeout=60)[0]
+            n += admitted(r)
+            burned += admitted(r) and (r.metadata or {}).get(
+                "lease") == "local"
+        n += sum(map(admitted, direct.get_rate_limits([req] * direct_n,
+                                                      timeout=120)))
+        time.sleep(1.5)  # reconciles and flush windows meet the partition
+        during = used()
+        cut = inj.injected.get("partition", 0)
+        bound = int(PART_LIMIT * (1 + BOUND_LEASE["max_holders"]
+                                  * BOUND_LEASE["fraction"]))
+        if (n > bound or burned != allowance or during != 1 + direct_n
+                or not cut):
+            raise AssertionError(
+                f"14d: admitted {n} (bound {bound}), burned {burned} of "
+                f"{allowance}, owner row used {during}, partitioned calls "
+                f"{cut}")
+        inj.heal()
+        total = 1 + direct_n + burned
+        wait_for(lambda: used() == total, "the burned hits to reconcile")
+        time.sleep(1.0)  # more flush windows: nothing applies twice
+        if used() != total:
+            raise AssertionError(f"14d: owner row used {used()}, not {total}")
+        # Expiry on the owner's clock: past the TTL the sweep revokes the
+        # holder and drops its carve slot.
+        clock_mod.freeze(clock_mod.default_clock().now_ns()
+                         + (BOUND_LEASE["ttl_ms"] + 1_000) * 1_000_000)
+        swept = c.run(owner.service.leases.sweep_apply())
+        if swept < 1 or be.get_cache_item(
+                req.hash_key() + LEASE_SUFFIX) is not None:
+            raise AssertionError(f"14d: sweep dropped {swept} slots")
+    finally:
+        lc.close()
+        direct.close()
+    log(f"phase 14d ({smi}): seeded chaos partition of node 0 from the owner "
+        f"of {req.hash_key()} (limit {PART_LIMIT}), {cut} peer calls cut: "
+        f"the holder burned its allowance {burned} locally, the owner "
+        f"admitted {direct_n} to its own client; admitted {n} <= the bound "
+        f"{bound}; the owner row held {during} used until the heal, then "
+        f"{total} = 1 + {direct_n} + {burned} (the burned hits once); the "
+        f"grant expired on the owner's clock and the sweep dropped its slot")
+
+
+def phase_planes(dev, smi, state) -> float:
+    """Phase 14: the hot-key and lease planes on a 3-node cluster at full
+    width, every K1 dispatch replayed through the plain version."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gubernator_tpu_torch.core import clock as clock_mod
+    from gubernator_tpu_torch.core.config import HotKeyConfig, LeaseConfig
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.testing.chaos import ChaosInjector, ChaosPlan
+
+    t_phase = time.perf_counter()
+    wall_clock()
+    inj = ChaosInjector(ChaosPlan(seed=SEED + 1400))
+    dumps = tempfile.mkdtemp(prefix="gubernator-flightrec-")
+    c = start_daemons(dev, 3, DAEMON_SLOTS, "pipelined", flightrec=True,
+                      flightrec_dir=dumps, lease=LeaseConfig(**BOUND_LEASE),
+                      hotkey=HotKeyConfig(**HOT_CFG), chaos=inj)
+    recs = []
+    try:
+        for d in c.daemons:
+            # The card's host may breach the production 2 ms target on its
+            # own; 14c pressures one owner on purpose instead.
+            d.flightrec.slo_p99_ms = 1e9
+            d.flightrec.window_s = 2.0
+            # Every PeerClient reads the service's BehaviorConfig per call.
+            d.service.cfg.behaviors.batch_timeout_s = PLANES_PEER_DEADLINE_S
+            d.service.global_mgr.timeout_s = PLANES_PEER_DEADLINE_S
+        for i, d in enumerate(c.daemons):
+            phase_warm(d.service.backend, dev, f"phase 14 (node {i})",
+                       keys=PLANES_WARM)
+        torch.cuda.synchronize()
+        starts = [(clone_table(d.service.backend.table),
+                   clone_sketch(d.service.sketch_backend.state))
+                  for d in c.daemons]
+        recs = [DispatchRecorder(d.service.backend, d.service.sketch_backend,
+                                 state) for d in c.daemons]
+        serve_kernel.launches = cms_kernel.launches = 0
+        planes_lease_bound(c, smi)
+        planes_lease_steady(c, smi)
+        planes_hot_key(c, smi)
+        planes_partition(c, inj, smi)
+        require_launches("phase 14 (hot-key and lease planes)", k2=False)
+        done, recs = recs, []
+        for rec in done:
+            rec.close()
+        t0 = time.perf_counter()
+        err = max(rec.replay(dev, t, sk) for rec, (t, sk) in zip(done,
+                                                                  starts))
+        log(f"phase 14: {sum(len(r.k1) for r in done)} K1 dispatches of the "
+            f"three nodes (lease carves, mirror admissions and resets, "
+            f"reconciles, forwards) replayed through the plain version in "
+            f"{time.perf_counter() - t0:.3f} s: responses, tables, claim "
+            f"words bit-exact; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return err
+    finally:
+        for rec in recs:
+            rec.close()
+        c.stop()
+        clock_mod.freeze(T0_NS)
+        shutil.rmtree(dumps, ignore_errors=True)
 
 
 STATE_OP_SOURCES = {
@@ -2490,7 +3114,8 @@ def main() -> int:
                                                    times)),
                cluster_path(dev, smi))
     derr = max(derr, phase_store(dev, smi, state),
-               phase_reshard(dev, smi, state))
+               phase_reshard(dev, smi, state),
+               phase_planes(dev, smi, state))
     state.close()
     k1["max_abs_err"] = max(k1["max_abs_err"], derr)
     k2["max_abs_err"] = max(k2["max_abs_err"], derr)

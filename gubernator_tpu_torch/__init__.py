@@ -10,9 +10,11 @@ sliding-window count-min sketch, one launch of a second hand-written kernel
 (csrc/cms_kernel.cu) per merge, or its plain version (ops/sketch.py) on the
 CPU.  The daemon (daemon.py, `python -m gubernator_tpu_torch.cli.server`)
 serves both over gRPC and HTTP through the compiled fast lane
-(runtime/fastpath.py) in every serve mode.  The engine needs torch and
-numpy; the daemon's modules add the wire stack (grpcio, protobuf, aiohttp,
-prometheus_client, xxhash).  Imports nothing of JAX or of gubernator_tpu.
+(runtime/fastpath.py) in every serve mode.  The client SDK (client.py:
+V1Client, AsyncV1Client, FastV1Client, LeasedClient) talks to it.  The
+engine needs torch and numpy; the daemon's modules and the client add the
+wire stack (grpcio, protobuf, aiohttp, prometheus_client, xxhash).  Imports
+nothing of JAX or of gubernator_tpu.
 """
 from gubernator_tpu_torch.core.types import (  # noqa: F401
     Algorithm,
@@ -21,3 +23,18 @@ from gubernator_tpu_torch.core.types import (  # noqa: F401
     RateLimitResp,
     Status,
 )
+
+
+def __getattr__(name: str):
+    """Lazy top-level client SDK (keeps `import gubernator_tpu_torch` free of
+    grpc; the reference's Go package exposes its client the same
+    flat way, client.go:42-63)."""
+    if name in ("V1Client", "AsyncV1Client"):
+        from gubernator_tpu_torch import client
+
+        return getattr(client, name)
+    raise AttributeError(name)
+
+
+def __dir__():
+    return sorted(list(globals()) + ["V1Client", "AsyncV1Client"])

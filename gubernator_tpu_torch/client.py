@@ -1,0 +1,867 @@
+"""Client SDK (the analog of reference client.go:31-104 and the generated
+python client, python/gubernator/__init__.py).
+
+Three tiers over the same wire contract, all working against any
+wire-compatible daemon (gubernator-tpu or the reference service):
+
+  V1Client / AsyncV1Client   object clients (python protobuf), hardened
+                             with tuned channel options and a default
+                             RPC deadline — `timeout=None` forever-hangs
+                             are opt-in, never the default;
+  FastV1Client               the compiled lane: request batches are
+                             serialized and responses unmarshalled by
+                             the native codec (native/gubtpu.cpp) over a
+                             raw-bytes gRPC method, so a check never
+                             constructs a python protobuf object —
+                             attacking the ~1.3ms of python client
+                             machinery the BENCH_E2E artifacts measure;
+  LeasedClient / AsyncLeasedClient
+                             client-side admission (docs/leases.md;
+                             arXiv:2510.04516): a bounded local
+                             allowance granted by each key's owner is
+                             burned with ZERO RPCs, refreshed in the
+                             background below a low-water mark,
+                             reconciled on an interval, and degraded
+                             transparently to per-call GetRateLimits on
+                             refusal, expiry, or non-leasable behaviors.
+"""
+from __future__ import annotations
+
+import asyncio
+import random
+import string
+import threading
+import time
+import uuid
+from dataclasses import dataclass, replace as dc_replace
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import grpc
+import grpc.aio
+
+from gubernator_tpu_torch.core.config import LeaseConfig, lease_config_from_env
+from gubernator_tpu_torch.core.types import (
+    HealthCheckResp,
+    LeaseGrant,
+    RateLimitReq,
+    RateLimitResp,
+    ReconcileItem,
+    Status,
+)
+from gubernator_tpu_torch.net import grpc_api
+from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+# Duration constants in milliseconds (client.go:31-35).
+MILLISECOND = 1
+SECOND = 1000 * MILLISECOND
+MINUTE = 60 * SECOND
+
+# Default per-RPC deadline.  The old default (timeout=None) hangs a
+# caller forever against a wedged daemon or a black-holed connection —
+# the worst failure mode for a rate-limit check, which callers sit on
+# their serving paths.  Pass timeout=None explicitly to opt back in.
+DEFAULT_RPC_TIMEOUT_S = 30.0
+
+# Tuned channel defaults for every client in this module: keepalive
+# probes detect half-dead connections (NAT idle reaps, silent peer
+# death) instead of letting the next check eat a full deadline, and the
+# 4MB message caps match the daemon's own receive cap (daemon.py) so a
+# count-capped batch with long keys never fails asymmetrically.
+DEFAULT_CHANNEL_OPTIONS: Tuple[Tuple[str, int], ...] = (
+    ("grpc.keepalive_time_ms", 60_000),
+    ("grpc.keepalive_timeout_ms", 10_000),
+    ("grpc.http2.max_pings_without_data", 0),
+    ("grpc.keepalive_permit_without_calls", 1),
+    ("grpc.max_receive_message_length", 4 * 1024 * 1024),
+    ("grpc.max_send_message_length", 4 * 1024 * 1024),
+)
+
+
+def channel_options(
+    extra: Optional[Sequence[Tuple[str, int]]] = None,
+) -> List[Tuple[str, int]]:
+    """DEFAULT_CHANNEL_OPTIONS merged with caller overrides (an option
+    named in `extra` replaces the default of the same name)."""
+    if not extra:
+        return list(DEFAULT_CHANNEL_OPTIONS)
+    names = {k for k, _ in extra}
+    return [
+        (k, v) for k, v in DEFAULT_CHANNEL_OPTIONS if k not in names
+    ] + list(extra)
+
+
+def hash_key(r: RateLimitReq) -> str:
+    """Canonical cache key (client.go:37-39)."""
+    return r.hash_key()
+
+
+def to_timestamp(ms_from_now: float) -> int:
+    """Unix-ms timestamp `ms_from_now` in the future (client.go:69-74)."""
+    return int(time.time() * 1000) + int(ms_from_now)
+
+
+def from_timestamp(ts_ms: int) -> float:
+    """Milliseconds until `ts_ms` (client.go:77-85)."""
+    return max(0.0, ts_ms - time.time() * 1000)
+
+
+def sleep_until_reset(reset_time_ms: int) -> None:
+    """Block until a rate limit resets (python client helper,
+    python/gubernator/__init__.py:14-21)."""
+    time.sleep(from_timestamp(reset_time_ms) / 1000.0)
+
+
+def random_string(prefix: str = "", n: int = 10) -> str:
+    """Test helper (client.go:88-95)."""
+    return prefix + "".join(
+        random.choices(string.ascii_letters + string.digits, k=n)
+    )
+
+
+class V1Client:
+    """Synchronous object client."""
+
+    def __init__(
+        self,
+        address: str = "localhost:1051",
+        credentials: Optional[grpc.ChannelCredentials] = None,
+        options: Optional[Sequence[Tuple[str, int]]] = None,
+    ) -> None:
+        opts = channel_options(options)
+        if credentials is not None:
+            self._channel = grpc.secure_channel(
+                address, credentials, options=opts
+            )
+        else:
+            self._channel = grpc.insecure_channel(address, options=opts)
+        self._stub = grpc_api.V1Stub(self._channel)
+
+    def get_rate_limits(
+        self,
+        reqs: Sequence[RateLimitReq],
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> List[RateLimitResp]:
+        resp = self._stub.GetRateLimits(
+            pb.GetRateLimitsReq(
+                requests=[grpc_api.req_to_pb(r) for r in reqs]
+            ),
+            timeout=timeout,
+        )
+        return [grpc_api.resp_from_pb(m) for m in resp.responses]
+
+    def health_check(
+        self, timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S
+    ) -> HealthCheckResp:
+        return grpc_api.health_from_pb(
+            self._stub.HealthCheck(pb.HealthCheckReq(), timeout=timeout)
+        )
+
+    def close(self) -> None:
+        self._channel.close()
+
+    def __enter__(self) -> "V1Client":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class AsyncV1Client:
+    """asyncio object client."""
+
+    def __init__(
+        self,
+        address: str = "localhost:1051",
+        credentials: Optional[grpc.ChannelCredentials] = None,
+        options: Optional[Sequence[Tuple[str, int]]] = None,
+    ) -> None:
+        opts = channel_options(options)
+        if credentials is not None:
+            self._channel = grpc.aio.secure_channel(
+                address, credentials, options=opts
+            )
+        else:
+            self._channel = grpc.aio.insecure_channel(
+                address, options=opts
+            )
+        self._stub = grpc_api.V1Stub(self._channel)
+
+    async def get_rate_limits(
+        self,
+        reqs: Sequence[RateLimitReq],
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> List[RateLimitResp]:
+        resp = await self._stub.GetRateLimits(
+            pb.GetRateLimitsReq(
+                requests=[grpc_api.req_to_pb(r) for r in reqs]
+            ),
+            timeout=timeout,
+        )
+        return [grpc_api.resp_from_pb(m) for m in resp.responses]
+
+    async def health_check(
+        self, timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S
+    ) -> HealthCheckResp:
+        return grpc_api.health_from_pb(
+            await self._stub.HealthCheck(pb.HealthCheckReq(), timeout=timeout)
+        )
+
+    async def close(self) -> None:
+        await self._channel.close()
+
+
+# --------------------------------------------------------------------------
+# Compiled client path (native/gubtpu.cpp)
+# --------------------------------------------------------------------------
+
+def _parse_meta(payload: bytes, off: int, ln: int) -> Dict[str, str]:
+    """Decode a ParsedResps metadata span (concatenated field-6 map-entry
+    wire frames) into a dict — rare (forwarded-owner / tier tags), so a
+    small python walk is fine."""
+    out: Dict[str, str] = {}
+    p, end = off, off + ln
+
+    def varint(p: int) -> Tuple[int, int]:
+        v = s = 0
+        while True:
+            b = payload[p]
+            p += 1
+            v |= (b & 0x7F) << s
+            if not (b & 0x80):
+                return v, p
+            s += 7
+
+    try:
+        while p < end:
+            tag, p = varint(p)
+            sz, p = varint(p)
+            q, qend = p, p + sz
+            p = qend
+            key = value = ""
+            while q < qend:
+                t, q = varint(q)
+                l, q = varint(q)
+                if (t >> 3) == 1:
+                    key = payload[q:q + l].decode("utf-8", "replace")
+                elif (t >> 3) == 2:
+                    value = payload[q:q + l].decode("utf-8", "replace")
+                q += l
+            if key:
+                out[key] = value
+    except IndexError:
+        pass  # malformed span — return what decoded
+    return out
+
+
+class FastV1Client:
+    """Synchronous compiled client: request batches serialize and
+    responses unmarshal in the native C++ codec over a raw-bytes gRPC
+    method, so a check never builds a python protobuf object.  Falls
+    back to python-protobuf encoding transparently when the native
+    library is unavailable (`native.available()` reports which lane is
+    live — the `codec` attribute names it honestly)."""
+
+    def __init__(
+        self,
+        address: str = "localhost:1051",
+        credentials: Optional[grpc.ChannelCredentials] = None,
+        options: Optional[Sequence[Tuple[str, int]]] = None,
+    ) -> None:
+        from gubernator_tpu_torch import native
+
+        self._native = native
+        self.codec = "native" if native.available() else "python"
+        opts = channel_options(options)
+        if credentials is not None:
+            self._channel = grpc.secure_channel(
+                address, credentials, options=opts
+            )
+        else:
+            self._channel = grpc.insecure_channel(address, options=opts)
+        # Raw bytes both ways: serialization happens in the codec, not
+        # in grpc's (de)serializer hooks.
+        self._call = self._channel.unary_unary(
+            f"/{grpc_api.V1_SERVICE}/GetRateLimits"
+        )
+
+    def encode(self, reqs: Sequence[RateLimitReq]) -> bytes:
+        payload = self._native.encode_reqs(reqs)
+        if payload is None:
+            payload = pb.GetRateLimitsReq(
+                requests=[grpc_api.req_to_pb(r) for r in reqs]
+            ).SerializeToString()
+        return payload
+
+    def decode(self, raw: bytes) -> List[RateLimitResp]:
+        cols = self._native.parse_resps(raw)
+        if cols is None:
+            msg = pb.GetRateLimitsResp.FromString(raw)
+            return [grpc_api.resp_from_pb(m) for m in msg.responses]
+        # One bulk host conversion per column (these are numpy parser
+        # outputs; tolist() beats n scalar __getitem__ round trips).
+        status = cols.status.tolist()
+        limit = cols.limit.tolist()
+        remaining = cols.remaining.tolist()
+        reset_time = cols.reset_time.tolist()
+        err_off = cols.err_off.tolist()
+        err_len = cols.err_len.tolist()
+        meta_off = cols.meta_off.tolist()
+        meta_len = cols.meta_len.tolist()
+        out: List[RateLimitResp] = []
+        for i in range(cols.n):
+            err = ""
+            if err_len[i]:
+                o, l = err_off[i], err_len[i]
+                err = raw[o:o + l].decode("utf-8", "replace")
+            meta: Dict[str, str] = {}
+            if meta_len[i] > 0:
+                meta = _parse_meta(raw, meta_off[i], meta_len[i])
+            out.append(RateLimitResp(
+                status=Status(status[i]),
+                limit=limit[i],
+                remaining=remaining[i],
+                reset_time=reset_time[i],
+                error=err,
+                metadata=meta,
+            ))
+        return out
+
+    def get_rate_limits(
+        self,
+        reqs: Sequence[RateLimitReq],
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> List[RateLimitResp]:
+        raw = self._call(self.encode(reqs), timeout=timeout)
+        return self.decode(raw)
+
+    def get_rate_limits_raw(
+        self,
+        payload: bytes,
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> bytes:
+        """Pre-encoded request bytes in, raw response bytes out — for
+        callers that cache an encoded batch (steady repeated loads)."""
+        return self._call(payload, timeout=timeout)
+
+    def close(self) -> None:
+        self._channel.close()
+
+    def __enter__(self) -> "FastV1Client":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+# --------------------------------------------------------------------------
+# Client-side admission (docs/leases.md)
+# --------------------------------------------------------------------------
+
+@dataclass
+class _ClientLease:
+    allowance: int
+    allowance_left: int
+    expires_at: int  # unix ms
+    reset_time: int
+    limit: int
+
+
+@dataclass
+class _LeaseStats:
+    checks: int = 0
+    local_admitted: int = 0
+    fallback_checks: int = 0
+    check_rpcs: int = 0
+    lease_rpcs: int = 0
+    reconcile_rpcs: int = 0
+    reconcile_dropped_hits: int = 0
+    refusals: int = 0
+
+    @property
+    def rpcs(self) -> int:
+        return self.check_rpcs + self.lease_rpcs + self.reconcile_rpcs
+
+    def as_dict(self) -> Dict[str, int]:
+        d = {f: getattr(self, f) for f in (
+            "checks", "local_admitted", "fallback_checks", "check_rpcs",
+            "lease_rpcs", "reconcile_rpcs", "reconcile_dropped_hits",
+            "refusals",
+        )}
+        d["rpcs"] = self.rpcs
+        return d
+
+
+# How long a refused key stays degraded to per-call checks before the
+# client asks again (prevents a refusal storm against a shedding owner).
+_REFUSAL_COOLDOWN_S = 1.0
+
+
+class _LeaseTable:
+    """The transport-agnostic half of a leased client: grant state,
+    local burn, low-water/renewal bookkeeping, burned-hit take.  All
+    methods are quick dict work under one lock — safe from both a sync
+    caller thread and an asyncio loop."""
+
+    def __init__(self, cfg: LeaseConfig) -> None:
+        self.cfg = cfg
+        self._lock = threading.Lock()
+        self._leases: Dict[str, _ClientLease] = {}
+        self._templates: Dict[str, RateLimitReq] = {}
+        self._burned: Dict[str, int] = {}
+        self._wanted: Dict[str, RateLimitReq] = {}
+        self._refused_until: Dict[str, float] = {}
+        # Keys this client was EVER granted and has not yet released:
+        # a later refusal (e.g. a failed renewal) drops the local lease
+        # entry, but the owner still holds the grant until its TTL —
+        # close() must release these too.
+        self._granted: set = set()
+        self.stats = _LeaseStats()
+
+    @staticmethod
+    def leasable(r: RateLimitReq) -> bool:
+        from gubernator_tpu_torch.runtime.lease import NON_LEASABLE
+
+        return (
+            bool(r.unique_key)
+            and bool(r.name)
+            and r.limit > 0
+            and r.hits > 0
+            and not (int(r.behavior) & int(NON_LEASABLE))
+        )
+
+    def try_burn(self, r: RateLimitReq) -> Optional[RateLimitResp]:
+        """Admit `r` from the local allowance — the zero-RPC path.
+        None means the caller must fall back to a per-call check (and a
+        grant was queued for the background refresher if the limit is
+        leasable at all)."""
+        now_ms = int(time.time() * 1000)
+        with self._lock:
+            self.stats.checks += 1
+            if not self.leasable(r):
+                self.stats.fallback_checks += 1
+                return None
+            key = r.hash_key()
+            lease = self._leases.get(key)
+            if lease is not None and lease.expires_at <= now_ms:
+                # Expired grants burn nothing (the owner already
+                # re-collects the slot on its sweep).
+                self._leases.pop(key, None)
+                lease = None
+            if lease is None or lease.allowance_left < r.hits:
+                self._note_want_locked(key, r)
+                self.stats.fallback_checks += 1
+                return None
+            lease.allowance_left -= r.hits
+            self._burned[key] = self._burned.get(key, 0) + r.hits
+            self._templates.setdefault(key, dc_replace(r, hits=0))
+            if lease.allowance_left < lease.allowance * self.cfg.low_water:
+                self._note_want_locked(key, r)
+            self.stats.local_admitted += 1
+            return RateLimitResp(
+                status=Status.UNDER_LIMIT,
+                limit=r.limit,
+                remaining=lease.allowance_left,
+                reset_time=lease.reset_time,
+                metadata={"lease": "local"},
+            )
+
+    def _note_want_locked(self, key: str, r: RateLimitReq) -> None:
+        if time.monotonic() < self._refused_until.get(key, 0.0):
+            return
+        self._wanted.setdefault(key, dc_replace(r, hits=0))
+
+    def needs_refresh(self) -> bool:
+        with self._lock:
+            return bool(self._wanted)
+
+    def take_work(
+        self, reconcile_due: bool = False,
+    ) -> Tuple[List[RateLimitReq], List[ReconcileItem]]:
+        """(lease requests, reconcile items) for one background tick.
+        Burned counters are TAKEN only when a reconcile is due — a
+        failed reconcile then drops them (at-most-once; the owner may
+        have applied a mid-RPC failure's hits already, and the carve
+        slot bounds admission regardless).  A wanted key that also has
+        burned counts to report rides the reconcile as a renew=True
+        item (the renewal piggyback — one RPC refreshes AND reconciles)
+        instead of a separate Lease call."""
+        with self._lock:
+            items: List[ReconcileItem] = []
+            burned: Dict[str, int] = {}
+            if reconcile_due:
+                burned, self._burned = self._burned, {}
+            for key, hits in burned.items():
+                tmpl = self._templates.get(key)
+                if tmpl is None:
+                    continue
+                renew = key in self._wanted
+                if renew:
+                    self._wanted.pop(key, None)
+                items.append(ReconcileItem(
+                    request=dc_replace(tmpl, hits=hits), renew=renew
+                ))
+            wanted = list(self._wanted.values())
+            self._wanted.clear()
+            return wanted, items
+
+    def drop_burn(self, items: List[ReconcileItem]) -> None:
+        with self._lock:
+            for it in items:
+                self.stats.reconcile_dropped_hits += it.request.hits
+
+    def apply_grants(self, grants: List[LeaseGrant]) -> None:
+        now = time.monotonic()
+        with self._lock:
+            for g in grants:
+                if not g.key:
+                    continue
+                if g.granted:
+                    self._granted.add(g.key)
+                    self._leases[g.key] = _ClientLease(
+                        allowance=g.allowance,
+                        allowance_left=g.allowance,
+                        expires_at=g.expires_at,
+                        reset_time=g.reset_time,
+                        limit=g.limit,
+                    )
+                    self._refused_until.pop(g.key, None)
+                elif g.refusal and g.refusal != "released":
+                    self.stats.refusals += 1
+                    self._refused_until[g.key] = (
+                        now + _REFUSAL_COOLDOWN_S
+                    )
+                    self._leases.pop(g.key, None)
+
+    def release_items(self) -> List[ReconcileItem]:
+        """Final reconcile payload: remaining burned counts + a release
+        for every held grant (the graceful-shutdown path)."""
+        with self._lock:
+            items: List[ReconcileItem] = []
+            burned, self._burned = self._burned, {}
+            keys = set(burned) | set(self._leases) | self._granted
+            for key in keys:
+                tmpl = self._templates.get(key)
+                if tmpl is None:
+                    continue
+                items.append(ReconcileItem(
+                    request=dc_replace(tmpl, hits=burned.get(key, 0)),
+                    release=True,
+                ))
+            self._leases.clear()
+            self._granted.clear()
+            self._wanted.clear()
+            return items
+
+    def debug_vars(self) -> dict:
+        with self._lock:
+            return {
+                "stats": self.stats.as_dict(),
+                "leases": {
+                    k: {
+                        "allowance_left": v.allowance_left,
+                        "expires_at": v.expires_at,
+                    }
+                    for k, v in self._leases.items()
+                },
+            }
+
+
+class LeasedClient:
+    """Synchronous leased client: checks burn a locally held allowance
+    with ZERO RPCs; a background thread acquires grants for new keys,
+    refreshes them below the low-water mark, and reconciles burned hits
+    on `reconcile_ms`.  Anything the lease plane cannot serve — refused
+    or expired grants, non-leasable behaviors, hits past the remaining
+    allowance — degrades transparently to per-call GetRateLimits.
+
+    `lease` knob defaults come from the lease env knobs
+    (core.config.lease_config_from_env; deploy/example.conf's lease
+    section), so a client deploys with the same one-config-surface
+    discipline as the daemon."""
+
+    def __init__(
+        self,
+        address: str = "localhost:1051",
+        credentials: Optional[grpc.ChannelCredentials] = None,
+        options: Optional[Sequence[Tuple[str, int]]] = None,
+        client_id: Optional[str] = None,
+        lease: Optional[LeaseConfig] = None,
+    ) -> None:
+        self.client_id = client_id or f"leased-{uuid.uuid4().hex[:12]}"
+        cfg = lease or lease_config_from_env()
+        self.table = _LeaseTable(cfg)
+        opts = channel_options(options)
+        if credentials is not None:
+            self._channel = grpc.secure_channel(
+                address, credentials, options=opts
+            )
+        else:
+            self._channel = grpc.insecure_channel(address, options=opts)
+        self._v1 = grpc_api.V1Stub(self._channel)
+        self._peers = grpc_api.PeersV1Stub(self._channel)
+        self._closed = False
+        self._wake = threading.Event()
+        self._last_reconcile = time.monotonic()
+        self._thread = threading.Thread(
+            target=self._run, name="leased-client", daemon=True
+        )
+        self._thread.start()
+
+    # -- checks ----------------------------------------------------------
+    def get_rate_limits(
+        self,
+        reqs: Sequence[RateLimitReq],
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> List[RateLimitResp]:
+        out: List[Optional[RateLimitResp]] = [None] * len(reqs)
+        fallback: List[int] = []
+        for i, r in enumerate(reqs):
+            resp = self.table.try_burn(r)
+            if resp is not None:
+                out[i] = resp
+            else:
+                fallback.append(i)
+        if self.table.needs_refresh():
+            self._wake.set()
+        if fallback:
+            self.table.stats.check_rpcs += 1
+            resp = self._v1.GetRateLimits(
+                pb.GetRateLimitsReq(requests=[
+                    grpc_api.req_to_pb(reqs[i]) for i in fallback
+                ]),
+                timeout=timeout,
+            )
+            for i, m in zip(fallback, resp.responses):
+                out[i] = grpc_api.resp_from_pb(m)
+        return [r if r is not None else RateLimitResp() for r in out]
+
+    # -- background lease/reconcile loop ---------------------------------
+    def _run(self) -> None:
+        interval = self.table.cfg.reconcile_ms / 1000.0
+        while not self._closed:
+            # Wake early for low-water refreshes / new wanted keys; the
+            # timeout is the reconcile cadence.
+            self._wake.wait(timeout=interval / 4)
+            self._wake.clear()
+            if self._closed:
+                break
+            try:
+                self._tick()
+            except Exception:  # noqa: BLE001 — keep the cadence
+                time.sleep(min(interval, 0.2))
+
+    def _tick(self) -> None:
+        now = time.monotonic()
+        interval = self.table.cfg.reconcile_ms / 1000.0
+        due = now - self._last_reconcile >= interval
+        wanted, items = self.table.take_work(reconcile_due=due)
+        if wanted:
+            self.table.stats.lease_rpcs += 1
+            try:
+                resp = self._peers.Lease(
+                    _lease_req_pb(self.client_id, wanted),
+                    timeout=DEFAULT_RPC_TIMEOUT_S,
+                )
+                self.table.apply_grants([
+                    grpc_api.lease_grant_from_pb(g) for g in resp.grants
+                ])
+            except Exception:  # noqa: BLE001 — degrade, retry later
+                pass
+        if due:
+            self._last_reconcile = now
+            if items:
+                self.table.stats.reconcile_rpcs += 1
+                try:
+                    resp = self._peers.Reconcile(
+                        _reconcile_req_pb(self.client_id, items),
+                        timeout=DEFAULT_RPC_TIMEOUT_S,
+                    )
+                    self.table.apply_grants([
+                        grpc_api.lease_grant_from_pb(g)
+                        for g in resp.grants
+                    ])
+                except Exception:  # noqa: BLE001 — at-most-once: drop
+                    self.table.drop_burn(items)
+
+    # -- lifecycle -------------------------------------------------------
+    def stats(self) -> Dict[str, int]:
+        return self.table.stats.as_dict()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._wake.set()
+        self._thread.join(timeout=5.0)
+        items = self.table.release_items()
+        if items:
+            try:
+                self._peers.Reconcile(
+                    _reconcile_req_pb(self.client_id, items),
+                    timeout=DEFAULT_RPC_TIMEOUT_S,
+                )
+            except Exception:  # noqa: BLE001 — owner sweeps anyway
+                self.table.drop_burn(items)
+        self._channel.close()
+
+    def __enter__(self) -> "LeasedClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class AsyncLeasedClient:
+    """asyncio twin of LeasedClient: same _LeaseTable engine, with the
+    grant/reconcile loop as a background task on the caller's loop."""
+
+    def __init__(
+        self,
+        address: str = "localhost:1051",
+        credentials: Optional[grpc.ChannelCredentials] = None,
+        options: Optional[Sequence[Tuple[str, int]]] = None,
+        client_id: Optional[str] = None,
+        lease: Optional[LeaseConfig] = None,
+    ) -> None:
+        self.client_id = client_id or f"leased-{uuid.uuid4().hex[:12]}"
+        cfg = lease or lease_config_from_env()
+        self.table = _LeaseTable(cfg)
+        opts = channel_options(options)
+        if credentials is not None:
+            self._channel = grpc.aio.secure_channel(
+                address, credentials, options=opts
+            )
+        else:
+            self._channel = grpc.aio.insecure_channel(
+                address, options=opts
+            )
+        self._v1 = grpc_api.V1Stub(self._channel)
+        self._peers = grpc_api.PeersV1Stub(self._channel)
+        self._closed = False
+        self._wake: Optional[asyncio.Event] = None
+        self._task: Optional[asyncio.Task] = None
+        self._last_reconcile = time.monotonic()
+
+    def _ensure_loop(self) -> None:
+        if self._task is None:
+            self._wake = asyncio.Event()
+            self._task = asyncio.ensure_future(self._run())
+
+    async def get_rate_limits(
+        self,
+        reqs: Sequence[RateLimitReq],
+        timeout: Optional[float] = DEFAULT_RPC_TIMEOUT_S,
+    ) -> List[RateLimitResp]:
+        self._ensure_loop()
+        out: List[Optional[RateLimitResp]] = [None] * len(reqs)
+        fallback: List[int] = []
+        for i, r in enumerate(reqs):
+            resp = self.table.try_burn(r)
+            if resp is not None:
+                out[i] = resp
+            else:
+                fallback.append(i)
+        if self.table.needs_refresh() and self._wake is not None:
+            self._wake.set()
+        if fallback:
+            self.table.stats.check_rpcs += 1
+            resp = await self._v1.GetRateLimits(
+                pb.GetRateLimitsReq(requests=[
+                    grpc_api.req_to_pb(reqs[i]) for i in fallback
+                ]),
+                timeout=timeout,
+            )
+            for i, m in zip(fallback, resp.responses):
+                out[i] = grpc_api.resp_from_pb(m)
+        return [r if r is not None else RateLimitResp() for r in out]
+
+    async def _run(self) -> None:
+        interval = self.table.cfg.reconcile_ms / 1000.0
+        while not self._closed:
+            try:
+                await asyncio.wait_for(
+                    self._wake.wait(), timeout=interval / 4
+                )
+            except asyncio.TimeoutError:
+                pass
+            self._wake.clear()
+            if self._closed:
+                break
+            try:
+                await self._tick()
+            except Exception:  # noqa: BLE001 — keep the cadence
+                await asyncio.sleep(min(interval, 0.2))
+
+    async def _tick(self) -> None:
+        now = time.monotonic()
+        interval = self.table.cfg.reconcile_ms / 1000.0
+        due = now - self._last_reconcile >= interval
+        wanted, items = self.table.take_work(reconcile_due=due)
+        if wanted:
+            self.table.stats.lease_rpcs += 1
+            try:
+                resp = await self._peers.Lease(
+                    _lease_req_pb(self.client_id, wanted),
+                    timeout=DEFAULT_RPC_TIMEOUT_S,
+                )
+                self.table.apply_grants([
+                    grpc_api.lease_grant_from_pb(g) for g in resp.grants
+                ])
+            except Exception:  # noqa: BLE001
+                pass
+        if due:
+            self._last_reconcile = now
+            if items:
+                self.table.stats.reconcile_rpcs += 1
+                try:
+                    resp = await self._peers.Reconcile(
+                        _reconcile_req_pb(self.client_id, items),
+                        timeout=DEFAULT_RPC_TIMEOUT_S,
+                    )
+                    self.table.apply_grants([
+                        grpc_api.lease_grant_from_pb(g)
+                        for g in resp.grants
+                    ])
+                except Exception:  # noqa: BLE001
+                    self.table.drop_burn(items)
+
+    def stats(self) -> Dict[str, int]:
+        return self.table.stats.as_dict()
+
+    async def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self._task is not None:
+            self._wake.set()
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self._task = None
+        items = self.table.release_items()
+        if items:
+            try:
+                await self._peers.Reconcile(
+                    _reconcile_req_pb(self.client_id, items),
+                    timeout=DEFAULT_RPC_TIMEOUT_S,
+                )
+            except Exception:  # noqa: BLE001
+                self.table.drop_burn(items)
+        await self._channel.close()
+
+
+def _lease_req_pb(client_id: str, reqs: Sequence[RateLimitReq]):
+    from gubernator_tpu_torch.proto import peers_pb2
+
+    return peers_pb2.LeaseReq(
+        client_id=client_id,
+        requests=[grpc_api.req_to_pb(r) for r in reqs],
+    )
+
+
+def _reconcile_req_pb(client_id: str, items: Sequence[ReconcileItem]):
+    from gubernator_tpu_torch.proto import peers_pb2
+
+    return peers_pb2.ReconcileReq(
+        client_id=client_id,
+        items=[grpc_api.reconcile_item_to_pb(it) for it in items],
+    )

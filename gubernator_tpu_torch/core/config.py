@@ -1,10 +1,10 @@
 """Configuration system.
 
-The planes' configs parse the GUBER_* surface as the JAX package does.
-The reshard and gubstat planes are on by default and the cold tier off, as
-there; the hot-key, lease and region planes are kept as data but off by
-default here, and the service refuses to start with one armed: they are not
-ported yet (ROADMAP.md, "What the daemon still lacks").
+The planes' configs parse the GUBER_* surface as the JAX package does, with
+its defaults: the hot-key, lease, reshard and gubstat planes on, the cold tier
+and the region plane off.  The region plane is kept as data; the service
+refuses to start with it armed, since it is not ported yet (ROADMAP.md,
+"What the daemon still refuses").
 
 Mirrors the reference's struct + `GUBER_*` env-var config (config.go:44-459,
 example.conf), extended with the engine's own knobs (slot-table geometry, batch
@@ -138,7 +138,7 @@ class HotKeyConfig:
       class first, escalating one class per further cooldown.
     """
 
-    enabled: bool = False
+    enabled: bool = True
     # Promotion threshold on the pressure score: estimated hits/s for
     # the key (this node's local view) x the owner's SLO-pressure
     # ratio (p99 / target; 0 while the owner is healthy — so with no
@@ -214,7 +214,7 @@ def hotkey_config_from_env() -> HotKeyConfig:
     ]
     try:
         return HotKeyConfig(
-            enabled=_env("GUBER_HOTKEY_ENABLED", "false").lower()
+            enabled=_env("GUBER_HOTKEY_ENABLED", "true").lower()
             not in ("0", "false", "no"),
             threshold=float(_env("GUBER_HOTKEY_THRESHOLD", "500")),
             mirrors=_env_int("GUBER_HOTKEY_MIRRORS", 1),
@@ -253,7 +253,7 @@ class LeaseConfig:
     interval) parsed here so the SDK and the daemon read one surface.
     """
 
-    enabled: bool = False
+    enabled: bool = True
     # Fraction of the limit one holder's allowance covers.
     fraction: float = 0.25
     # Grant lifetime in milliseconds; an expired grant burns nothing.
@@ -304,7 +304,7 @@ def lease_config_from_env() -> LeaseConfig:
     later."""
     try:
         return LeaseConfig(
-            enabled=_env("GUBER_LEASE_ENABLED", "false").lower()
+            enabled=_env("GUBER_LEASE_ENABLED", "true").lower()
             not in ("0", "false", "no"),
             fraction=float(_env("GUBER_LEASE_FRACTION", "0.25")),
             ttl_ms=int(_env_float_s("GUBER_LEASE_TTL", 2.0) * 1000),
@@ -786,14 +786,14 @@ class DeviceConfig:
     platform: Optional[str] = None
     batch_tiers: Optional[Tuple[int, ...]] = None
     # The mesh axis (the JAX package's sharded table).  The port serves
-    # one table on one card; a mesh is ROADMAP queue 1 item 9.
+    # one table on one card; a mesh is ROADMAP queue 1 item 3.
     num_shards: int = 1
 
     def __post_init__(self) -> None:
         if self.num_shards != 1:
             raise ValueError(
                 f"num_shards={self.num_shards}: a sharded table is not "
-                "ported yet (ROADMAP queue 1 item 9, mesh and collective "
+                "ported yet (ROADMAP queue 1 item 3, the mesh and collective "
                 "GLOBAL); the port serves num_shards=1"
             )
         if self.num_slots % self.ways != 0:

@@ -7,11 +7,11 @@ endpoint, the discovery pool, and readiness gating — all on one asyncio
 loop, so many daemons can share a process (the in-process cluster fixture
 depends on this, cluster/cluster.go:111-146).
 
-The port's daemon serves the JAX daemon's state plane: a Store and Loader,
+The port's daemon serves the JAX daemon's state plane (a Store and Loader,
 resharding with drain on close, the gubstat census, tenant ledger and key
-peek, and the cold tier.  Discovery kinds other than none and static and the
-chaos plane raise a ValueError at construction (the service refuses the
-hot-key, lease and region planes).
+peek, and the cold tier), the hot-key and lease planes and the chaos plane.
+Discovery kinds other than none and static raise a ValueError at
+construction (the service refuses the region plane).
 """
 from __future__ import annotations
 
@@ -285,12 +285,7 @@ def refuse_unported_daemon(conf: DaemonConfig) -> None:
         raise ValueError(
             f"peer_discovery_type={kind!r}: only 'none' and 'static' "
             "discovery are ported (ROADMAP, \"What the daemon still "
-            "lacks\": the other discovery kinds)"
-        )
-    if conf.chaos is not None or conf.chaos_plan:
-        raise ValueError(
-            "the chaos plane is not ported (ROADMAP, \"What the daemon "
-            "still lacks\": chaos)"
+            "refuses\": queue 1 item 2, the other discovery kinds)"
         )
 
 
@@ -337,6 +332,21 @@ class Daemon:
                     self.metrics.registry.register(c)
                 except ValueError:
                     pass  # another daemon in this process registered them
+        # Chaos plane (testing/chaos.py): a pre-built injector from the
+        # cluster fixture, or a JSON plan file via GUBER_CHAOS_PLAN.
+        self.chaos = self.conf.chaos
+        if self.chaos is None and getattr(self.conf, "chaos_plan", ""):
+            from gubernator_tpu_torch.testing.chaos import (
+                ChaosInjector,
+                load_plan,
+            )
+
+            self.chaos = ChaosInjector(
+                load_plan(
+                    self.conf.chaos_plan,
+                    seed_override=self.conf.chaos_seed or None,
+                )
+            )
         self.service: Optional[Service] = None
         self.fastpath = None
         # Gubstat census sampler (runtime/gubstat.py): armed in start()
@@ -465,6 +475,16 @@ class Daemon:
             _TracingInterceptor(),
             _StatsInterceptor(self.metrics),
         ]
+        if self.chaos is not None:
+            from gubernator_tpu_torch.testing.chaos import (
+                ChaosServerInterceptor,
+            )
+
+            # Daemon-boundary fault injection; addr resolves lazily
+            # (the ephemeral port isn't bound yet).
+            interceptors.append(
+                ChaosServerInterceptor(self.chaos, lambda: self.grpc_address)
+            )
         server = grpc.aio.server(
             options=[
                 ("grpc.max_receive_message_length", 4 * 1024 * 1024),
@@ -532,6 +552,10 @@ class Daemon:
                 raise
         # Rewrite :0 ephemeral binds to the actual port for advertisement.
         self.grpc_address = f"{host}:{port}"
+        if self.chaos is not None:
+            # Bind the injector to our (now-known) address; every
+            # PeerClient built from here on carries the hook.
+            self.service.chaos = self.chaos.bind(self.grpc_address)
 
         await self._start_http()
         await self._start_discovery()
@@ -788,6 +812,30 @@ class Daemon:
                     addr: len(keys) for addr, keys in s._shadow.items()
                 },
             }
+            if s.hotkeys is not None:
+                # Hot-key survival plane (docs/hotkeys.md): the exact
+                # hot-set, this node's active mirror widenings, and the
+                # pressure-shed state.
+                s.hotkeys.poll()  # idle demotion isn't traffic-gated
+                out["hotkeys"] = {
+                    **s.hotkeys.debug_vars(),
+                    "mirror_served": s.mirror_served,
+                    "active_mirrors": [
+                        "%016x" % (int(fp) & 0xFFFFFFFFFFFFFFFF)
+                        for fp in s.active_mirror_fps()
+                    ],
+                    "shed": {
+                        "level": s.shed_level(),
+                        "served": s.shed_served,
+                        "priorities": list(
+                            s.cfg.hotkey.shed_priorities
+                        ),
+                    },
+                }
+            if s.leases is not None:
+                # Client-side admission leases (docs/leases.md): grant/
+                # refusal counters, per-key holder expiries, knobs.
+                out["leases"] = s.leases.debug_vars()
             if s.reshard is not None:
                 # Live resharding (docs/resharding.md): per-peer handoff
                 # phases, row counters, shadow burns.

@@ -49,9 +49,11 @@ the semantic reference:
     forwarded traffic in a cluster.
 
 This is the JAX package's fast lane without the mesh's engine lane and
-shard grids (ROADMAP queue 1 item 9) and the hot-key and region routing
-(the service refuses configurations that arm them).  While a reshard
-handoff is active on this node the lane steps aside for the object path.
+shard grids (ROADMAP queue 1 item 3) and the region routing (ROADMAP queue
+1 item 1; the service refuses configurations that arm it).  While a reshard
+handoff is active, or while this node sheds under SLO pressure, the lane
+steps aside for the object path; lanes of keys this node mirrors serve
+from the local mirror allowance (service._mirror_serve).
 """
 from __future__ import annotations
 
@@ -666,6 +668,13 @@ class FastPath:
         if not self._eligible():
             self.fallbacks += 1
             return None
+        if self.s.shed_level() > 0:
+            # SLO-driven shedding is active (docs/hotkeys.md):
+            # priority ordering is per request NAME, so the object path
+            # applies it — the lane steps aside while this node sheds
+            # (an overload condition; the columnar win is moot).
+            self.fallbacks += 1
+            return None
         routed = not peer_rpc and not self._single_node()
         if routed and not self._can_route():
             self.fallbacks += 1
@@ -734,6 +743,15 @@ class FastPath:
             self.s.metrics.concurrent_checks.observe(
                 self.s._inflight_checks
             )
+        # Hot-key detection (docs/hotkeys.md): feed the tracker the
+        # parsed fingerprint/hits columns once, at the point of no
+        # return — every fallback already happened, so the object path
+        # can never observe the same batch again.  Zero fingerprints
+        # (errored lanes) are ignored by the tracker.  note_traffic also
+        # feeds the cold tier's promote-on-access, so with hot keys off
+        # the lane does not promote, as in the JAX package.
+        if self.s.hotkeys is not None:
+            self.s.note_traffic(cols.hash, cols.hits)
         try:
             if routed:
                 return await self._serve_routed(
@@ -1189,6 +1207,23 @@ class FastPath:
         # gubernator.go:420-460) with the hit queued to the owner.
         glob_cached = is_global & ~owned & (cols.err == 0)
         local_mask = (cols.err != 0) | owned | is_global
+        # Hot-key widening (docs/hotkeys.md): lanes for keys this node
+        # actively mirrors (hot AND owner pressured AND we are a
+        # next-arc replica) leave the forward sets and serve from the
+        # local mirror allowance via the object path — the hot-set is
+        # tiny and the per-request hop replaces a forwarded RPC to an
+        # overloaded owner, not a columnar serve.
+        mirror_fps = self.s.active_mirror_fps()
+        mirror_mask = None
+        if len(mirror_fps):
+            mirror_mask = (
+                np.isin(cols.hash, mirror_fps)
+                & ~local_mask
+            )
+            if sk is not None:
+                mirror_mask &= ~sk
+            if not mirror_mask.any():
+                mirror_mask = None
         status = np.zeros(n, dtype=np.int64)
         out_lim = np.zeros(n, dtype=np.int64)
         remaining = np.zeros(n, dtype=np.int64)
@@ -1329,11 +1364,38 @@ class FastPath:
 
             await asyncio.gather(*(one(int(i)) for i in idx))
 
+        async def serve_mirror(idx: np.ndarray) -> None:
+            """Hot lanes served from the local mirror allowance
+            (service._mirror_serve: bounded carve-out + async
+            reconcile to the owner)."""
+            async def one(i: int) -> None:
+                req = self._decode_req(payload, cols, i)
+                resp = await self.s._mirror_serve(
+                    req, peers[int(owner[i])]
+                )
+                status[i] = int(resp.status)
+                out_lim[i] = resp.limit
+                remaining[i] = resp.remaining
+                reset[i] = resp.reset_time
+                if resp.error:
+                    errs[i] = resp.error.encode()
+                if resp.metadata:
+                    metas[i] = b"".join(
+                        native.meta_frame(k.encode(), v.encode())
+                        for k, v in resp.metadata.items()
+                    )
+
+            await asyncio.gather(*(one(int(i)) for i in idx))
+
         tasks = []
         local_idx = np.flatnonzero(local_mask)
         if len(local_idx):
             tasks.append(serve_local(local_idx))
-        remote_idx = np.flatnonzero(~local_mask)
+        forwardable = ~local_mask
+        if mirror_mask is not None:
+            forwardable = forwardable & ~mirror_mask
+            tasks.append(serve_mirror(np.flatnonzero(mirror_mask)))
+        remote_idx = np.flatnonzero(forwardable)
         if len(remote_idx):
             for pi in np.unique(owner[remote_idx]):
                 idx = remote_idx[owner[remote_idx] == pi]

@@ -1,0 +1,318 @@
+"""Hot-key detection: owner-pressure-gated promotion into an exact hot-set.
+
+A zipfian workload funnels its hottest keys onto single ring owners;
+the breaker/degraded plane (docs/resilience.md) only reacts once an
+owner is DEAD, while an overloaded-but-alive owner keeps absorbing the
+whole cluster's hottest traffic until its p99 blows through the SLO.
+This module is the detection half of the survival plane
+(docs/hotkeys.md): every node tracks the per-key rate of the traffic
+it routes in a host-side count-min sketch (`HostCMS`,
+runtime/sketch_backend.py — the CMS tier's estimator on the host) and
+promotes keys into a small EXACT hot-set when their pressure score
+
+    score(key) = estimated hits/s (this node's local view)
+                 x owner SLO-pressure ratio (p99 / target)
+
+stays past ``GUBER_HOTKEY_THRESHOLD`` for ``promote_windows``
+consecutive windows, demoting after ``demote_windows`` windows below —
+hysteresis, so a key hovering at the threshold cannot flap the set.
+
+The pressure factor is the 1909.08969 gate: with the owner healthy the
+ratio is 0, every score is 0, and NOTHING ever promotes — mirroring
+and its bounded over-admission are provably inactive until pressure is
+measured.  Owner pressure arrives per peer on RPC trailing metadata
+(net/peer_client.py) or, for keys this node owns, from its own flight
+recorder (runtime/flightrec.py); the tracker only sees it through the
+``pressure_fn`` callback the service wires.
+
+Threading: `observe()` runs on the event loop (object path) and on
+fast-lane drains; all mutable state sits under ``_lock`` —
+``hotkey._lock`` in the gubguard global lock ranking
+(docs/invariants.md), acquired while holding nothing and holding
+nothing else inside.  The hot-set is additionally published as an
+atomically swapped frozenset + int64 array so ``is_hot`` and the
+fast-lane mask need no lock at all.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+# A mirror check serves `<unique_key>` + this suffix from its own local
+# slot, so mirror admission state never collides with the real key's
+# rows (the SHADOW_SUFFIX convention, runtime/service.py).
+MIRROR_SUFFIX = ".hot-mirror"
+
+# Pressure ratios are clamped here before entering scores: a wildly
+# breached SLO must not promote every key in sight, and the candidate
+# admission floor (threshold / cap) stays meaningful.
+RATIO_CAP = 8.0
+
+_EMPTY_I64 = np.empty(0, dtype=np.int64)
+
+
+def fp64(h: int) -> int:
+    """Normalize a 64-bit fingerprint to the int64 (two's-complement)
+    form the device columns and this tracker use."""
+    return int(np.int64(np.uint64(h & 0xFFFFFFFFFFFFFFFF)))
+
+
+class HotKeyTracker:
+    """Windowed CMS + hysteresis hot-set (one per service instance)."""
+
+    def __init__(
+        self,
+        cfg,
+        metrics=None,
+        time_fn: Callable[[], float] = time.monotonic,
+        depth: int = 4,
+        width: int = 4096,
+    ) -> None:
+        from gubernator_tpu_torch.runtime.sketch_backend import HostCMS
+
+        self.cfg = cfg
+        self.metrics = metrics
+        self._time = time_fn
+        self._lock = threading.Lock()
+        self._cms = HostCMS(depth=depth, width=width)
+        self._win_start: Optional[float] = None
+        self._window_idx = 0
+        # Candidate fingerprints whose CMS estimate crossed the
+        # admission floor THIS window (scored at the roll; bounded).
+        self._cand: set = set()
+        # fp -> [consecutive over-threshold windows, last window index]
+        self._streak: Dict[int, List[int]] = {}
+        # fp -> {"since", "miss", "score"} for promoted keys.
+        self._hot: Dict[int, Dict] = {}
+        # Lock-free read views, swapped atomically on change.
+        self.hot_set: frozenset = frozenset()
+        self.hot_arr: np.ndarray = _EMPTY_I64
+        self.version = 0
+        self.promotions = 0
+        self.demotions = 0
+        # fp -> owner pressure ratio (service wires _owner_pressure_of;
+        # tests wire a constant).  None scores everything 0.
+        self.pressure_fn: Optional[Callable[[int], float]] = None
+        # Called (outside the lock) with the demoted fingerprints so
+        # the service can drop their mirror slots.
+        self.on_demote: Optional[Callable[[List[int]], None]] = None
+        # Optional fp -> key-string labels for debug_vars (fed by the
+        # mirror path, which has the decoded request anyway).
+        self._names: Dict[int, str] = {}
+        # Candidate admission floor: a key cannot score >= threshold
+        # unless its windowed count reaches threshold*window/RATIO_CAP
+        # (the ratio is clamped), so admitting only such keys loses
+        # nothing while bounding the exact-count set.
+        self._floor = max(
+            1.0, cfg.threshold * cfg.window_s / RATIO_CAP
+        )
+        self._cand_cap = max(4 * cfg.max_hot, 256)
+
+    # -- hot path (lock-free) --------------------------------------------
+    def is_hot(self, fp: int) -> bool:
+        return fp in self.hot_set
+
+    # -- producers -------------------------------------------------------
+    def observe(
+        self, key_hashes: np.ndarray, hits: np.ndarray
+    ) -> None:
+        """One routed batch: int64 fingerprints + per-request hits.
+        Zero fingerprints (the parser's error sentinel) are ignored;
+        each request weighs max(hits, 1) — a read still costs the owner
+        a served request.  Rolls the window when its boundary passed."""
+        if not self.cfg.enabled or not len(key_hashes):
+            return
+        now = self._time()
+        events = None
+        with self._lock:
+            self._roll_locked(now)
+            valid = key_hashes != 0
+            kh = key_hashes[valid] if not valid.all() else key_hashes
+            if not len(kh):
+                return
+            w = np.maximum(
+                hits[valid] if not valid.all() else hits, 1
+            )
+            self._cms.update(kh, w)
+            if len(self._cand) < self._cand_cap:
+                est = self._cms.estimate(kh)
+                for fp in kh[est >= self._floor]:
+                    self._cand.add(int(fp))
+                    if len(self._cand) >= self._cand_cap:
+                        break
+            events = self._pending_events
+            self._pending_events = None
+        if events:
+            self._fire(events)
+
+    _pending_events = None  # (promoted, demoted) staged under the lock
+
+    def poll(self) -> None:
+        """Roll the window with no traffic (idle demotion; also the
+        debug endpoints' refresh): a hot-set must collapse after the
+        skew stops even if nothing arrives to trigger observe()."""
+        if not self.cfg.enabled:
+            return
+        events = None
+        with self._lock:
+            self._roll_locked(self._time())
+            events = self._pending_events
+            self._pending_events = None
+        if events:
+            self._fire(events)
+
+    def note_name(self, fp: int, key: str) -> None:
+        """Label a fingerprint for debug output (bounded; best effort)."""
+        if len(self._names) < 4 * self.cfg.max_hot:
+            self._names[fp] = key
+
+    # -- window machinery (under _lock) ----------------------------------
+    def _roll_locked(self, now: float) -> None:
+        if self._win_start is None:
+            self._win_start = now
+            return
+        w = self.cfg.window_s
+        elapsed = now - self._win_start
+        if elapsed < w:
+            return
+        promoted, demoted = self._evaluate_locked()
+        idle = int(elapsed // w) - 1
+        if idle > 0:
+            # Windows with zero observe() calls are zero-score windows:
+            # every hot key misses them, every streak breaks.
+            demoted.extend(self._idle_locked(idle))
+            self._streak.clear()
+        self._win_start = now - (elapsed % w)
+        self._window_idx += 1 + max(idle, 0)
+        self._cms.clear()
+        self._cand.clear()
+        if promoted or demoted:
+            self._publish_locked()
+            self._pending_events = (promoted, demoted)
+
+    def _evaluate_locked(self):
+        thr = self.cfg.threshold
+        pf = self.pressure_fn
+        widx = self._window_idx
+        scores: Dict[int, float] = {}
+        for fp in self._cand:
+            rate = self._cms.estimate_one(fp) / self.cfg.window_s
+            ratio = 0.0
+            if pf is not None:
+                ratio = min(max(pf(fp), 0.0), RATIO_CAP)
+            scores[fp] = rate * ratio
+        promoted: List[int] = []
+        demoted: List[int] = []
+        # Demotion: a hot key scoring under the threshold (including
+        # keys with no traffic at all this window) accrues misses.
+        for fp, st in list(self._hot.items()):
+            sc = scores.get(fp, 0.0)
+            st["score"] = sc
+            if sc >= thr:
+                st["miss"] = 0
+            else:
+                st["miss"] += 1
+                if st["miss"] >= self.cfg.demote_windows:
+                    del self._hot[fp]
+                    demoted.append(fp)
+                    self.demotions += 1
+        # Promotion: consecutive over-threshold windows.
+        for fp, sc in scores.items():
+            if fp in self._hot:
+                continue
+            if sc < thr:
+                self._streak.pop(fp, None)
+                continue
+            st = self._streak.get(fp)
+            run = st[0] + 1 if st is not None and st[1] == widx - 1 else 1
+            if run >= self.cfg.promote_windows:
+                if len(self._hot) < self.cfg.max_hot:
+                    self._hot[fp] = {
+                        "since": self._time(), "miss": 0, "score": sc,
+                    }
+                    promoted.append(fp)
+                    self.promotions += 1
+                    self._streak.pop(fp, None)
+                # At capacity the streak holds, ready to promote the
+                # moment a slot frees.
+                else:
+                    self._streak[fp] = [run, widx]
+            else:
+                self._streak[fp] = [run, widx]
+        # Streaks that skipped a window are stale.
+        for fp, st in list(self._streak.items()):
+            if st[1] < widx - 1:
+                del self._streak[fp]
+        return promoted, demoted
+
+    def _idle_locked(self, k: int) -> List[int]:
+        demoted: List[int] = []
+        for fp, st in list(self._hot.items()):
+            st["miss"] += k
+            st["score"] = 0.0
+            if st["miss"] >= self.cfg.demote_windows:
+                del self._hot[fp]
+                demoted.append(fp)
+                self.demotions += 1
+        return demoted
+
+    def _publish_locked(self) -> None:
+        self.hot_set = frozenset(self._hot)
+        self.hot_arr = (
+            np.fromiter(self._hot, dtype=np.int64, count=len(self._hot))
+            if self._hot else _EMPTY_I64
+        )
+        self.version += 1
+
+    # -- event fan-out (outside the lock) --------------------------------
+    def _fire(self, events) -> None:
+        promoted, demoted = events
+        m = self.metrics
+        if m is not None:
+            if promoted:
+                m.hotkey_promotions.inc(len(promoted))
+            if demoted:
+                m.hotkey_demotions.inc(len(demoted))
+            m.hotkey_hot_keys.set(len(self.hot_set))
+            fr = getattr(m, "flightrec", None)
+            if fr is not None:
+                for fp in promoted:
+                    fr.record(
+                        "hotkey", event="promote", fp="%016x" % (fp &
+                        0xFFFFFFFFFFFFFFFF),
+                        key=self._names.get(fp, ""),
+                    )
+                for fp in demoted:
+                    fr.record(
+                        "hotkey", event="demote", fp="%016x" % (fp &
+                        0xFFFFFFFFFFFFFFFF),
+                        key=self._names.get(fp, ""),
+                    )
+        if demoted and self.on_demote is not None:
+            self.on_demote(demoted)
+
+    # -- observability ---------------------------------------------------
+    def debug_vars(self) -> Dict:
+        with self._lock:
+            hot = {
+                "%016x" % (fp & 0xFFFFFFFFFFFFFFFF): {
+                    "key": self._names.get(fp, ""),
+                    "score": round(st["score"], 1),
+                    "miss_windows": st["miss"],
+                }
+                for fp, st in self._hot.items()
+            }
+        return {
+            "enabled": self.cfg.enabled,
+            "threshold": self.cfg.threshold,
+            "hot": hot,
+            "hot_keys": len(hot),
+            "promotions": self.promotions,
+            "demotions": self.demotions,
+            "window_s": self.cfg.window_s,
+            "promote_windows": self.cfg.promote_windows,
+            "demote_windows": self.cfg.demote_windows,
+        }

@@ -31,16 +31,18 @@ cleared (same loop-prevention trick as GLOBAL broadcasts), giving each region
 an eventually-consistent view of cross-region hit pressure over DCN.
 
 This is the JAX package's service with the Store/Loader, the reshard
-plane (runtime/reshard.py), the gubstat tenant ledger (runtime/gubstat.py)
-and the cold tier's promote-on-access hook (runtime/coldtier.py), but
-without the mesh backend and its collective GlobalEngine (ROADMAP queue 1
-item 9) and without the hot-key, lease and region planes.  A config that
-arms one of those raises a ValueError naming its ROADMAP item; their peer
-RPCs answer as the JAX service answers them with the planes disabled.
+plane (runtime/reshard.py), the gubstat tenant ledger (runtime/gubstat.py),
+the cold tier's promote-on-access hook (runtime/coldtier.py), the hot-key
+survival plane (runtime/hotkey.py) and owner-side admission leases
+(runtime/lease.py), but without the mesh backend and its collective
+GlobalEngine (ROADMAP queue 1 item 3) and without the region plane (ROADMAP
+queue 1 item 1).  A config that arms regions raises a ValueError naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
 import asyncio
+import fnmatch
 import logging
 import random
 import time
@@ -84,18 +86,12 @@ def refuse_unported(cfg) -> None:
     """Raise for any part of `cfg` this port does not serve yet, naming
     the ROADMAP item that brings it (a silently ignored knob would serve
     different semantics than the operator configured)."""
-    planes = (
-        ("hotkey", "the hot-key survival plane and SLO shedding"),
-        ("lease", "client-side admission leases"),
-        ("region", "planet-scale regions"),
-    )
-    for field, what in planes:
-        if getattr(cfg, field).enabled:
-            raise ValueError(
-                f"{field}.enabled: {what} is not ported yet (ROADMAP, "
-                "\"What the daemon still lacks\": the hot-key, lease and "
-                f"region planes); set GUBER_{field.upper()}_ENABLED=false"
-            )
+    if cfg.region.enabled:
+        raise ValueError(
+            "region.enabled: planet-scale regions are not ported yet "
+            "(ROADMAP, \"What the daemon still refuses\": queue 1 item 1, "
+            "regions); set GUBER_REGION_ENABLED=false"
+        )
 
 _EMPTY_I64 = np.empty(0, dtype=np.int64)
 
@@ -170,6 +166,10 @@ class Service:
         # drops the shadow slot once the owner heals}.
         self._shadow: Dict[str, Dict[str, RateLimitReq]] = {}
         self._shadow_tasks: set = set()
+        # Chaos binding (testing/chaos.py): set by the daemon after its
+        # listen address is known, handed to every PeerClient built
+        # afterwards.  None in production.
+        self.chaos = None
         # Cached label child: the hot path must not pay a labels() dict
         # lookup per call (reference funcTimeMetric, gubernator.go:118).
         self._fd_get_rate_limits = self.metrics.func_duration.labels(
@@ -224,24 +224,51 @@ class Service:
             # Every actual spill — policy-driven or operator-called —
             # hits the Prometheus counter.
             self.sketch_backend.on_spill = self.metrics.sketch_spillover.inc
-        # The planes this port does not serve (refuse_unported) stay None,
-        # so the shared code that asks for them sees them disabled.
+        # Hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md):
+        # detection over the traffic this node routes.  Promotion is
+        # gated on MEASURED owner pressure, so without a flight
+        # recorder (or with every owner healthy) the tracker is inert.
         self.hotkeys = None
-        self.leases = None
-        self.regions = None
-        self._mirror_resets: Dict[int, RateLimitReq] = {}
+        if self.cfg.hotkey.enabled:
+            from gubernator_tpu_torch.runtime.hotkey import HotKeyTracker
+
+            self.hotkeys = HotKeyTracker(
+                self.cfg.hotkey, metrics=self.metrics
+            )
+            self.hotkeys.pressure_fn = self._owner_pressure_of
+            self.hotkeys.on_demote = self._on_hot_demote
         # The cold tier's manager (runtime/coldtier.py): the daemon arms it
         # when GUBER_TIER_ENABLED; note_traffic feeds its promote-on-access
         # path.
         self.tier = None
+        # fp -> RESET_REMAINING req that drops the local mirror slot
+        # when its key demotes (the shadow-drop discipline).
+        self._mirror_resets: Dict[int, RateLimitReq] = {}
+        # (built_monotonic, tracker version, int64 fps) cache for the
+        # fast lane's active-mirror mask.
+        self._mirror_fps_cache = None
+        self.mirror_served = 0
+        self.shed_served = 0
         # Gubstat per-tenant admission ledger (runtime/gubstat.py), fed at
         # the LOCAL serve choke points only (_check_local's tail, the fast
-        # lane's drain), so a cluster-wide sum never counts a hit twice.
+        # lane's drain, the shed path), so a cluster-wide sum never counts a
+        # hit twice.
         self.tenants = None
         if self.cfg.stats.enabled:
             from gubernator_tpu_torch.runtime.gubstat import TenantAccounting
 
             self.tenants = TenantAccounting(self.cfg.stats.top_k)
+        # Client-side admission leases (runtime/lease.py; docs/leases.md):
+        # the owner-side grant/reconcile plane for the Lease/Reconcile
+        # peer RPCs.  None when disabled — every grant then refuses.
+        self.leases = None
+        if self.cfg.lease.enabled:
+            from gubernator_tpu_torch.runtime.lease import LeaseManager
+
+            self.leases = LeaseManager(
+                self, self.cfg.lease, metrics=self.metrics
+            )
+        self._lease_sweep_task: Optional[asyncio.Task] = None
         # Elastic membership (runtime/reshard.py): a remap streams moved
         # rows old owner -> new owner instead of orphaning them.  None when
         # disabled: a remap then resets the moved keys' counters, as the
@@ -257,6 +284,10 @@ class Service:
         # handoff's covered-key test, reshard.inbound_covering).
         self._prev_picker = None
         self._reshard_watch_task: Optional[asyncio.Task] = None
+        # The region plane is not ported (refuse_unported): None, so the
+        # shared code that asks for it (LeaseManager._leasable_limit) sees
+        # it disabled.
+        self.regions = None
         self.global_mgr = GlobalManager(self)
         self.multi_region_mgr = MultiRegionManager(self)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -279,6 +310,10 @@ class Service:
         if self.reshard is not None:
             self._reshard_watch_task = asyncio.ensure_future(
                 self._reshard_watch_loop()
+            )
+        if self.leases is not None:
+            self._lease_sweep_task = asyncio.ensure_future(
+                self._lease_sweep_loop()
             )
         # Load the kernels and launch each batch tier once, so the first
         # client request pays for no build or module load inside an RPC
@@ -331,6 +366,13 @@ class Service:
         # protocol bounds the window's double admission.
         if self.reshard is not None and old_local.size() > 0:
             self.reshard.on_remap(old_local, local)
+        # Derived-slot invalidation: a demoted owner must not keep
+        # honoring lease renewals against a stale carve slot, and a
+        # node that just BECAME a hot key's owner must not keep a
+        # mirror allowance for it.
+        if self.leases is not None and old_local.size() > 0:
+            self.leases.on_remap()
+        self._invalidate_unowned_mirrors()
 
         shutdown: List[PeerClient] = []
         for peer in old_local.peers():
@@ -357,6 +399,7 @@ class Service:
             metrics=self.metrics,
             circuit=self.cfg.circuit,
             pressure_ttl_s=self.cfg.hotkey.pressure_ttl_s,
+            chaos=self.chaos,
         )
         # Heal detection for the degraded-mode fallback: ANY successful
         # RPC to the peer (object path, compiled raw lane, GLOBAL
@@ -386,11 +429,21 @@ class Service:
     # elastic membership (runtime/reshard.py; docs/resharding.md)
     # ------------------------------------------------------------------
     def _derived_slot_keys(self) -> List[str]:
-        """Hash-key strings of every derived slot this node knows about,
-        each ending with its reserved suffix class: the degraded shadows
-        and, while a handoff is inbound, the handoff shadows (the lease,
-        hot-mirror and region planes are not served by this port)."""
+        """Hash-key strings of every derived slot this node knows about
+        (each ends with its reserved suffix class — lease carve,
+        hot-mirror, degraded shadow, handoff shadow; the region plane is
+        not served by this port)."""
         keys: List[str] = []
+        if self.leases is not None:
+            from gubernator_tpu_torch.runtime.lease import LEASE_SUFFIX
+
+            with self.leases._lock:
+                keys.extend(
+                    k + LEASE_SUFFIX for k in self.leases._keys
+                )
+        keys.extend(
+            r.hash_key() for r in self._mirror_resets.values()
+        )
         for pending in self._shadow.values():
             keys.extend(pending.keys())
         if self.reshard is not None:
@@ -403,9 +456,12 @@ class Service:
 
     def derived_slot_fps(self) -> np.ndarray:
         """int64 fingerprints of the derived slots this node can
-        invalidate locally.  The reshard plane excludes them from
-        migration and the cold tier never demotes them: derived state
-        re-homes by re-creation at its new home, never by copy."""
+        invalidate locally — lease carve slots, hot-mirror allowances,
+        degraded shadows, handoff shadows.  The reshard plane excludes
+        them from migration and the cold tier never demotes them: derived
+        state re-homes by re-creation at its new home (leases re-grant
+        through the ring, mirrors re-promote, shadows re-carve), never by
+        copy."""
         keys = self._derived_slot_keys()
         if not keys:
             return _EMPTY_I64
@@ -432,6 +488,22 @@ class Service:
             p: np.array(v, dtype=np.int64) if v else _EMPTY_I64
             for p, v in grouped.items()
         }
+
+    def _invalidate_unowned_mirrors(self) -> None:
+        """A remap can make this node the OWNER of a key it was
+        mirroring — drop the stale mirror allowance so no widened
+        admission state survives the ownership change."""
+        from gubernator_tpu_torch.runtime.hotkey import MIRROR_SUFFIX
+
+        fps = [
+            fp for fp, r in self._mirror_resets.items()
+            if r.unique_key.endswith(MIRROR_SUFFIX)
+            and self._owns_key(
+                r.name + "_" + r.unique_key[: -len(MIRROR_SUFFIX)]
+            )
+        ]
+        if fps:
+            self._on_hot_demote(fps)
 
     async def _reshard_watch_loop(self) -> None:
         """Watchdog cadence for the reshard plane: self-cutover inbound
@@ -480,24 +552,6 @@ class Service:
             return 0
         return await self.reshard.drain_all()
 
-    def note_traffic(
-        self, key_hashes: np.ndarray, hits: np.ndarray
-    ) -> None:
-        """Feed one batch of served traffic to the cold tier: a served key
-        that is cold-resident schedules a FIFO promote (this batch was
-        already answered from whatever the device had).  Called once per
-        batch by the path that serves it."""
-        tier = self.tier
-        if tier is not None and len(key_hashes):
-            tier.note_access(key_hashes, hits)
-
-    def spawn_task(self, coro) -> None:
-        """Fire-and-forget a coroutine on the service loop, tracked so
-        shutdown can await it (the shadow-task discipline)."""
-        t = asyncio.ensure_future(coro)
-        self._shadow_tasks.add(t)
-        t.add_done_callback(self._shadow_tasks.discard)
-
     def _strip_sketch_global(
         self, reqs: Sequence[RateLimitReq]
     ) -> Sequence[RateLimitReq]:
@@ -523,6 +577,329 @@ class Service:
             else r
             for r in reqs
         ]
+
+    # ------------------------------------------------------------------
+    # hot-key survival plane (runtime/hotkey.py; docs/hotkeys.md)
+    # ------------------------------------------------------------------
+    def note_traffic(
+        self, key_hashes: np.ndarray, hits: np.ndarray
+    ) -> None:
+        """Feed the hot-key detector one batch of routed traffic.
+        Called once per batch by whichever path actually serves it (the
+        compiled lane's check_raw or the object path), so a fast-lane
+        fallback never observes the same requests twice."""
+        hk = self.hotkeys
+        if hk is not None and len(key_hashes):
+            hk.observe(key_hashes, hits)
+        tier = self.tier
+        if tier is not None and len(key_hashes):
+            # Promote-on-access (docs/tiering.md): a served key that is
+            # cold-resident schedules a FIFO host-job inject; THIS
+            # batch was already answered from whatever the device had.
+            tier.note_access(key_hashes, hits)
+
+    def _peer_by_fp(self, fp: int) -> Optional[PeerClient]:
+        """Owning peer for a device fingerprint — xx rings only, where
+        the ring hash IS the XXH64 key fingerprint (the fast router's
+        own premise, replicated_hash.ring_arrays).  None on fnv interop
+        rings or an empty pool."""
+        from gubernator_tpu_torch.net.replicated_hash import xx_64
+
+        pick = self.local_picker
+        if pick.size() == 0 or pick.hash_fn is not xx_64:
+            return None
+        ring, ring_idx, peers = pick.ring_arrays()
+        if not len(ring):
+            return None
+        i = int(np.searchsorted(
+            ring, np.int64(fp).astype(np.uint64), side="left"
+        ))
+        if i == len(ring):
+            i = 0
+        # ring_idx is the picker's host-side numpy cache, never a
+        # device array.
+        idx = int(ring_idx[i])  # gubguard: ok=host-sync
+        return peers[idx]
+
+    def _owner_pressure_of(self, fp: int) -> float:
+        """Owner SLO-pressure ratio for a key fingerprint — the
+        multiplier in the hot-key promotion score.  Keys we own use our
+        own flight recorder's sustained-breach state; keys a peer owns
+        use the ratio that peer advertised on RPC trailing metadata
+        (0 once its TTL lapsed).  On fnv interop rings (no fp->owner
+        mapping) the strongest signal anywhere applies — conservative:
+        it can only promote more, and mirror membership is still
+        checked per key at serve time."""
+        fr = getattr(self.metrics, "flightrec", None)
+        own = (
+            fr.pressure_ratio()
+            if fr is not None and fr.pressure_active() else 0.0
+        )
+        peer = self._peer_by_fp(fp)
+        if peer is not None:
+            if peer.info().is_owner:
+                return own
+            return peer.pressure_ratio()
+        peers = self.local_picker.peers()
+        if not peers:
+            return own
+        return max(
+            [own]
+            + [
+                p.pressure_ratio() for p in peers
+                if not p.info().is_owner
+            ]
+        )
+
+    def _is_mirror_hashed(self, h: int) -> bool:
+        """True when this node is one of the key's next-arc mirror
+        replicas (owner excluded) for ring hash `h`."""
+        try:
+            cand = self.local_picker.get_n_hashed(
+                h, 1 + self.cfg.hotkey.mirrors
+            )
+        except PoolEmptyError:
+            return False
+        return any(p.info().is_owner for p in cand[1:])
+
+    def _mirror_eligible(
+        self, req: RateLimitReq, key: str, peer: PeerClient
+    ) -> bool:
+        """Should this forwarded check serve from a local mirror
+        allowance instead?  All four gates must hold: widening enabled,
+        the owner currently advertising pressure, the key promoted into
+        the hot-set, and this node among the key's next-arc replicas.
+        Sketch-tier names never mirror (the CMS tier is already
+        cardinality-safe and counts once at the owner)."""
+        hk = self.hotkeys
+        hkc = self.cfg.hotkey
+        if hk is None or hkc.mirrors <= 0:
+            return False
+        if not peer.pressure_active():
+            return False
+        if (
+            self.sketch_backend is not None
+            and self.sketch_backend.handles(req)
+        ):
+            return False
+        from gubernator_tpu_torch.core.hashing import key_hash64
+        from gubernator_tpu_torch.runtime.hotkey import fp64
+
+        if not hk.is_hot(fp64(key_hash64(key))):
+            return False
+        return self._is_mirror_hashed(
+            self.local_picker.hash_fn(key.encode())
+        )
+
+    def active_mirror_fps(self) -> np.ndarray:
+        """int64 fingerprints this node is actively mirroring right now
+        (hot AND owner pressured AND we are a next-arc replica) — the
+        compiled lane's pull-out mask.  Cached per tracker version with
+        a short TTL so pressure transitions land within ~a window.
+        Empty on fnv interop rings (the object path still mirrors
+        there; only the columnar mask needs the fp->owner mapping)."""
+        hk = self.hotkeys
+        if hk is None or self.cfg.hotkey.mirrors <= 0:
+            return _EMPTY_I64
+        hot = hk.hot_arr
+        if not len(hot):
+            return _EMPTY_I64
+        now = time.monotonic()
+        cached = self._mirror_fps_cache
+        if (
+            cached is not None
+            and cached[1] == hk.version
+            and now - cached[0] < 0.25
+        ):
+            return cached[2]
+        active = [
+            int(fp) for fp in hot if self._fp_actively_mirrored(int(fp))
+        ]
+        arr = (
+            np.array(active, dtype=np.int64) if active else _EMPTY_I64
+        )
+        self._mirror_fps_cache = (now, hk.version, arr)
+        return arr
+
+    def _fp_actively_mirrored(self, fp: int) -> bool:
+        peer = self._peer_by_fp(fp)
+        if peer is None or peer.info().is_owner:
+            return False
+        if not peer.pressure_active():
+            return False
+        return self._is_mirror_hashed(int(np.int64(fp).astype(np.uint64)))
+
+    async def _mirror_serve(
+        self, req: RateLimitReq, peer: PeerClient
+    ) -> RateLimitResp:
+        """Serve a hot key from this mirror's LOCAL allowance while its
+        owner is under measured SLO pressure.
+
+        The admission algebra is local_shadow's with pressure (not
+        death) as the gate: the check rewrites onto
+        `<unique_key>.hot-mirror` — its own slot in the local table —
+        at `fraction x limit`, so each of the `mirrors` next-arc
+        replicas admits at most fraction x limit per window and
+        cluster-wide admission for the key stays within
+        limit x (1 + mirrors x fraction).  The ORIGINAL hits reconcile
+        to the owner through the GLOBAL async-hit machinery
+        (aggregated, provably-unsent-gated — at most once), so the
+        authoritative row converges on the true total."""
+        from dataclasses import replace as dc_replace
+
+        from gubernator_tpu_torch.core.hashing import key_hash64
+        from gubernator_tpu_torch.runtime.hotkey import MIRROR_SUFFIX, fp64
+
+        owner = peer.info().grpc_address
+        hkc = self.cfg.hotkey
+        self.mirror_served += 1
+        self.metrics.hotkey_mirror_served.inc()
+        self.metrics.getratelimit_counter.labels("local").inc()
+        if req.limit <= 0:
+            # Deny-all keys stay deny-all on mirrors (the local_shadow
+            # rule): the max(1, ...) floor keeps small positive limits
+            # serviceable, never fails-open an explicit zero.
+            return RateLimitResp(
+                status=Status.OVER_LIMIT,
+                limit=req.limit,
+                remaining=0,
+                reset_time=self._resolve_reset_ms(req),
+                metadata={"hotkey": "mirror", "owner": owner},
+            )
+        mirror_limit = max(1, int(req.limit * hkc.fraction))
+        mirror = dc_replace(
+            req,
+            unique_key=req.unique_key + MIRROR_SUFFIX,
+            limit=mirror_limit,
+            burst=min(req.burst, mirror_limit) if req.burst else 0,
+            behavior=Behavior(
+                int(req.behavior)
+                & ~int(Behavior.GLOBAL)
+                & ~int(Behavior.MULTI_REGION)
+            ),
+        )
+        resps = await self._check_local([mirror])
+        resp = resps[0]
+        if not resp.error:
+            md = dict(resp.metadata) if resp.metadata else {}
+            md["hotkey"] = "mirror"
+            md["owner"] = owner
+            resp.metadata = md
+            fp = fp64(key_hash64(req.hash_key()))
+            if self.hotkeys is not None:
+                self.hotkeys.note_name(fp, req.hash_key())
+            # Reconcile the ORIGINAL hits toward the owner (async,
+            # aggregated per key — global.go:87-95's queue).
+            if req.hits:
+                self.global_mgr.queue_hit(dc_replace(req))
+            # Remember how to drop this mirror slot when the key
+            # demotes: zero-hit RESET_REMAINING removes a token row
+            # outright and re-fills a leaky one (the shadow-drop
+            # mechanics, _drop_shadow).
+            self._mirror_resets[fp] = dc_replace(
+                mirror,
+                hits=0,
+                behavior=Behavior(
+                    int(mirror.behavior) | int(Behavior.RESET_REMAINING)
+                ),
+            )
+        return resp
+
+    def _on_hot_demote(self, fps: List[int]) -> None:
+        """Tracker callback (outside its lock, any thread): the keys
+        collapsed out of the hot-set — drop their local mirror slots so
+        no stale mirror admission state survives the widening."""
+        resets = [
+            self._mirror_resets.pop(fp)
+            for fp in fps
+            if fp in self._mirror_resets
+        ]
+        if not resets:
+            return
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return
+
+        def submit() -> None:
+            t = asyncio.ensure_future(self._reset_mirrors(resets))
+            self._shadow_tasks.add(t)
+            t.add_done_callback(self._shadow_tasks.discard)
+
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if running is loop:
+            submit()
+        else:
+            loop.call_soon_threadsafe(submit)
+
+    async def _reset_mirrors(self, resets: List[RateLimitReq]) -> None:
+        try:
+            await self._check_local(resets)
+            fr = getattr(self.metrics, "flightrec", None)
+            if fr is not None:
+                fr.record("hotkey_mirror_drop", keys=len(resets))
+        except Exception as e:  # noqa: BLE001 — slots expire anyway
+            log.warning("mirror reset after demotion failed: %s", e)
+
+    # ------------------------------------------------------------------
+    # SLO-driven adaptive shedding (docs/hotkeys.md)
+    # ------------------------------------------------------------------
+    def shed_level(self) -> int:
+        """Current shed escalation level.  0 = no shedding.  Level L
+        sheds requests whose priority class index is < L, where classes
+        are the `shed_priorities` globs in lowest-priority-first order.
+        Arms only once this node's own p99 breach run has persisted
+        `shed_cooldown_s` (the flight recorder's sustained-breach
+        clock), escalating one class per further cooldown — and never
+        sheds names matching no glob."""
+        hkc = self.cfg.hotkey
+        if not hkc.enabled or not hkc.shed_priorities:
+            return 0
+        fr = getattr(self.metrics, "flightrec", None)
+        if fr is None:
+            return 0
+        sustained = fr.pressure_sustained_s()
+        if sustained < hkc.shed_cooldown_s:
+            return 0
+        return min(
+            1 + int((sustained - hkc.shed_cooldown_s)
+                    // hkc.shed_cooldown_s),
+            len(hkc.shed_priorities),
+        )
+
+    def shed_priority(self, name: str) -> int:
+        """Priority class of a limit name: the index of the first
+        matching glob (0 sheds first); names matching none rank past
+        every class and are never shed."""
+        for i, pat in enumerate(self.cfg.hotkey.shed_priorities):
+            if fnmatch.fnmatch(name, pat):
+                return i
+        return len(self.cfg.hotkey.shed_priorities)
+
+    def _shed_response(self, req: RateLimitReq) -> RateLimitResp:
+        """DROP with retry-after rather than queueing: an overloaded
+        node must not stack deferred work it cannot serve
+        (arXiv:2510.04516's requester-side admission argument)."""
+        self.shed_served += 1
+        self.metrics.peer_shed_total.labels(
+            peerAddr="local", reason="pressure"
+        ).inc()
+        if self.tenants is not None:
+            self.tenants.record_shed(req.name, int(req.hits or 0))
+        retry_ms = int(self.cfg.hotkey.shed_cooldown_s * 1000)
+        now_ms = int(self.clock.now_ns() // 1_000_000)
+        return RateLimitResp(
+            status=Status.OVER_LIMIT,
+            limit=req.limit,
+            remaining=0,
+            reset_time=now_ms + retry_ms,
+            metadata={
+                "shed": "pressure",
+                "retry_after_ms": str(retry_ms),
+            },
+        )
 
     # ------------------------------------------------------------------
     # client API
@@ -560,10 +937,12 @@ class Service:
         local_cached: List[bool] = []
         local_owner_meta: List[Optional[str]] = []
         forwards: List[Tuple[int, PeerClient, RateLimitReq, str]] = []
+        mirrors: List[Tuple[int, PeerClient, RateLimitReq]] = []
         covered: List[Tuple[int, RateLimitReq, str, object]] = []
 
         reqs = self._strip_sketch_global(reqs)
-        if self.tier is not None:
+
+        if self.hotkeys is not None or self.tier is not None:
             valid = [r for r in reqs if r.unique_key and r.name]
             if valid:
                 from gubernator_tpu_torch.core.hashing import bulk_key_hash64
@@ -572,6 +951,7 @@ class Service:
                     bulk_key_hash64([r.hash_key() for r in valid]),
                     np.array([r.hits for r in valid], dtype=np.int64),
                 )
+        shed = self.shed_level()
 
         single_node = self.local_picker.size() == 0
         for i, req in enumerate(reqs):
@@ -591,6 +971,13 @@ class Service:
                 responses[i] = RateLimitResp(
                     error="field 'namespace' cannot be empty"
                 )
+                continue
+            if shed and self.shed_priority(req.name) < shed:
+                # SLO-driven shedding (docs/hotkeys.md): the breach run
+                # outlasted the cooldown — drop low-priority traffic
+                # BEFORE any routing, device work, or replication
+                # queueing (a shed request must leave no state behind).
+                responses[i] = self._shed_response(req)
                 continue
             key = req.hash_key()
             if single_node:
@@ -639,12 +1026,22 @@ class Service:
                 local_cached.append(True)
                 local_owner_meta.append(peer.info().grpc_address)
                 self.global_mgr.queue_hit(req)
+            elif self._mirror_eligible(req, key, peer):
+                # Hot-key widening (docs/hotkeys.md): the owner is
+                # measurably pressured and this node is one of the
+                # key's next-arc mirrors — serve from the local
+                # allowance instead of piling onto the owner.
+                mirrors.append((i, peer, req))
             else:
                 forwards.append((i, peer, req, key))
 
         tasks = [
             asyncio.ensure_future(self._forward(peer, req, key))
             for (_, peer, req, key) in forwards
+        ]
+        mirror_tasks = [
+            asyncio.ensure_future(self._mirror_serve(req, peer))
+            for (_, peer, req) in mirrors
         ]
         covered_tasks = [
             asyncio.ensure_future(
@@ -673,6 +1070,18 @@ class Service:
                         responses[i] = RateLimitResp(
                             error=f"Error while fetching rate limit "
                             f"'{key}' from peer: {resp}"
+                        )
+                    else:
+                        responses[i] = resp
+            if mirror_tasks:
+                results = await asyncio.gather(
+                    *mirror_tasks, return_exceptions=True
+                )
+                for (i, _, req), resp in zip(mirrors, results):
+                    if isinstance(resp, BaseException):
+                        responses[i] = RateLimitResp(
+                            error=f"Error serving hot-key mirror for "
+                            f"'{req.hash_key()}': {resp}"
                         )
                     else:
                         responses[i] = resp
@@ -754,9 +1163,9 @@ class Service:
                 return out  # type: ignore[return-value]
         resps = await self._local_batcher.check(reqs, use_cached)
         # Gubstat: every LOCAL device serve, direct or a shadow plane's
-        # (degraded and handoff shadows ride through here with their
-        # suffixed unique_key), tallies into the tenant ledger exactly
-        # once, at this choke point.
+        # (mirror, lease, degraded and handoff reqs ride through here with
+        # their suffixed unique_key), tallies into the tenant ledger
+        # exactly once, at this choke point.
         if self.tenants is not None:
             self.tenants.record_checks(reqs, resps)
         self._touch_global_captures(reqs, use_cached)
@@ -1006,32 +1415,183 @@ class Service:
         t.add_done_callback(self._shadow_tasks.discard)
 
     # ------------------------------------------------------------------
-    # the planes' peer RPCs, answered as the JAX daemon answers them with
-    # the planes disabled
+    # client-side admission leases (runtime/lease.py; docs/leases.md)
     # ------------------------------------------------------------------
+    def spawn_task(self, coro) -> None:
+        """Fire-and-forget a coroutine on the service loop, tracked so
+        shutdown can await it (the shadow-task discipline)."""
+        t = asyncio.ensure_future(coro)
+        self._shadow_tasks.add(t)
+        t.add_done_callback(self._shadow_tasks.discard)
+
+    async def _lease_sweep_loop(self) -> None:
+        """Periodic grant-expiry sweep: lapsed holders are revoked and a
+        key's carve slot drops once its last holder is gone, so the
+        owner re-collects un-burned allowance without waiting for a
+        reconcile that may never come (a dead holder)."""
+        interval = max(self.cfg.lease.ttl_ms / 2000.0, 0.05)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await self.leases.sweep_apply()
+            except Exception as e:  # noqa: BLE001 — keep the cadence
+                log.warning("lease sweep failed: %s", e)
+
+    def _split_by_owner(self, keys: Sequence[str]):
+        """(owned indices, {addr: (peer, indices)}) for a key list —
+        the lease/reconcile ownership split.  A pool-empty or
+        single-node picker owns everything locally."""
+        owned: List[int] = []
+        by_peer: Dict[str, Tuple[PeerClient, List[int]]] = {}
+        single = self.local_picker.size() == 0
+        for i, key in enumerate(keys):
+            if single:
+                owned.append(i)
+                continue
+            try:
+                peer = self.get_peer(key)
+            except PoolEmptyError:
+                owned.append(i)
+                continue
+            if peer.info().is_owner:
+                owned.append(i)
+            else:
+                addr = peer.info().grpc_address
+                by_peer.setdefault(addr, (peer, []))[1].append(i)
+        return owned, by_peer
+
     async def lease(
         self, client_id: str, reqs: Sequence[RateLimitReq]
     ) -> List[LeaseGrant]:
-        """Lease grants: the plane is not ported, so every grant is
-        refused as the JAX service refuses it with leases disabled."""
-        return [
-            LeaseGrant(
-                key=r.hash_key(), limit=r.limit,
-                refusal="leases disabled",
+        """Grant leases for the keys this node owns; forward the rest
+        to their owners (the edge-daemon proxy role — a LeasedClient
+        talks to ONE daemon and the ring routes its grants).  Grants
+        come back in request order; an unreachable owner refuses
+        rather than errors, so the client degrades to per-call checks
+        transparently."""
+        if self.leases is None:
+            return [
+                LeaseGrant(
+                    key=r.hash_key(), limit=r.limit,
+                    refusal="leases disabled",
+                )
+                for r in reqs
+            ]
+        out: List[Optional[LeaseGrant]] = [None] * len(reqs)
+        owned, by_peer = self._split_by_owner(
+            [r.hash_key() for r in reqs]
+        )
+        if owned:
+            grants = await self.leases.grant(
+                client_id, [reqs[i] for i in owned]
             )
-            for r in reqs
+            for i, g in zip(owned, grants):
+                out[i] = g
+
+        async def forward(peer: PeerClient, idx: List[int]) -> None:
+            try:
+                grants = await peer.lease(
+                    client_id, [reqs[i] for i in idx]
+                )
+                for i, g in zip(idx, grants):
+                    out[i] = g
+            except Exception as e:  # noqa: BLE001 — refuse, degrade
+                for i in idx:
+                    out[i] = LeaseGrant(
+                        key=reqs[i].hash_key(), limit=reqs[i].limit,
+                        refusal=f"owner unreachable: {e}",
+                    )
+
+        if by_peer:
+            await asyncio.gather(
+                *(forward(p, idx) for p, idx in by_peer.values())
+            )
+        return [
+            g if g is not None else LeaseGrant(refusal="not routed")
+            for g in out
         ]
 
     async def reconcile(
         self, client_id: str, items: Sequence
     ) -> List[LeaseGrant]:
-        """Lease reconciles: refused (leases disabled)."""
-        return [
-            LeaseGrant(
-                key=it.request.hash_key(), limit=it.request.limit,
-                refusal="leases disabled",
+        """Apply burned-hit reconciliation for the keys this node owns;
+        forward the rest to their owners.  One grant per item in item
+        order (allowance 0 unless the item asked to renew)."""
+        if self.leases is None:
+            return [
+                LeaseGrant(
+                    key=it.request.hash_key(), limit=it.request.limit,
+                    refusal="leases disabled",
+                )
+                for it in items
+            ]
+        from dataclasses import replace as dc_replace
+
+        out: List[Optional[LeaseGrant]] = [None] * len(items)
+        owned, by_peer = self._split_by_owner(
+            [it.request.hash_key() for it in items]
+        )
+        if owned:
+            grants = await self.leases.reconcile(
+                client_id, [items[i] for i in owned]
             )
-            for it in items
+            for i, g in zip(owned, grants):
+                out[i] = g
+
+        # Non-owned burned hits ride GlobalManager.queue_hit — the
+        # at-most-once aggregation whose flush re-queues on provably-
+        # unsent failures, so a holder's burn survives an owner
+        # partition and converges after heal (a direct forward would
+        # have to drop it on any failure).  Only the release/renew
+        # bookkeeping forwards to the owner's LeaseManager, with hits
+        # zeroed so they cannot double-apply.
+        for _peer, idx in by_peer.values():
+            for i in idx:
+                if items[i].request.hits > 0:
+                    self.global_mgr.queue_hit(
+                        dc_replace(items[i].request)
+                    )
+
+        async def forward(peer: PeerClient, idx: List[int]) -> None:
+            if not any(
+                items[i].release or items[i].renew for i in idx
+            ):
+                # Burn-only items already rode queue_hit — nothing
+                # for the owner's LeaseManager to learn.
+                for i in idx:
+                    out[i] = LeaseGrant(
+                        key=items[i].request.hash_key(),
+                        limit=items[i].request.limit,
+                    )
+                return
+            stripped = [
+                dc_replace(
+                    items[i],
+                    request=dc_replace(items[i].request, hits=0),
+                )
+                for i in idx
+            ]
+            try:
+                grants = await peer.reconcile(client_id, stripped)
+                for i, g in zip(idx, grants):
+                    out[i] = g
+            except Exception as e:  # noqa: BLE001
+                # Renewals refuse (the client degrades); a lost release
+                # is re-collected by the owner's TTL sweep.
+                for i in idx:
+                    out[i] = LeaseGrant(
+                        key=items[i].request.hash_key(),
+                        limit=items[i].request.limit,
+                        refusal=f"owner unreachable: {e}",
+                    )
+
+        if by_peer:
+            await asyncio.gather(
+                *(forward(p, idx) for p, idx in by_peer.values())
+            )
+        return [
+            g if g is not None else LeaseGrant(refusal="not routed")
+            for g in out
         ]
 
     # ------------------------------------------------------------------
@@ -1054,9 +1614,9 @@ class Service:
         # client's original bytes — re-strip here so a GLOBAL+sketch
         # request never queues an exact-table broadcast for a sketch key.
         reqs = self._strip_sketch_global(reqs)
-        if self.tier is not None:
-            # Owner-side promote-on-access: forwarded traffic is the
-            # traffic this owner serves.
+        if self.hotkeys is not None or self.tier is not None:
+            # Owner-side detection: forwarded traffic is exactly the
+            # load a pressured owner needs to see per key.
             valid = [r for r in reqs if r.unique_key and r.name]
             if valid:
                 from gubernator_tpu_torch.core.hashing import bulk_key_hash64
@@ -1116,6 +1676,24 @@ class Service:
                 else:
                     out.append(next(it))
             return out
+        shed = self.shed_level()
+        if shed:
+            # Owner-side shedding of forwarded traffic — the relief
+            # valve that actually unloads a pressured owner.
+            shed_idx = {
+                i for i, r in enumerate(reqs)
+                if r.name and self.shed_priority(r.name) < shed
+            }
+            if shed_idx:
+                kept = [
+                    r for i, r in enumerate(reqs) if i not in shed_idx
+                ]
+                inner = await self._check_local(kept) if kept else []
+                it = iter(inner)
+                return [
+                    self._shed_response(r) if i in shed_idx else next(it)
+                    for i, r in enumerate(reqs)
+                ]
         return await self._check_local(reqs)
 
     async def update_peer_globals(
@@ -1192,6 +1770,12 @@ class Service:
                     f"Pressure on peer {peer.info().grpc_address}: "
                     f"advertised p99 at {ratio:.2f}x its SLO target"
                 )
+        lvl = self.shed_level()
+        if lvl:
+            pressure_lines.append(
+                f"Pressure shedding active on this node (level {lvl} "
+                f"of {len(self.cfg.hotkey.shed_priorities)})"
+            )
         # Migration-state lines (docs/resharding.md): in-flight handoffs
         # are advisory — the node IS serving, just with covered keys
         # routed through the handoff protocol.
@@ -1226,6 +1810,12 @@ class Service:
                 self._reshard_watch_task, return_exceptions=True
             )
             self._reshard_watch_task = None
+        if self._lease_sweep_task is not None:
+            self._lease_sweep_task.cancel()
+            await asyncio.gather(
+                self._lease_sweep_task, return_exceptions=True
+            )
+            self._lease_sweep_task = None
         await self.global_mgr.close()
         await self.multi_region_mgr.close()
         await self._local_batcher.close()

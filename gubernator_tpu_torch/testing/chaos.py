@@ -1,0 +1,363 @@
+"""Chaos plane: deterministic, seedable fault injection for the cluster.
+
+Nothing in the repo could previously *inject* a peer failure, so the
+retry-safety logic in net/peer_client.py (`provably_unsent`, the
+ownership-retry loop, the GLOBAL requeue-vs-drop split) was exercised
+only by whatever faults the OS happened to produce.  This module makes
+fault sequences a first-class, reproducible test input:
+
+* **Client boundary** — `PeerClient` awaits `chaos.on_client(dst,
+  method)` immediately before issuing each outbound RPC.  A firing rule
+  delays the call, or raises a REAL `grpc.aio.AioRpcError` with a
+  chosen status code and detail text, so every existing error-handling
+  path (status-code conversion, marker-string classification, breaker
+  feed) runs exactly as it would on a production failure.  Faults
+  raised here are genuinely *unsent* — the RPC was never issued — which
+  is what makes `provably_unsent`-gated retries assertable: a plan of
+  client-side faults must produce ZERO double counts.
+
+* **Daemon boundary** — `ChaosServerInterceptor` wraps every unary
+  handler.  `phase="before"` rules abort the RPC before the handler
+  runs (the request was delivered but never applied); `phase="after"`
+  rules run the handler — hits ARE applied — then fail the RPC anyway:
+  the delivered-but-unanswered window that makes blind retries double
+  count.
+
+* **Partition** — `injector.partition(group_a, group_b, ...)` makes
+  every cross-group client call fail with UNAVAILABLE and a
+  connect-phase marker ("failed to connect"), honestly: the fault fires
+  before the RPC is issued, so classifying it retry-safe is correct.
+  `injector.heal()` lifts the partition and deactivates all rules.
+
+* **Kill/restart** — daemon lifecycle faults ride the existing
+  `Cluster.kill` / `Cluster.restart` (testing/cluster.py).
+
+Determinism: every probabilistic decision draws from a PRNG seeded with
+`(plan.seed, rule index, src, dst, per-pair call counter)` — the
+decision SEQUENCE for each (rule, src, dst) pair is a pure function of
+the plan seed, independent of event-loop interleaving across runs.
+
+Wiring: `DaemonConfig.chaos` takes a pre-built injector (the in-process
+cluster fixture path); `GUBER_CHAOS_PLAN` points a real daemon at a
+JSON plan file (`GUBER_CHAOS_SEED` > 0 overrides the plan's seed) —
+see docs/resilience.md for the plan format.
+"""
+from __future__ import annotations
+
+import asyncio
+import collections
+import fnmatch
+import json
+import random
+from dataclasses import dataclass, field
+from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
+
+import grpc
+import grpc.aio
+
+
+def zipf_keys(seed: int, s: float, n: int, universe: int):
+    """Seeded zipfian key indices for storm scenarios: `n` draws over
+    `[0, universe)` with exponent `s` (rank-frequency skew; s ~ 1.1-1.5
+    models production key popularity).  Deterministic from the seed —
+    the same discipline as the fault plans, so a hot-key overload
+    scenario reproduces from (seed, s) alone.  Used by
+    scripts/chaos_smoke.py and the bench_e2e --workload zipf:<s>
+    config."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.zipf(s, size=n) - 1) % universe
+
+
+def injected_rpc_error(
+    status: str, message: str, debug: Optional[str] = None
+) -> grpc.aio.AioRpcError:
+    """A real AioRpcError (not a stand-in): it must flow through the
+    same isinstance checks, status-code conversions and marker-string
+    classification as an organic failure."""
+    return grpc.aio.AioRpcError(
+        getattr(grpc.StatusCode, status),
+        None,  # initial_metadata
+        None,  # trailing_metadata
+        details=message,
+        debug_error_string=debug if debug is not None else message,
+    )
+
+
+@dataclass
+class Rule:
+    """One fault rule.  Patterns are fnmatch globs over peer addresses
+    (`target` = RPC destination, `source` = calling daemon — client
+    side only) and the short method name (e.g. "GetPeerRateLimits")."""
+
+    op: str  # "error" | "delay" | "drop"
+    where: str = "client"  # "client" | "server"
+    phase: str = "before"  # server side: "before" | "after" the handler
+    method: str = "*"
+    target: str = "*"
+    source: str = "*"
+    probability: float = 1.0
+    status: str = "UNAVAILABLE"  # grpc.StatusCode name
+    message: str = "injected fault"
+    delay_s: float = 0.05  # delay op; also the hang before a drop fails
+    max_count: int = 0  # 0 = unlimited firings
+
+    def __post_init__(self) -> None:
+        if self.op not in ("error", "delay", "drop"):
+            raise ValueError(f"unknown chaos op {self.op!r}")
+        if self.where not in ("client", "server"):
+            raise ValueError(f"unknown chaos where {self.where!r}")
+        if self.phase not in ("before", "after"):
+            raise ValueError(f"unknown chaos phase {self.phase!r}")
+        getattr(grpc.StatusCode, self.status)  # fail fast on a typo
+
+
+@dataclass
+class ChaosPlan:
+    """A seed plus an ordered rule list — the whole fault schedule."""
+
+    seed: int = 0
+    rules: List[Rule] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ChaosPlan":
+        return cls(
+            seed=int(d.get("seed", 0)),
+            rules=[Rule(**r) for r in d.get("rules", [])],
+        )
+
+    @classmethod
+    def from_file(cls, path: str) -> "ChaosPlan":
+        with open(path, encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+
+def load_plan(path: str, seed_override: Optional[int] = None) -> ChaosPlan:
+    """GUBER_CHAOS_PLAN entry point (GUBER_CHAOS_SEED overrides)."""
+    plan = ChaosPlan.from_file(path)
+    if seed_override is not None:
+        plan.seed = seed_override
+    return plan
+
+
+class ChaosInjector:
+    """Shared across every daemon of a cluster (one fault schedule, one
+    partition view).  All state is touched from the cluster's single
+    event loop — no locks, nothing for the gubguard ranking to order."""
+
+    def __init__(self, plan: Optional[ChaosPlan] = None) -> None:
+        self.plan = plan or ChaosPlan()
+        self.active = True
+        self._groups: List[FrozenSet[str]] = []
+        # (rule idx, src, dst) -> decisions drawn so far: the counter
+        # that makes per-pair decision sequences deterministic.
+        self._draws: Dict[Tuple[int, str, str], int] = {}
+        self._fired: Dict[int, int] = collections.defaultdict(int)
+        self.injected: Dict[str, int] = collections.defaultdict(int)
+        self.attempts: Dict[str, int] = collections.defaultdict(int)
+
+    # -- control ---------------------------------------------------------
+    def partition(self, *groups) -> None:
+        """Partition the cluster into address groups; cross-group client
+        calls fail as never-connected (retry-safe by construction)."""
+        self._groups = [frozenset(g) for g in groups]
+
+    def heal(self) -> None:
+        """Lift the partition and deactivate every rule — the cluster is
+        whole again; breakers may now re-close."""
+        self._groups = []
+        self.active = False
+
+    def set_active(self, active: bool) -> None:
+        self.active = active
+
+    def reset(self, plan: Optional[ChaosPlan] = None) -> None:
+        """Fresh schedule (tests reuse one injector across scenarios):
+        install `plan` (activating it) or just clear partition, draw
+        counters and accounting."""
+        if plan is not None:
+            self.plan = plan
+            self.active = True
+        self._groups = []
+        self._draws.clear()
+        self._fired.clear()
+        self.injected.clear()
+        self.attempts.clear()
+
+    def bind(self, src: str) -> "BoundChaos":
+        """Per-daemon handle carrying the caller's address (PeerClient
+        doesn't know which daemon owns it)."""
+        return BoundChaos(self, src)
+
+    # -- accounting ------------------------------------------------------
+    def failure_fraction(self) -> float:
+        """Injected hard failures / outbound RPC attempts observed."""
+        att = self.attempts.get("client", 0)
+        if att == 0:
+            return 0.0
+        fails = (
+            self.injected.get("client_error", 0)
+            + self.injected.get("client_drop", 0)
+            + self.injected.get("partition", 0)
+            + self.injected.get("server_before", 0)
+            + self.injected.get("server_after", 0)
+        )
+        return fails / att
+
+    # -- decisions -------------------------------------------------------
+    def _partitioned(self, src: str, dst: str) -> bool:
+        if not self._groups or src == dst:
+            return False
+        for g in self._groups:
+            if src in g:
+                return dst not in g
+        return False  # src outside every group: unaffected
+
+    def _fires(self, idx: int, rule: Rule, src: str, dst: str) -> bool:
+        if rule.max_count and self._fired[idx] >= rule.max_count:
+            return False
+        key = (idx, src, dst)
+        n = self._draws.get(key, 0)
+        self._draws[key] = n + 1
+        if rule.probability >= 1.0:
+            fired = True
+        else:
+            # Seeding with a string hashes via sha512 — stable across
+            # processes (unlike hash(), which is salted per run).
+            r = random.Random(
+                f"{self.plan.seed}/{idx}/{src}/{dst}/{n}"
+            )
+            fired = r.random() < rule.probability
+        if fired:
+            self._fired[idx] += 1
+        return fired
+
+    def _match_client(
+        self, rule: Rule, src: str, dst: str, method: str
+    ) -> bool:
+        return (
+            rule.where == "client"
+            and fnmatch.fnmatch(src, rule.source)
+            and fnmatch.fnmatch(dst, rule.target)
+            and fnmatch.fnmatch(method, rule.method)
+        )
+
+    # -- client boundary -------------------------------------------------
+    async def on_client(self, src: str, dst: str, method: str) -> None:
+        """Awaited by PeerClient immediately before each outbound RPC.
+        May sleep (delay) or raise an AioRpcError (error/drop/partition).
+        Faults raised here are genuinely unsent."""
+        self.attempts["client"] += 1
+        if not self.active and not self._groups:
+            return
+        if self._partitioned(src, dst):
+            self.injected["partition"] += 1
+            raise injected_rpc_error(
+                "UNAVAILABLE",
+                f"injected partition: failed to connect to {dst}",
+            )
+        if not self.active:
+            return
+        for idx, rule in enumerate(self.plan.rules):
+            if not self._match_client(rule, src, dst, method):
+                continue
+            if not self._fires(idx, rule, src, dst):
+                continue
+            if rule.op == "delay":
+                self.injected["client_delay"] += 1
+                await asyncio.sleep(rule.delay_s)
+                continue  # later rules may still fire
+            if rule.op == "drop":
+                self.injected["client_drop"] += 1
+                await asyncio.sleep(rule.delay_s)
+                raise injected_rpc_error(
+                    "DEADLINE_EXCEEDED",
+                    f"injected drop: Deadline Exceeded ({method})",
+                )
+            self.injected["client_error"] += 1
+            raise injected_rpc_error(rule.status, rule.message)
+
+    # -- server boundary -------------------------------------------------
+    def server_rule(
+        self, dst: str, method: str, phase: str
+    ) -> Optional[Rule]:
+        """First firing server-side rule for this RPC, or None.  Split
+        by phase so the interceptor checks "before" ahead of the handler
+        and "after" behind it."""
+        if not self.active:
+            return None
+        for idx, rule in enumerate(self.plan.rules):
+            if rule.where != "server" or rule.phase != phase:
+                continue
+            if not fnmatch.fnmatch(dst, rule.target):
+                continue
+            if not fnmatch.fnmatch(method, rule.method):
+                continue
+            if self._fires(idx, rule, "server", dst):
+                self.injected[f"server_{phase}"] += 1
+                return rule
+        return None
+
+
+class BoundChaos:
+    """A daemon-local handle: (injector, this daemon's address)."""
+
+    def __init__(self, injector: ChaosInjector, src: str) -> None:
+        self.injector = injector
+        self.src = src
+
+    async def on_client(self, dst: str, method: str) -> None:
+        await self.injector.on_client(self.src, dst, method)
+
+
+class ChaosServerInterceptor(grpc.aio.ServerInterceptor):
+    """The daemon-boundary injection point.  `addr_fn` resolves this
+    daemon's address lazily — interceptors are built before the
+    ephemeral port is bound."""
+
+    def __init__(
+        self, injector: ChaosInjector, addr_fn: Callable[[], str]
+    ) -> None:
+        self.injector = injector
+        self.addr_fn = addr_fn
+
+    async def intercept_service(self, continuation, handler_call_details):
+        handler = await continuation(handler_call_details)
+        if handler is None or handler.unary_unary is None:
+            return handler
+        method = handler_call_details.method.rsplit("/", 1)[-1]
+        inner = handler.unary_unary
+        inj = self.injector
+        addr_fn = self.addr_fn
+
+        async def wrapped(request, context):
+            inj.attempts["server"] += 1
+            rule = inj.server_rule(addr_fn(), method, "before")
+            if rule is not None:
+                if rule.op == "delay":
+                    await asyncio.sleep(rule.delay_s)
+                else:
+                    # Rejected BEFORE the handler: nothing was applied.
+                    await context.abort(
+                        getattr(grpc.StatusCode, rule.status),
+                        f"{rule.message} (before {method})",
+                    )
+            out = await inner(request, context)
+            rule = inj.server_rule(addr_fn(), method, "after")
+            if rule is not None and rule.op != "delay":
+                # The handler RAN — hits were applied — and the caller
+                # sees a failure anyway: the delivered-but-unanswered
+                # window.  A client that blind-retries this double
+                # counts; provably_unsent must classify it unsafe.
+                await context.abort(
+                    getattr(grpc.StatusCode, rule.status),
+                    f"{rule.message} (after {method})",
+                )
+            return out
+
+        return grpc.unary_unary_rpc_method_handler(
+            wrapped,
+            request_deserializer=handler.request_deserializer,
+            response_serializer=handler.response_serializer,
+        )

@@ -192,7 +192,8 @@ class Cluster:
         raise KeyError(addr)
 
     def breaker_states(self) -> dict:
-        """{daemon addr: {peer addr: circuit state name}}."""
+        """{daemon addr: {peer addr: circuit state name}} — the chaos
+        tests' "every opened breaker re-closed after heal" probe."""
         out: dict = {}
         for d in self.daemons:
             if d.service is None:

@@ -1,0 +1,106 @@
+"""In-memory span exporter + install helper for tracing tests.
+
+The attribution plane (runtime/tracing.py) needs no collector to be
+assertable: `MemorySpanExporter` receives every finished sampled span,
+and `memory_tracing()` arms the plane around a test body and disarms it
+after — span-TREE shape (parents, links, attributes like the ring's
+sequence word) is then plain-python assertable.
+
+Because the in-process cluster fixture (testing/cluster.py) runs every
+daemon in one process, a single exporter observes the spans of ALL
+daemons — which is exactly what a "one trace spans the cluster"
+assertion needs (scripts/trace_smoke.py, tests/test_tracing.py).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Iterator, List, Optional
+
+from gubernator_tpu_torch.runtime.tracing import (
+    Span,
+    init_tracing,
+    shutdown_tracing,
+)
+
+
+class MemorySpanExporter:
+    """Collects finished spans; thread-safe (spans finish on the event
+    loop, pool workers, and the ring runner alike)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._spans: List[Span] = []
+
+    # -- exporter interface ----------------------------------------------
+    def export(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+
+    # -- assertions ------------------------------------------------------
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def dicts(self) -> List[Dict]:
+        return [sp.to_dict() for sp in self.spans()]
+
+    def by_name(self, name: str) -> List[Span]:
+        return [sp for sp in self.spans() if sp.name == name]
+
+    def trace_ids(self) -> List[str]:
+        """Distinct trace ids, in first-finish order."""
+        seen: List[str] = []
+        for sp in self.spans():
+            tid = sp.context.trace_id_hex()
+            if tid not in seen:
+                seen.append(tid)
+        return seen
+
+    def spans_for_trace(self, trace_id_hex: str) -> List[Span]:
+        return [
+            sp for sp in self.spans()
+            if sp.context.trace_id_hex() == trace_id_hex
+        ]
+
+    def find(self, span_id: int) -> Optional[Span]:
+        for sp in self.spans():
+            if sp.context.span_id == span_id:
+                return sp
+        return None
+
+    def children_of(self, span: Span) -> List[Span]:
+        return [
+            sp for sp in self.spans()
+            if sp.parent_id == span.context.span_id
+        ]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._spans)
+
+
+@contextlib.contextmanager
+def memory_tracing(
+    sampler: str = "always_on",
+    service_name: str = "gubernator-tpu-test",
+    sampler_arg=None,
+) -> Iterator[MemorySpanExporter]:
+    """Arm tracing with a fresh MemorySpanExporter for the with-body,
+    then disarm — the disabled default is restored even on failure, so
+    one test's tracing never leaks into the next."""
+    exporter = MemorySpanExporter()
+    init_tracing(
+        service_name=service_name,
+        exporter=exporter,
+        sampler=sampler,
+        sampler_arg=sampler_arg,
+    )
+    try:
+        yield exporter
+    finally:
+        shutdown_tracing()

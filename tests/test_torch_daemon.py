@@ -55,7 +55,8 @@ def free_ports(n: int):
 
 def conf_for(pkg, grpc_addr, http_addr, peers=()):
     """A DaemonConfig of `pkg` ("port" or "jax"): small CPU table, short
-    GLOBAL windows, the JAX planes off, static peers when given."""
+    GLOBAL windows, the stats plane off, the hot-key and lease planes at
+    their defaults (on in both), static peers when given."""
     if pkg == "port":
         return pcfg.DaemonConfig(
             grpc_listen_address=grpc_addr, http_listen_address=http_addr,
@@ -73,8 +74,6 @@ def conf_for(pkg, grpc_addr, http_addr, peers=()):
         behaviors=jcfg.fast_test_behaviors(),
         peer_discovery_type="static" if peers else "none",
         static_peers=list(peers), peer_debounce_ms=0,
-        hotkey=jcfg.HotKeyConfig(enabled=False),
-        lease=jcfg.LeaseConfig(enabled=False),
         stats=jcfg.StatsConfig(enabled=False))
 
 
@@ -142,6 +141,7 @@ def test_one_node_wire_health_http_and_metrics(frozen_clock):
                               if ln.startswith(keep)
                               and "_created" not in ln))
             served = d.fastpath.served
+            out.append((dvars["hotkeys"], dvars["leases"]))
             return out, served, dvars
         finally:
             await d.close()
@@ -150,8 +150,10 @@ def test_one_node_wire_health_http_and_metrics(frozen_clock):
     assert got == want
     assert served > 0 and dvars["fastpath"]["fallbacks"] == 0
     assert dvars["backend"]["device"] == "cpu"
-    assert "hotkeys" not in dvars and "leases" not in dvars
-    assert any("gubernator_check_counter" in ln for ln in got[-1])
+    hotkeys, leases = got[-1]
+    assert hotkeys["enabled"] and hotkeys["hot_keys"] == 0
+    assert leases["grants"] == 0 and leases["keys"] == {}
+    assert any("gubernator_check_counter" in ln for ln in got[-2])
 
 
 def test_three_node_cluster_forwards_and_global_match_jax(frozen_clock):

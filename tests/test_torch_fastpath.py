@@ -60,8 +60,6 @@ def jax_service(clock) -> JaxService:
     return JaxService(jcfg.Config(
         device=jcfg.DeviceConfig(num_slots=SLOTS, ways=WAYS, batch_size=B),
         sketch=jcfg.SketchTierConfig(**SKETCH),
-        hotkey=jcfg.HotKeyConfig(enabled=False),
-        lease=jcfg.LeaseConfig(enabled=False),
         reshard=jcfg.ReshardConfig(enabled=False),
         stats=jcfg.StatsConfig(enabled=False),
     ), clock=clock)

@@ -62,8 +62,7 @@ class Pkg:
         if self.port:
             return Service(pcfg.Config(device=self.device()), clock=clock)
         return JaxService(jcfg.Config(
-            device=self.device(), hotkey=jcfg.HotKeyConfig(enabled=False),
-            lease=jcfg.LeaseConfig(enabled=False)), clock=clock)
+            device=self.device()), clock=clock)
 
     def req(self, name, key, hits=1, **kw):
         kw.setdefault("limit", 100)
@@ -258,9 +257,7 @@ def cluster_scenario(P, t0_ns):
     else:
         jclock.freeze(t0_ns)
         c = JCluster.start(1, device=P.device(), conf_template=jcfg.DaemonConfig(
-            stats=jcfg.StatsConfig(interval_s=0.2),
-            hotkey=jcfg.HotKeyConfig(enabled=False),
-            lease=jcfg.LeaseConfig(enabled=False)))
+            stats=jcfg.StatsConfig(interval_s=0.2)))
     try:
         d = c.daemons[0]
         cl = V1Client(d.grpc_address)

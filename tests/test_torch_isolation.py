@@ -77,16 +77,21 @@ DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent
 
     import grpc
 
+    from gubernator_tpu_torch import client
     from gubernator_tpu_torch.core.config import DaemonConfig, DeviceConfig
+    from gubernator_tpu_torch.core.types import RateLimitReq
     from gubernator_tpu_torch.daemon import Daemon
     from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.runtime import hotkey, lease
+    from gubernator_tpu_torch.testing import chaos, tracing
 
     async def main():
         d = Daemon(DaemonConfig(
             grpc_listen_address="127.0.0.1:0",
             http_listen_address="127.0.0.1:0",
             device=DeviceConfig(num_slots=256, ways=8, batch_size=16,
-                                platform="cpu")))
+                                platform="cpu"),
+            chaos=chaos.ChaosInjector(chaos.ChaosPlan(seed=1))))
         await d.start()
         try:
             async with grpc.aio.insecure_channel(d.grpc_address) as ch:
@@ -98,19 +103,35 @@ DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent
             r = pb.GetRateLimitsResp.FromString(raw).responses[0]
             assert (r.error, r.remaining) == ("", 4), r
             assert d.fastpath.served == 1 and d.fastpath.fallbacks == 0
+            # The hot-key and lease planes are on by default: a Lease
+            # grants a quarter of the limit from the carve slot.
+            assert isinstance(d.service.hotkeys, hotkey.HotKeyTracker)
+            g = (await d.service.lease("c", [RateLimitReq(
+                name="iso", unique_key="l", hits=1, limit=8,
+                duration=60_000)]))[0]
+            assert (g.allowance, g.refusal) == (2, ""), g
+            assert d.service.backend.get_cache_item(
+                "iso_l" + lease.LEASE_SUFFIX) is not None
+            assert d.service.chaos is not None
         finally:
             await d.close()
 
     asyncio.run(asyncio.wait_for(main(), 60))
+    assert callable(client.LeasedClient) and tracing.MemorySpanExporter
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
+    for m in ("client", "runtime.hotkey", "runtime.lease", "testing.chaos",
+              "testing.tracing"):
+        assert "gubernator_tpu_torch." + m in sys.modules, m
     print("DAEMON-ISOLATED-OK")
 """)
 
 
 def test_port_daemon_serves_without_jax():
     """With jax and the JAX package blocked, the port's daemon starts on
-    the CPU and answers one GetRateLimits over gRPC on its compiled lane."""
+    the CPU with a chaos injector, answers one GetRateLimits over gRPC on
+    its compiled lane and grants a lease; the client SDK, the hot-key and
+    lease planes and the chaos and tracing fixtures import."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(

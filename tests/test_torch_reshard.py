@@ -74,11 +74,8 @@ class Pkg:
         return jcfg.DeviceConfig(num_slots=slots, ways=8, batch_size=64)
 
     def daemon_conf(self, **reshard):
-        planes = {} if self.port else dict(
-            hotkey=jcfg.HotKeyConfig(enabled=False),
-            lease=jcfg.LeaseConfig(enabled=False))
         return self.cfg.DaemonConfig(
-            reshard=self.cfg.ReshardConfig(**reshard), **planes)
+            reshard=self.cfg.ReshardConfig(**reshard))
 
     def req(self, key, hits=1, limit=LIMIT):
         return self.types.RateLimitReq(name="t", unique_key=key, hits=hits,
@@ -198,9 +195,7 @@ def test_inbound_state_machine_walk(frozen_clock):
                           clock=frozen_clock)
         else:
             svc = JaxService(jcfg.Config(
-                device=P.device(), reshard=rcfg,
-                hotkey=jcfg.HotKeyConfig(enabled=False),
-                lease=jcfg.LeaseConfig(enabled=False)), clock=frozen_clock)
+                device=P.device(), reshard=rcfg), clock=frozen_clock)
 
         async def run():
             await svc.start()
@@ -273,9 +268,7 @@ def test_transfer_deadline_counts_the_whole_transfer_in_both(frozen_clock):
                           clock=frozen_clock)
         else:
             svc = JaxService(jcfg.Config(
-                device=P.device(), reshard=rcfg,
-                hotkey=jcfg.HotKeyConfig(enabled=False),
-                lease=jcfg.LeaseConfig(enabled=False)), clock=frozen_clock)
+                device=P.device(), reshard=rcfg), clock=frozen_clock)
         reqs = [P.req(f"d{i}") for i in range(n)]
         fps = np.array([fp(r.hash_key()) for r in reqs], dtype=np.int64)
         peer = SlowPeer(delay_s)

@@ -4,9 +4,10 @@ against the JAX package's, on one request stream.
 The object path (`get_rate_limits`, `get_peer_rate_limits`), the GLOBAL
 broadcast receive (`update_peer_globals` through the port's
 `store_cached_rows`), `health_check` and the planes' peer RPCs answer as the
-JAX service answers with its planes off; `MAX_BATCH_SIZE` raises the same
-ApiError; every configuration the port does not serve yet raises a
-ValueError that names its ROADMAP item."""
+JAX service answers; `MAX_BATCH_SIZE` raises the same ApiError; every
+configuration the port does not serve yet raises a ValueError that names its
+ROADMAP item; under the default environment both daemons grant leases
+alike."""
 from __future__ import annotations
 
 import asyncio
@@ -51,8 +52,6 @@ def jax_service(clock) -> JaxService:
     return JaxService(jcfg.Config(
         device=jcfg.DeviceConfig(num_slots=SLOTS, ways=WAYS, batch_size=B),
         sketch=jcfg.SketchTierConfig(**SKETCH),
-        hotkey=jcfg.HotKeyConfig(enabled=False),
-        lease=jcfg.LeaseConfig(enabled=False),
         reshard=jcfg.ReshardConfig(enabled=False),
         stats=jcfg.StatsConfig(enabled=False),
     ), clock=clock)
@@ -224,6 +223,9 @@ def test_health_and_disabled_plane_rpcs_match_jax(frozen_clock):
     (got, _), (want, _) = both(frozen_clock, body)
     assert got == want
     assert got[0][0] == "healthy" and got[3][0] == "FAILED_PRECONDITION"
+    # Leases are on by default in both packages: the grant carves a
+    # quarter of the limit and the renewing reconcile grants again.
+    assert [g[-1] for g in got[1]] == ["", ""] and got[1][0][1] == 1
 
 
 def test_oversized_batch_raises_the_same_api_error(frozen_clock):
@@ -247,16 +249,17 @@ def test_oversized_batch_raises_the_same_api_error(frozen_clock):
 def test_unported_configurations_raise_naming_their_roadmap_item():
     cpu = pcfg.DeviceConfig(num_slots=256, ways=8, batch_size=16,
                             platform="cpu")
-    cases = [
-        dict(hotkey=pcfg.HotKeyConfig(enabled=True)),
-        dict(lease=pcfg.LeaseConfig(enabled=True)),
-        dict(region=pcfg.RegionConfig(enabled=True, name="a")),
-    ]
-    for kw in cases:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            Service(pcfg.Config(device=cpu, **kw))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(ValueError, match="ROADMAP.*queue 1 item 1"):
+        Service(pcfg.Config(device=cpu,
+                            region=pcfg.RegionConfig(enabled=True, name="a")))
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
         pcfg.DeviceConfig(num_slots=256, ways=8, num_shards=2)
+    # The hot-key and lease planes are served and on by default, as in
+    # the JAX package.
+    assert pcfg.HotKeyConfig().enabled and pcfg.LeaseConfig().enabled
+    svc = Service(pcfg.Config(device=cpu))
+    assert svc.hotkeys is not None and svc.leases is not None
+    svc._dev_executor.shutdown()
     # The state plane is served: a Store, a Loader, resharding, gubstat
     # and the cold tier's config construct, and reshard and stats are on
     # by default, as in the JAX package.
@@ -273,11 +276,68 @@ def test_unported_configurations_raise_naming_their_roadmap_item():
     from gubernator_tpu_torch.daemon import Daemon
 
     for kw in (dict(peer_discovery_type="dns"),
-               dict(peer_discovery_type="gossip"),
-               dict(chaos_plan="plan.json")):
-        with pytest.raises(ValueError, match="ROADMAP"):
+               dict(peer_discovery_type="gossip")):
+        with pytest.raises(ValueError, match="ROADMAP.*queue 1 item 2"):
             Daemon(pcfg.DaemonConfig(device=cpu, **kw))
     Daemon(pcfg.DaemonConfig(device=cpu, reshard_drain_on_close=True))
+    # The chaos plane is served: a daemon takes an injector.
+    from gubernator_tpu_torch.testing.chaos import ChaosInjector, ChaosPlan
+
+    inj = ChaosInjector(ChaosPlan(seed=1))
+    assert Daemon(pcfg.DaemonConfig(device=cpu, chaos=inj)).chaos is inj
+
+
+def test_default_environment_leases_and_hot_keys_match_jax(monkeypatch,
+                                                          frozen_clock):
+    """Under the default environment both packages' daemons arm the
+    hot-key and lease planes, and a Lease RPC over the peers wire gets
+    equal grants from each (a quarter of the limit, from the carve slot)."""
+    import os
+
+    import grpc
+
+    from gubernator_tpu import daemon as jdaemon
+    from gubernator_tpu_torch import daemon as pdaemon
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+    from gubernator_tpu_torch.proto import peers_pb2
+
+    for k in [k for k in os.environ if k.startswith("GUBER_")]:
+        monkeypatch.delenv(k)
+    assert pcfg.Config().hotkey.enabled and pcfg.Config().lease.enabled
+    assert jcfg.Config().hotkey.enabled and jcfg.Config().lease.enabled
+    for k, v in {"GUBER_GRPC_ADDRESS": "127.0.0.1:0",
+                 "GUBER_HTTP_ADDRESS": "127.0.0.1:0",
+                 "GUBER_TPU_PLATFORM": "cpu", "GUBER_TPU_NUM_SLOTS": "1024",
+                 "GUBER_TPU_BATCH_SIZE": "64"}.items():
+        monkeypatch.setenv(k, v)
+    lease_req = peers_pb2.LeaseReq(client_id="c1", requests=[
+        pb.RateLimitReq(name="dl", unique_key=f"k{i}", hits=1, limit=lim,
+                        duration=60_000, algorithm=i % 2)
+        for i, lim in enumerate((100, 7, 0, 1000))]).SerializeToString()
+
+    async def scenario(mod, cfg):
+        conf = cfg.setup_daemon_config()
+        assert conf.hotkey.enabled and conf.lease.enabled
+        d = mod.Daemon(conf, clock=frozen_clock)
+        await d.start()
+        try:
+            assert d.service.hotkeys is not None
+            async with grpc.aio.insecure_channel(d.grpc_address) as ch:
+                raw = await ch.unary_unary("/pb.gubernator.PeersV1/Lease")(
+                    lease_req)
+            return [(g.key, g.allowance, g.expires_at, g.reset_time,
+                     g.limit, g.refusal)
+                    for g in peers_pb2.LeaseResp.FromString(raw).grants]
+        finally:
+            await d.close()
+
+    t0 = frozen_clock.now_ns()
+    got = asyncio.run(scenario(pdaemon, pcfg))
+    frozen_clock.freeze(t0)
+    want = asyncio.run(scenario(jdaemon, jcfg))
+    assert got == want
+    assert [g[1] for g in got] == [25, 1, 0, 250]
+    assert got[2][-1] and not got[0][-1]
 
 
 def test_default_platform_is_the_card():

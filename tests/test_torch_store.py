@@ -64,8 +64,7 @@ class Pkg:
             return Service(pcfg.Config(device=self.device(), **kw),
                            clock=clock)
         return JaxService(jcfg.Config(
-            device=self.device(), hotkey=jcfg.HotKeyConfig(enabled=False),
-            lease=jcfg.LeaseConfig(enabled=False), **kw), clock=clock)
+            device=self.device(), **kw), clock=clock)
 
     def backend(self, clock, slots=SLOTS, **kw):
         cls = TorchBackend if self.port else DeviceBackend

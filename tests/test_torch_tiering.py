@@ -63,8 +63,7 @@ class Pkg:
         if self.port:
             return Service(pcfg.Config(device=self.device()), clock=clock)
         return JaxService(jcfg.Config(
-            device=self.device(), hotkey=jcfg.HotKeyConfig(enabled=False),
-            lease=jcfg.LeaseConfig(enabled=False)), clock=clock)
+            device=self.device()), clock=clock)
 
     def tier_cfg(self, **kw):
         return self.cfg.TierConfig(enabled=True, **kw)
@@ -491,10 +490,7 @@ def test_daemon_tier_block_matches_jax(frozen_clock):
             if P.port:
                 conf = pcfg.DaemonConfig(device=P.device(128), **common)
             else:
-                conf = jcfg.DaemonConfig(
-                    device=P.device(128),
-                    hotkey=jcfg.HotKeyConfig(enabled=False),
-                    lease=jcfg.LeaseConfig(enabled=False), **common)
+                conf = jcfg.DaemonConfig(device=P.device(128), **common)
             d = (pdaemon if P.port else jdaemon).Daemon(conf,
                                                         clock=frozen_clock)
             await d.start()
@@ -534,3 +530,71 @@ def test_daemon_tier_block_matches_jax(frozen_clock):
     assert demoted == n_cold > 0 and promoted == 1
     assert remaining == LIMIT - 1 and item[5] == LIMIT - 2 - 1
     assert block["demotes"] == demoted and block["promotes"] == 1
+
+
+def test_compiled_lane_promotes_a_demoted_key_under_defaults(frozen_clock):
+    """GUBER_TIER_ENABLED=true with every other plane at its default (hot
+    keys on in both packages): a demoted key checked through the compiled
+    lane answers from a fresh row, and the lane's note_traffic queues the
+    promote that merges the cold row's consumption, so the served row then
+    holds the cold consumption plus the new hits, as in the JAX daemon."""
+    import grpc
+
+    from gubernator_tpu import daemon as jdaemon
+    from gubernator_tpu_torch import daemon as pdaemon
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    def wire(keys, hits):
+        return pb.GetRateLimitsReq(requests=[pb.RateLimitReq(
+            name="t", unique_key=k, hits=hits, limit=LIMIT,
+            duration=DURATION) for k in keys]).SerializeToString()
+
+    def scenario(P):
+        async def run():
+            conf = P.cfg.DaemonConfig(
+                grpc_listen_address="127.0.0.1:0",
+                http_listen_address="127.0.0.1:0",
+                behaviors=P.cfg.fast_test_behaviors(),
+                device=P.device(128),
+                tier=P.tier_cfg(cold_capacity=512, high_water=0.6,
+                                low_water=0.4, demote_batch=32,
+                                interval_s=60.0))
+            assert conf.hotkey.enabled and conf.lease.enabled
+            d = (pdaemon if P.port else jdaemon).Daemon(conf,
+                                                        clock=frozen_clock)
+            await d.start()
+            frozen_clock.advance(5)
+            try:
+                async with grpc.aio.insecure_channel(d.grpc_address) as ch:
+                    call = ch.unary_unary("/pb.gubernator.V1/GetRateLimits")
+                    await call(wire([f"f{i}" for i in range(100)], 3))
+                    loop = asyncio.get_running_loop()
+                    await loop.run_in_executor(None, d.tier.close)
+                    demoted = await loop.run_in_executor(
+                        None, d.tier.demote_once_sync)
+                    cold = [i for i in range(100) if d.tier.cold.member_hits(
+                        fps_of(P, [P.req(f"f{i}")])).all()]
+                    served = d.fastpath.served
+                    first = pb.GetRateLimitsResp.FromString(
+                        await call(wire([f"f{cold[0]}"], 2))).responses[0]
+                    lane = d.fastpath.served - served
+                    promoted = await loop.run_in_executor(
+                        None, d.tier.drain_promotes_sync)
+                    merged = item_tuple(d.service.backend.get_cache_item(
+                        f"t_f{cold[0]}"))
+                    second = pb.GetRateLimitsResp.FromString(
+                        await call(wire([f"f{cold[0]}"], 1))).responses[0]
+                return (demoted, len(cold), lane, promoted, first.remaining,
+                        merged, second.remaining)
+            finally:
+                await d.close()
+
+        return asyncio.run(run())
+
+    got, want = in_turn(frozen_clock, scenario)
+    assert got == want
+    demoted, n_cold, lane, promoted, first, merged, second = got
+    assert demoted == n_cold > 0 and lane == 1 and promoted == 1
+    # The fresh row answers first; the promote merges the cold row's 3.
+    assert first == LIMIT - 2
+    assert merged[5] == LIMIT - 3 - 2 and second == LIMIT - 3 - 2 - 1
