@@ -89,6 +89,17 @@ Phases (any failure exits non-zero and prints no result line):
      daemon and the owner keeps admission under the closed-form bound, and
      the burned hits reconcile exactly once after the heal.  Every K1
      dispatch of the phase replays through the plain version.
+ 15. regions, gossip and the load generator at full width: four daemons,
+     two in each of the regions east and west, at 2^24 slots a node, find
+     each other by gossip on 127.0.0.1 from one seed (no static peers);
+     the port's load generator, through its runner and report, checks 1024
+     west-homed keys from east 35 times each (limit 100, fraction 0.25) in
+     batches of 1000 beside a background load on east-homed keys: every
+     key admits exactly 25 in east, every west home row then reads exactly
+     25 used, nothing drifts or drops, and the report says `cuda`; a chaos
+     partition of east from west admits nothing past a carve, requeues the
+     burns and applies them once after the heal.  Every K1 dispatch of the
+     phase replays through the plain version.
 
 Phases 10-13 run with the JAX package's defaults: the hot-key and lease
 planes on, the flight recorder off, so no owner advertises pressure; each
@@ -100,6 +111,7 @@ JAX.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -2590,11 +2602,11 @@ def admitted(resp) -> bool:
     return resp.error == "" and resp.status == Status.UNDER_LIMIT
 
 
-def wait_for(cond, what):
+def wait_for(cond, what, phase="phase 14"):
     deadline = time.monotonic() + PLANES_TIMEOUT_S
     while not cond():
         if time.monotonic() > deadline:
-            raise AssertionError(f"phase 14: timed out waiting for {what}")
+            raise AssertionError(f"{phase}: timed out waiting for {what}")
         time.sleep(0.02)
 
 
@@ -3020,6 +3032,12 @@ def phase_planes(dev, smi, state) -> float:
         planes_hot_key(c, smi)
         planes_partition(c, inj, smi)
         require_launches("phase 14 (hot-key and lease planes)", k2=False)
+        # Stop the daemons before the replay, their recorders still on: a
+        # lease sweep or a late reconcile may still dispatch after 14d
+        # (the clock moved past every grant's TTL), and the replay must
+        # see every dispatch and run while none is launched.
+        c.stop()
+        c = None
         done, recs = recs, []
         for rec in done:
             rec.close()
@@ -3035,11 +3053,507 @@ def phase_planes(dev, smi, state) -> float:
             f"{time.perf_counter() - t_phase:.1f} s")
         return err
     finally:
+        if c is not None:
+            c.stop()
         for rec in recs:
             rec.close()
-        c.stop()
         clock_mod.freeze(T0_NS)
         shutil.rmtree(dumps, ignore_errors=True)
+
+
+# -- phase 15: regions, gossip discovery and the load generator ---------------
+REGION_DCS = ("east", "east", "west", "west")
+REGION_KEYS = 1024           # west-homed keys checked from east (15b)
+REGION_CHECKS = 35           # checks a key
+REGION_LIMIT = 100
+REGION_FRACTION = 0.25       # a remote region's carve: 25 of 100
+REGION_BATCH = 1000          # requests a GetRateLimits (the wire's maximum)
+# One batch of arrivals every 0.4 s (2,500 checks/s offered), under what the
+# four in-process daemons serve on the card's host (3,395.9 checks/s when
+# offered 5,000/s): an offer of 10,000/s grew the forwards to the in-region
+# owner past the peer client's 1000-request queue, which shed 733 checks
+# (the JAX package's bound; PERF.md §6, PR 7).
+REGION_GROUP_S = 0.4
+REGION_RECONCILE_MS = 200
+REGION_DURATION_MS = 600_000  # outlives the phase: one window a key
+REGION_BG_KEYS = 8192        # east-homed keys of the background load
+REGION_BG_BATCH = 500        # its requests a call, a call every REGION_GROUP_S
+PART_KEYS = 256              # west-homed keys checked during 15c's partition
+REGION_WARM = PLANES_WARM    # live keys warmed into each node
+
+
+def gossip_ports(n):
+    """n free gRPC ports whose gossip ports (+ 1000, the daemon's default)
+    are free too."""
+    import socket
+
+    out = []
+    while len(out) < n:
+        s, g = socket.socket(), socket.socket(socket.AF_INET,
+                                              socket.SOCK_DGRAM)
+        try:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            if port + 1000 <= 65535 and port not in out:
+                g.bind(("127.0.0.1", port + 1000))
+                out.append(port)
+        except OSError:
+            pass
+        finally:
+            s.close()
+            g.close()
+    return out
+
+
+def region_boot(dev, inj):
+    """15a: four daemons, two a region, at full width; they find each other
+    by gossip on 127.0.0.1 seeded with the first node's gossip port, and no
+    static peer list.  Returns (cluster, seconds to converge)."""
+    from dataclasses import replace
+
+    from gubernator_tpu_torch.core.config import (
+        CircuitConfig,
+        DaemonConfig,
+        DeviceConfig,
+        RegionConfig,
+        SketchTierConfig,
+    )
+    from gubernator_tpu_torch.testing.cluster import Cluster
+
+    ports = gossip_ports(len(REGION_DCS))
+    seed = f"127.0.0.1:{ports[0] + 1000}"
+    base = DaemonConfig(
+        serve_mode="pipelined", chaos=inj, peer_discovery_type="gossip",
+        sketch=SketchTierConfig(names=["cms"], depth=SKETCH_DEPTH,
+                                width=SKETCH_WIDTH,
+                                window_ms=SKETCH_WINDOW_MS,
+                                batch_size=SKETCH_BATCH),
+        region=RegionConfig(enabled=True, fraction=REGION_FRACTION,
+                            reconcile_ms=REGION_RECONCILE_MS,
+                            drift_max=100_000),
+        # The region_failover scenario's breaker schedule, so that the WAN
+        # arcs re-close within seconds of 15c's heal.
+        circuit=CircuitConfig(failure_threshold=3, base_backoff_s=0.1,
+                              max_backoff_s=1.0, jitter=0.2))
+    device = DeviceConfig(num_slots=DAEMON_SLOTS, ways=WAYS,
+                          batch_size=BATCH, platform=dev.type)
+    c = Cluster()
+    t0 = time.perf_counter()
+    for i, (dc, p) in enumerate(zip(REGION_DCS, ports)):
+        addr = f"127.0.0.1:{p}"
+        d = c.boot(device, replace(
+            base, advertise_address=addr,
+            gossip_bind_address=f"127.0.0.1:{p + 1000}",
+            gossip_seeds=[] if i == 0 else [seed]),
+            data_center=dc, grpc_address=addr)
+        c.daemons.append(d)
+    t_booted = time.perf_counter()
+
+    def converged():
+        for d in c.daemons:
+            s = d.service
+            held = s.local_picker.size() + sum(
+                pk.size() for pk in s.region_picker.pickers().values())
+            if held != len(REGION_DCS) or set(s.regions.universe()) != {
+                    "east", "west"}:
+                return False
+        return True
+
+    try:
+        wait_for(converged, "gossip convergence", "phase 15")
+    except BaseException:
+        c.stop()
+        raise
+    t_conv = time.perf_counter()
+    return c, t_conv - t0, t_conv - t_booted
+
+
+def region_nodes(c):
+    east = [d for d in c.daemons if d.conf.data_center == "east"]
+    west = [d for d in c.daemons if d.conf.data_center == "west"]
+    return east, west
+
+
+def homed_keys(rm, region, name, n):
+    out, i = [], 0
+    while len(out) < n:
+        k = f"k{i}"
+        if rm.home_region(f"{name}_{k}") == region:
+            out.append(k)
+        i += 1
+    return out
+
+
+def home_used(c, name, keys):
+    """limit - remaining of each key's row at its home-region owner (None
+    where the owner holds no row)."""
+    by_addr = {d.grpc_address: d for d in c.daemons}
+    _, west = region_nodes(c)
+    out = []
+    for k in keys:
+        hk = f"{name}_{k}"
+        owner = by_addr[west[0].service.get_peer(hk).info().grpc_address]
+        it = owner.service.backend.get_cache_item(hk)
+        out.append(None if it is None else REGION_LIMIT - int(it.remaining))
+    return out
+
+
+def reconciled(east):
+    return all(d.service.regions.drift_hits == 0 for d in east)
+
+
+def region_counters(c):
+    out = {"drift": 0, "dropped": 0, "rehomes": 0, "degraded": 0,
+           "sends": 0, "carve_served": 0}
+    for d in c.daemons:
+        rm = d.service.regions
+        out["drift"] += rm.drift_hits
+        out["dropped"] += rm.reconcile_dropped
+        out["rehomes"] += rm.rehomes
+        out["sends"] += rm.reconcile_sends
+        out["carve_served"] += rm.carve_served
+        out["degraded"] += int(d.metrics.region_degraded._value.get())
+    return out
+
+
+class LagTee:
+    """Forwards reconcile-lag samples to the daemon's histogram and keeps
+    them (the lag from a burn's queueing to its delivery home)."""
+
+    def __init__(self, hist, into):
+        self.hist, self.into = hist, into
+
+    def observe(self, v):
+        self.into.append(v)
+        self.hist.observe(v)
+
+
+def region_carve_load(c, smi, lags):
+    """15b: the port's load generator, through its own runner and report,
+    checks REGION_KEYS west-homed keys from east REGION_CHECKS times each
+    in batches of REGION_BATCH, while a background load checks east-homed
+    keys at home; every key admits exactly its carve, every home row then
+    holds exactly the carve, nothing drifts and nothing drops."""
+    import asyncio
+    from dataclasses import dataclass
+    from typing import Tuple
+
+    from gubernator_tpu_torch.client import AsyncV1Client
+    from gubernator_tpu_torch.core.config import LoadConfig
+    from gubernator_tpu_torch.core.types import RateLimitReq
+    from gubernator_tpu_torch.loadgen import (
+        SCENARIOS,
+        PhaseSpec,
+        ScenarioSpec,
+        run_scenario,
+    )
+
+    east, west = region_nodes(c)
+    rm = east[0].service.regions
+    keys = homed_keys(rm, "west", "p15b", REGION_KEYS)
+    bg_keys = homed_keys(rm, "east", "p15bg", REGION_BG_KEYS)
+    carve = int(REGION_LIMIT * REGION_FRACTION)
+    bg = {"calls": 0, "errors": 0, "carved": 0}
+
+    async def background(ctx):
+        """Home-region load: batches of east-homed keys to the east nodes
+        until the verdict stops it."""
+        stop = asyncio.Event()
+        cls = [AsyncV1Client(d.grpc_address) for d in east]
+
+        async def load():
+            rng = np.random.default_rng(SEED + 1500)
+            try:
+                while not stop.is_set():
+                    pick = rng.integers(0, len(bg_keys), REGION_BG_BATCH)
+                    rs = await cls[bg["calls"] % len(cls)].get_rate_limits([
+                        RateLimitReq(name="p15bg", unique_key=bg_keys[j],
+                                     hits=1, limit=1_000_000,
+                                     duration=REGION_DURATION_MS)
+                        for j in pick], timeout=60.0)
+                    bg["calls"] += 1
+                    bg["errors"] += sum(r.error != "" for r in rs)
+                    bg["carved"] += sum("region_serve" in (r.metadata or {})
+                                        for r in rs)
+                    await asyncio.sleep(REGION_GROUP_S)
+            finally:
+                for cl in cls:
+                    await cl.close()
+
+        ctx.state["bg_stop"] = stop
+        ctx.state["bg_task"] = asyncio.ensure_future(load())
+
+    async def stop_background(ctx):
+        ctx.state["bg_stop"].set()
+        await ctx.state["bg_task"]
+
+    def verdict(ctx):
+        t_end = time.perf_counter()  # the runner's last answer is in
+        ctx.cluster.run(stop_background(ctx), timeout=120.0)
+        totals = ctx.totals()
+        n = REGION_KEYS * REGION_CHECKS
+        per_key = totals.per_key_admitted
+        if (totals.errors or totals.admitted + totals.denied != n
+                or sorted(per_key) != list(range(REGION_KEYS))
+                or set(per_key.values()) != {carve}):
+            raise AssertionError(
+                f"15b: errors {totals.errors}, admitted {totals.admitted}, "
+                f"denied {totals.denied}, keys admitted "
+                f"{len(per_key)} of {REGION_KEYS}, per-key admissions "
+                f"{sorted(set(per_key.values()))}")
+        if bg["errors"] or bg["carved"] or not bg["calls"]:
+            raise AssertionError(f"15b: background load {bg}")
+        wait_for(lambda: reconciled(east), "15b's reconcile", "phase 15")
+        drain_s = time.perf_counter() - t_end
+        used = home_used(ctx.cluster, "p15b", keys)
+        got = region_counters(ctx.cluster)
+        if set(used) != {carve} or got["drift"] or got["dropped"]:
+            raise AssertionError(
+                f"15b: home rows used {sorted(set(map(str, used)))}, "
+                f"counters {got}")
+        return {"admitted": totals.admitted, "denied": totals.denied,
+                "keys": REGION_KEYS, "carve": carve,
+                "drift_hits": got["drift"],
+                "reconcile_dropped": got["dropped"],
+                "reconcile_sends": got["sends"],
+                "background_calls": bg["calls"],
+                "drain_s": round(drain_s, 3)}
+
+    @dataclass(frozen=True)
+    class RegionScenario(ScenarioSpec):
+        keys: Tuple[str, ...] = ()
+
+        def key_name(self, idx: int) -> str:
+            return self.keys[idx]
+
+    rps = REGION_BATCH / REGION_GROUP_S
+    spec = RegionScenario(
+        name="p15b_region_carve",
+        description="west-homed keys checked from east, each "
+        f"{REGION_CHECKS} times, in batches of {REGION_BATCH}, beside a "
+        "home-region background load",
+        phases=(PhaseSpec("carve", 1.0, "paced", "cycle", target_rps=rps,
+                          params={"group": REGION_BATCH},
+                          fault="background"),),
+        limit=REGION_LIMIT, window_ms=REGION_DURATION_MS,
+        key_universe=REGION_KEYS, tenant="p15b", verdict=verdict,
+        hooks={"background": background}, keys=tuple(keys))
+    SCENARIOS[spec.name] = spec
+    from gubernator_tpu_torch.loadgen import runner
+
+    errors = collections.Counter()
+    plain_open_loop = runner.open_loop
+
+    async def open_loop(send, *a, **kw):
+        """The runner's open loop, keeping what each failed check said."""
+        async def kept(key_idx):
+            try:
+                return await send(key_idx)
+            except Exception as e:  # noqa: BLE001 — counted, then re-raised
+                errors[str(e)[:200]] += 1
+                raise
+
+        return await plain_open_loop(kept, *a, **kw)
+
+    runner.open_loop = open_loop
+    try:
+        t0 = time.perf_counter()
+        out = run_scenario(
+            spec.name,
+            LoadConfig(seed=SEED, duration_s=REGION_KEYS * REGION_CHECKS
+                       / rps, clients=4, target_rps=rps),
+            cluster=c, addresses=[d.grpc_address for d in east],
+            batch=REGION_BATCH)
+        wall = time.perf_counter() - t0
+    except AssertionError:
+        log(f"phase 15b: failed checks said {errors.most_common(3)}")
+        raise
+    finally:
+        runner.open_loop = plain_open_loop
+        SCENARIOS.pop(spec.name, None)
+    art = out["artifact"]
+    row = next(r for r in art["results"] if r["phase"] == "carve")
+    if art["platform"] != "cuda" or row["platform"] != "cuda":
+        raise AssertionError(f"15b: the report says {art['platform']!r}")
+    v = out["verdict"]
+    lag = np.sort(np.asarray(lags)) * 1e3
+    log(f"phase 15b ({smi}): the loadgen's runner sent {row['arrivals']} "
+        f"checks of {REGION_KEYS} west-homed keys from east in batches of "
+        f"{REGION_BATCH} ({REGION_CHECKS} a key, limit {REGION_LIMIT}, "
+        f"fraction {REGION_FRACTION}) beside {v['background_calls']} "
+        f"background calls of {REGION_BG_BATCH} east-homed keys: every key "
+        f"admitted exactly {carve} in east ({v['admitted']} admitted, "
+        f"{v['denied']} denied); every west home row then used exactly "
+        f"{carve}; drift_hits {v['drift_hits']}, reconcile_dropped "
+        f"{v['reconcile_dropped']}, {v['reconcile_sends']} reconcile sends")
+    log(f"phase 15b ({smi}): carve serve p50 {row['p50_ms']} ms, p99 "
+        f"{row['p99_ms']} ms, p99.9 {row['p999_ms']} ms (open loop, from "
+        f"the intended send; send skew p99 {row['send_skew_p99_ms']} ms); "
+        f"{row['checks_per_sec']} checks/s over {row['wall_s']} s; "
+        f"reconcile lag p50 {float(np.percentile(lag, 50)):.3f} ms, p99 "
+        f"{float(np.percentile(lag, 99)):.3f} ms over {len(lag)} burns, "
+        f"drift 0 {v['drain_s']} s after the last answer; report platform "
+        f"{art['platform']!r}; run {wall:.3f} s")
+    return out
+
+
+def region_partition(c, inj, smi):
+    """15c: east partitioned from west by the chaos injector for two
+    reconcile windows and more: the carve keeps serving and admits nothing
+    past its bound; the provably unsent burns requeue; after the heal they
+    apply once and the links rehome."""
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.core.types import RateLimitReq
+
+    east, west = region_nodes(c)
+    rm = east[0].service.regions
+    keys = homed_keys(rm, "west", "p15c", PART_KEYS)
+    carve = int(REGION_LIMIT * REGION_FRACTION)
+    before = region_counters(c)
+    reqs = [RateLimitReq(name="p15c", unique_key=k, hits=1,
+                         limit=REGION_LIMIT, duration=REGION_DURATION_MS)
+            for k in keys] * REGION_CHECKS
+    clients = [V1Client(d.grpc_address) for d in east]
+    inj.partition({d.grpc_address for d in east},
+                  {d.grpc_address for d in west})
+    try:
+        per_key = {k: 0 for k in keys}
+        errors = 0
+        for i, lo in enumerate(range(0, len(reqs), REGION_BATCH)):
+            chunk = reqs[lo:lo + REGION_BATCH]
+            for r, rs in zip(chunk, clients[i % 2].get_rate_limits(
+                    chunk, timeout=120)):
+                errors += rs.error != ""
+                per_key[r.unique_key] += admitted(rs)
+        wait_for(lambda: all(
+            d.service.regions._link("west").state == "degraded"
+            for d in east if d.service.regions.drift_hits),
+            "the carving nodes' links to degrade", "phase 15")
+        time.sleep(2 * REGION_RECONCILE_MS / 1000)  # two more windows
+        during = home_used(c, "p15c", keys)
+        drift = sum(d.service.regions.drift_hits for d in east)
+        cut = inj.injected.get("partition", 0)
+        if (errors or set(per_key.values()) != {carve}
+                or set(during) != {None} or drift != carve * PART_KEYS
+                or not cut):
+            raise AssertionError(
+                f"15c: errors {errors}, per-key admissions "
+                f"{sorted(set(per_key.values()))}, home rows "
+                f"{sorted(set(map(str, during)))}, drift {drift}, "
+                f"partitioned calls {cut}")
+        t_heal = time.perf_counter()
+        inj.heal()
+        wait_for(lambda: reconciled(east) and all(
+            lk.state == "remote" for d in east
+            for lk in d.service.regions._links.values()),
+            "the heal", "phase 15")
+        heal_s = time.perf_counter() - t_heal
+        time.sleep(2 * REGION_RECONCILE_MS / 1000)  # nothing applies twice
+        after = home_used(c, "p15c", keys)
+        got = region_counters(c)
+        if set(after) != {carve} or got["dropped"] or got["drift"]:
+            raise AssertionError(f"15c: home rows "
+                                 f"{sorted(set(map(str, after)))}, "
+                                 f"counters {got}")
+    finally:
+        inj.heal()
+        for cl in clients:
+            cl.close()
+    log(f"phase 15c ({smi}): chaos partition of east from west "
+        f"({cut} WAN calls cut): {PART_KEYS} west-homed keys x "
+        f"{REGION_CHECKS} checks from east, no error; every key admitted "
+        f"exactly {carve}, none past its carve; {drift} burns held as "
+        f"drift, no home row touched; degraded "
+        f"{got['degraded'] - before['degraded']}, rehomes "
+        f"{got['rehomes'] - before['rehomes']}; after the heal every burn "
+        f"applied once ({heal_s:.3f} s to drift 0 and every link remote), "
+        f"reconcile_dropped {got['dropped']}")
+
+
+def phase_regions(dev, smi, state) -> float:
+    """Phase 15: planet-scale regions over gossip discovery, driven by the
+    port's load generator, at full width; every K1 dispatch replayed
+    through the plain version."""
+    import torch
+
+    from gubernator_tpu_torch.core import clock as clock_mod
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.testing.chaos import ChaosInjector, ChaosPlan
+
+    t_phase = time.perf_counter()
+    # Real time: the handoffs of the gossip remaps release on the clock,
+    # and every key's window (600 s) outlives the phase.
+    clock_mod.unfreeze()
+    inj = ChaosInjector(ChaosPlan(seed=SEED + 1500))
+    c, conv_s, conv_after_s = region_boot(dev, inj)
+    recs = []
+    try:
+        log(f"phase 15a ({smi}): 4 daemons ({'/'.join(REGION_DCS)}) at "
+            f"{DAEMON_SLOTS} slots x {WAYS} ways found each other by gossip "
+            f"on 127.0.0.1 from one seed: every picker holds 4 peers and "
+            f"every universe is {{east, west}} {conv_s:.3f} s after the "
+            f"first boot ({conv_after_s:.3f} s after the last)")
+        wait_for(lambda: all(
+            d.service.reshard.handoffs_started
+            == d.service.reshard.handoffs_completed
+            + d.service.reshard.handoffs_aborted for d in c.daemons),
+            "the remaps' handoffs", "phase 15")
+        lags = []
+        for d in c.daemons:
+            # Phase 14's peer deadlines (forwards, reconciles): a timed-out
+            # reconcile is dropped by design, which 15b's exact ledger
+            # cannot absorb.
+            d.service.cfg.behaviors.batch_timeout_s = PLANES_PEER_DEADLINE_S
+            d.service.global_mgr.timeout_s = PLANES_PEER_DEADLINE_S
+            rm = d.service.regions
+            rm.timeout_s = PLANES_PEER_DEADLINE_S
+            rm.metrics.region_reconcile_lag = LagTee(
+                rm.metrics.region_reconcile_lag, lags)
+        for i, d in enumerate(c.daemons):
+            phase_warm(d.service.backend, dev, f"phase 15 (node {i})",
+                       keys=REGION_WARM)
+        torch.cuda.synchronize()
+        starts = [(clone_table(d.service.backend.table),
+                   clone_sketch(d.service.sketch_backend.state))
+                  for d in c.daemons]
+        recs = [DispatchRecorder(d.service.backend, d.service.sketch_backend,
+                                 state) for d in c.daemons]
+        at_start = dict(state.launches)
+        serve_kernel.launches = cms_kernel.launches = 0
+        region_carve_load(c, smi, lags)
+        region_partition(c, inj, smi)
+        require_launches("phase 15 (regions, gossip, loadgen)", k2=False)
+        k1n, k2n = serve_kernel.launches, cms_kernel.launches
+        STATE_PATHS["regions"] = {k: state.launches[k] - at_start[k]
+                                  for k in STATE_OPS}
+        fallbacks = sum(d.fastpath.fallbacks for d in c.daemons
+                        if d.fastpath is not None)
+        c.stop()  # as in phase 14: every dispatch recorded, none during
+        c = None  # the replay
+        done, recs = recs, []
+        for rec in done:
+            rec.close()
+        t0 = time.perf_counter()
+        err = max(rec.replay(dev, t, sk) for rec, (t, sk) in zip(done,
+                                                                  starts))
+        log(f"phase 15: {sum(len(r.k1) for r in done)} K1 dispatches of the "
+            f"four nodes (carves, forwarded carve checks, home-row "
+            f"reconciles, background load, slot drops) replayed through the "
+            f"plain version in {time.perf_counter() - t0:.3f} s: responses, "
+            f"tables, claim words bit-exact; K1 launches {k1n}, K2 launches "
+            f"{k2n}; the compiled lane declined "
+            f"{fallbacks} batches (regions take the object path); peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; phase {time.perf_counter() - t_phase:.1f} s")
+        return err
+    finally:
+        if c is not None:
+            c.stop()
+        for rec in recs:
+            rec.close()
+        clock_mod.freeze(T0_NS)
 
 
 STATE_OP_SOURCES = {
@@ -3115,7 +3629,8 @@ def main() -> int:
                cluster_path(dev, smi))
     derr = max(derr, phase_store(dev, smi, state),
                phase_reshard(dev, smi, state),
-               phase_planes(dev, smi, state))
+               phase_planes(dev, smi, state),
+               phase_regions(dev, smi, state))
     state.close()
     k1["max_abs_err"] = max(k1["max_abs_err"], derr)
     k2["max_abs_err"] = max(k2["max_abs_err"], derr)

@@ -1,0 +1,110 @@
+"""gubload on the torch port — the open-loop scenario harness CLI
+(docs/loadgen.md).
+
+    python -m gubernator_tpu_torch.cli.gubload --scenario steady
+
+Runs one scenario from the library (loadgen/scenarios.py) against an
+in-process cluster of the port's daemons (default; fault scenarios
+require it) or an external address list, prints each BENCH-compatible
+artifact row as a JSON line, and writes the full artifact for
+scripts/bench_gate.py.  The in-process cluster runs on the CUDA card
+unless GUBER_TPU_PLATFORM=cpu asks for the CPU; the artifact's
+`platform` names the device it ran on.
+
+Knobs come from the gubload env surface (deploy/example.conf) with
+flags overriding; the run is deterministic from GUBER_LOAD_SEED.
+
+Exit status: 0 when the scenario's merged-ledger verdict passed,
+1 when an assertion failed (the run is a proof artifact — latency is
+only reported alongside its proven admission bound).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    from ..core.config import load_config_from_env
+    from ..loadgen import SCENARIOS, run_scenario
+
+    env = load_config_from_env()
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--scenario", default=env.scenario,
+                    help=f"one of {sorted(SCENARIOS)} "
+                    "(GUBER_LOAD_SCENARIO)")
+    ap.add_argument("--seed", type=int, default=env.seed,
+                    help="schedule seed (GUBER_LOAD_SEED)")
+    ap.add_argument("--duration", type=float, default=env.duration_s,
+                    help="total run seconds (GUBER_LOAD_DURATION)")
+    ap.add_argument("--clients", type=int, default=env.clients,
+                    help="client connection fan-out "
+                    "(GUBER_LOAD_CLIENTS)")
+    ap.add_argument("--target-rps", type=float, default=env.target_rps,
+                    help="peak arrival rate (GUBER_LOAD_TARGET_RPS)")
+    ap.add_argument("--addresses", default="",
+                    help="comma-separated external daemon addresses "
+                    "(default: boot an in-process cluster)")
+    ap.add_argument("--daemons", type=int, default=2,
+                    help="in-process cluster size (ignored with "
+                    "--addresses)")
+    ap.add_argument("--out", default="",
+                    help="artifact path (default "
+                    "BENCH_LOAD_<scenario>.json)")
+    ap.add_argument("--profile-dir", default="",
+                    help="time-boxed torch.profiler captures (Chrome "
+                    "traces) at marked phase boundaries land here (off "
+                    "when empty)")
+    ap.add_argument("--list", action="store_true",
+                    help="list scenarios and exit")
+    args = ap.parse_args(argv)
+
+    if args.list:
+        for name in sorted(SCENARIOS):
+            print(f"{name:<18} {SCENARIOS[name].description}")
+        return 0
+
+    from dataclasses import replace
+
+    from ..core.config import LoadConfig
+    from ..testing.cluster import TEST_DEVICE
+
+    cfg = LoadConfig(
+        seed=args.seed, scenario=args.scenario,
+        duration_s=args.duration, clients=args.clients,
+        target_rps=args.target_rps,
+    )
+    addresses = [a for a in args.addresses.split(",") if a]
+    try:
+        result = run_scenario(
+            cfg.scenario, cfg,
+            addresses=addresses or None,
+            profile_dir=args.profile_dir or None,
+            num_daemons=args.daemons,
+            device=replace(
+                TEST_DEVICE,
+                platform=os.environ.get("GUBER_TPU_PLATFORM") or None,
+            ),
+        )
+    except AssertionError as e:
+        print(f"gubload: VERDICT FAILED: {e}", file=sys.stderr)
+        return 1
+
+    artifact = result["artifact"]
+    for row in artifact["results"]:
+        print(json.dumps(row), flush=True)
+    out = args.out or f"BENCH_LOAD_{cfg.scenario}.json"
+    with open(out, "w") as f:
+        json.dump(artifact, f, indent=1)
+    print(
+        f"gubload: {cfg.scenario} OK (seed={cfg.seed}): verdict "
+        f"proven, artifact -> {out}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

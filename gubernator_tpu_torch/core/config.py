@@ -2,9 +2,8 @@
 
 The planes' configs parse the GUBER_* surface as the JAX package does, with
 its defaults: the hot-key, lease, reshard and gubstat planes on, the cold tier
-and the region plane off.  The region plane is kept as data; the service
-refuses to start with it armed, since it is not ported yet (ROADMAP.md,
-"What the daemon still refuses").
+and the region plane off.  Only a sharded table (num_shards > 1) is refused,
+by DeviceConfig (ROADMAP.md, "What the daemon still refuses").
 
 Mirrors the reference's struct + `GUBER_*` env-var config (config.go:44-459,
 example.conf), extended with the engine's own knobs (slot-table geometry, batch
@@ -786,14 +785,14 @@ class DeviceConfig:
     platform: Optional[str] = None
     batch_tiers: Optional[Tuple[int, ...]] = None
     # The mesh axis (the JAX package's sharded table).  The port serves
-    # one table on one card; a mesh is ROADMAP queue 1 item 3.
+    # one table on one card; a mesh is ROADMAP queue 1 item 1.
     num_shards: int = 1
 
     def __post_init__(self) -> None:
         if self.num_shards != 1:
             raise ValueError(
                 f"num_shards={self.num_shards}: a sharded table is not "
-                "ported yet (ROADMAP queue 1 item 3, the mesh and collective "
+                "ported yet (ROADMAP queue 1 item 1, the mesh and collective "
                 "GLOBAL); the port serves num_shards=1"
             )
         if self.num_slots % self.ways != 0:

@@ -9,9 +9,8 @@ depends on this, cluster/cluster.go:111-146).
 
 The port's daemon serves the JAX daemon's state plane (a Store and Loader,
 resharding with drain on close, the gubstat census, tenant ledger and key
-peek, and the cold tier), the hot-key and lease planes and the chaos plane.
-Discovery kinds other than none and static raise a ValueError at
-construction (the service refuses the region plane).
+peek, and the cold tier), the hot-key, lease, region and chaos planes, and
+every discovery kind (none, static, dns, gossip, k8s, etcd).
 """
 from __future__ import annotations
 
@@ -277,18 +276,6 @@ class _PeersServicer:
         return peers_pb2.MigrateResp(injected=injected, skipped=skipped)
 
 
-def refuse_unported_daemon(conf: DaemonConfig) -> None:
-    """Raise for daemon-level features this port does not serve yet,
-    naming the ROADMAP item that brings each."""
-    kind = conf.peer_discovery_type
-    if kind not in ("none", "", "static"):
-        raise ValueError(
-            f"peer_discovery_type={kind!r}: only 'none' and 'static' "
-            "discovery are ported (ROADMAP, \"What the daemon still "
-            "refuses\": queue 1 item 2, the other discovery kinds)"
-        )
-
-
 class Daemon:
     """One gubernator node on the port's engine."""
 
@@ -298,15 +285,30 @@ class Daemon:
         clock=None,
     ) -> None:
         self.conf = conf or DaemonConfig()
-        refuse_unported_daemon(self.conf)
         self.clock = clock
         self.metrics = Metrics()
+        # Region identity (docs/multiregion.md): an enabled region
+        # plane with no explicit name takes the data-center tag — the
+        # region name IS what peers advertise on the wire, so the WAN
+        # split in set_peers and the rendezvous universe agree.
+        # dataclasses.replace re-runs validation with the resolved
+        # name (self-region-in-peer-map).
+        import dataclasses as _dc
+
+        rc = getattr(self.conf, "region", None) or Config().region
+        if rc.enabled and not rc.name and self.conf.data_center:
+            rc = _dc.replace(rc, name=self.conf.data_center)
+        self.region_cfg = rc
         # Flight recorder (runtime/flightrec.py): armed per config; the
         # Metrics bundle carries it to the layers that feed it.
         from gubernator_tpu_torch.runtime.flightrec import recorder_from_config
 
         self.flightrec = recorder_from_config(self.conf, self.metrics)
         self.metrics.flightrec = self.flightrec
+        # gubload phase attribution (loadgen/engine.py PhaseTracker):
+        # {"scenario", "phase", "seq", "since"} while a load-scenario
+        # phase is driving this node, None otherwise.
+        self.load_status: Optional[dict] = None
         # AutoTLS certs must carry the advertise host in their SANs or
         # cross-host peer dials fail hostname verification.
         adv_host = (
@@ -401,7 +403,7 @@ class Daemon:
             stats=getattr(self.conf, "stats", None) or Config().stats,
             reshard=getattr(self.conf, "reshard", None) or Config().reshard,
             tier=getattr(self.conf, "tier", None) or Config().tier,
-            region=getattr(self.conf, "region", None) or Config().region,
+            region=self.region_cfg,
         )
         peer_creds = (
             self.tls.client_credentials() if self.tls is not None else None
@@ -843,6 +845,10 @@ class Daemon:
                     **s.reshard.debug_vars(),
                     "peer_updates_applied": self.peer_updates_applied,
                 }
+            if s.regions is not None:
+                # Region carve plane (docs/multiregion.md): home
+                # universe, drift backlog, per-link heal states.
+                out["region"] = s.regions.debug_vars()
         if s is not None and s.tenants is not None:
             # Gubstat per-tenant admission ledger (docs/observability.md).
             out["tenants"] = s.tenants.debug_vars()
@@ -873,6 +879,8 @@ class Daemon:
                 "loop_lag_ms_max": round(fr.max_lag_ms, 2),
                 "last_dump_path": fr.last_dump_path,
             }
+        if self.load_status is not None:
+            out["load"] = dict(self.load_status)
         return web.json_response(out)
 
     @staticmethod
@@ -1002,6 +1010,22 @@ class Daemon:
         cluster fixture) apply one at a time, in call order."""
         me = self.advertise_address()
         peers = list(peers)
+        if self.region_cfg.enabled and self.region_cfg.peers:
+            # WAN seed merge (docs/multiregion.md): the configured
+            # remote-region addresses ride along with EVERY discovery
+            # kind — in-region discovery (dns/gossip/k8s/etcd) only
+            # sees its own mesh, and a region partition must not
+            # evict the seed arcs we will need to reconcile over.
+            have = {p.grpc_address for p in peers}
+            for rname, addrs in sorted(self.region_cfg.peers.items()):
+                if rname == self.region_cfg.name:
+                    continue
+                for a in addrs:
+                    if a and a not in have:
+                        have.add(a)
+                        peers.append(PeerInfo(
+                            grpc_address=a, data_center=rname
+                        ))
         marked = [
             PeerInfo(
                 grpc_address=p.grpc_address,
@@ -1081,6 +1105,65 @@ class Daemon:
             if all(p.grpc_address != me for p in peers):
                 peers.append(PeerInfo(grpc_address=me))
             self._pool = StaticPool(peers, on_update)
+        elif kind == "dns":
+            from gubernator_tpu_torch.discovery.dns import DnsPool
+
+            grpc_port = int(self.grpc_address.rpartition(":")[2])
+            http_port = int(self.http_address.rpartition(":")[2])
+            self._pool = DnsPool(
+                self.conf.dns_fqdn,
+                on_update,
+                grpc_port=grpc_port,
+                http_port=http_port,
+                poll_interval_s=self.conf.dns_poll_interval_s,
+                data_center=self.conf.data_center,
+                own_address=self.advertise_address(),
+            )
+        elif kind == "gossip":
+            from gubernator_tpu_torch.discovery.gossip import GossipPool
+
+            gossip_port = int(self.grpc_address.rpartition(":")[2]) + 1000
+            bind = self.conf.gossip_bind_address or f"0.0.0.0:{gossip_port}"
+            # Gossip identity rides the daemon's advertise host.
+            adv_host = self.advertise_address().rpartition(":")[0]
+            bind_port = bind.rpartition(":")[2]
+            self._pool = GossipPool(
+                bind,
+                PeerInfo(
+                    grpc_address=self.advertise_address(),
+                    http_address=self.http_address,
+                    data_center=self.conf.data_center,
+                ),
+                on_update,
+                seeds=self.conf.gossip_seeds,
+                advertise_address=f"{adv_host}:{bind_port}",
+            )
+        elif kind == "k8s":
+            from gubernator_tpu_torch.discovery.k8s import K8sPool
+
+            self._pool = K8sPool(
+                on_update,
+                namespace=self.conf.k8s_namespace,
+                selector=self.conf.k8s_endpoints_selector,
+                pod_ip=self.conf.k8s_pod_ip,
+                pod_port=self.conf.k8s_pod_port,
+                mechanism=self.conf.k8s_watch_mechanism,
+                http_port=int(self.http_address.rpartition(":")[2]),
+            )
+        elif kind == "etcd":
+            from gubernator_tpu_torch.discovery.etcd import EtcdPool
+
+            self._pool = EtcdPool(
+                on_update,
+                PeerInfo(
+                    grpc_address=self.advertise_address(),
+                    http_address=self.http_address,
+                    data_center=self.conf.data_center,
+                ),
+                endpoints=getattr(
+                    self.conf, "etcd_endpoints", "localhost:2379"
+                ),
+            )
         else:
             raise ValueError(f"unknown peer_discovery_type '{kind}'")
         await self._pool.start()

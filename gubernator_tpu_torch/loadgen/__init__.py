@@ -1,0 +1,30 @@
+"""Gubload: the open-loop million-client scenario harness
+(docs/loadgen.md; ROADMAP item 5).
+
+Layers:
+  schedule.py   deterministic seeded arrival plans (intended-send
+                timestamps + key draws; worker-shardable)
+  engine.py     non-blocking open-loop dispatch, latency from INTENDED
+                send into HdrRecorder (coordinated-omission-free),
+                phase-linked attribution (flightrec / spans / gauge /
+                optional torch.profiler)
+  spec.py       declarative scenario specs + merged-ledger verdict
+                helpers (the chaos_smoke idiom)
+  scenarios.py  the scenario library (steady, diurnal, burststorm,
+                flashcrowd, reshard_churn, partition_leased)
+  runner.py     composition: cluster, phases, hooks, verdict
+  report.py     BENCH_E2E-compatible artifact rows bench_gate gates on
+"""
+from .engine import OutcomeCounts, PhaseTracker, closed_loop, open_loop
+from .report import build_artifact, validate_row
+from .runner import build_schedules, resolve_scenario, run_scenario
+from .scenarios import SCENARIOS
+from .schedule import Schedule, build, derive_seed
+from .spec import PhaseSpec, RunContext, ScenarioSpec
+
+__all__ = [
+    "OutcomeCounts", "PhaseSpec", "PhaseTracker", "RunContext",
+    "SCENARIOS", "Schedule", "ScenarioSpec", "build", "build_artifact",
+    "build_schedules", "closed_loop", "derive_seed", "open_loop",
+    "resolve_scenario", "run_scenario", "validate_row",
+]

@@ -1,0 +1,131 @@
+"""BENCH_E2E-compatible artifact rows for scenario runs
+(docs/loadgen.md).
+
+The artifact is the same shape bench_e2e.py emits — a top-level
+platform-honest label plus one JSON line per result — so
+scripts/bench_gate.py gates scenario runs with the same machinery:
+per-scenario keys (config, scenario, phase, platform), p50 regression
+past the threshold + noise floor fails, a scenario key with no
+baseline warns instead of hard-failing on first appearance.
+
+Every row carries the OPEN-LOOP percentiles (latency from intended
+send) and the run's intended-vs-actual send skew, so a reader can
+tell a slow server from a lagging generator.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+LOAD_CONFIG = "load_scenario"
+
+# Required fields of a scenario artifact row (load_smoke validates).
+ROW_REQUIRED = (
+    "config", "scenario", "phase", "platform",
+    "p50_ms", "p99_ms", "p999_ms", "checks_per_sec",
+    "arrivals", "send_skew_p99_ms",
+)
+
+
+def _platform(device=None) -> str:
+    """The ACTUAL device the engine ran on (platform honesty: a cpu
+    artifact must never gate a cuda recording as if hardware were
+    comparable): the device type of `device` (a torch.device or its
+    string, the cluster's backend device) when given, else "cuda" when
+    torch sees a CUDA card and "cpu" when it does not."""
+    import torch
+
+    if device is not None:
+        return "cuda" if torch.device(device).type == "cuda" else "cpu"
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _ms(v_s: float) -> float:
+    return round(v_s * 1e3, 3)
+
+
+def _row(scenario: str, phase: str, platform: str, recorder,
+         arrivals: int, wall_s: float, skew) -> Dict:
+    p50, p99, p999 = recorder.percentiles((0.50, 0.99, 0.999))
+    return {
+        "config": LOAD_CONFIG,
+        "scenario": scenario,
+        "phase": phase,
+        "platform": platform,
+        "p50_ms": _ms(p50),
+        "p99_ms": _ms(p99),
+        "p999_ms": _ms(p999),
+        "checks_per_sec": round(arrivals / wall_s, 1) if wall_s else 0.0,
+        "arrivals": arrivals,
+        "send_skew_p99_ms": _ms(skew.percentile(0.99)),
+        "open_loop": True,
+    }
+
+
+def build_artifact(spec, cfg, verdict: Dict, overall, skew,
+                   phase_stats: Dict, total_wall_s: float,
+                   device=None) -> Dict:
+    """The artifact dict: top-level platform + note, one row per phase
+    plus the overall row (per-phase budget split rides the phase rows'
+    wall_share).  `device` is the driven daemons' backend device (None
+    when driving external addresses)."""
+    platform = _platform(device)
+    rows = []
+    total_arrivals = sum(s["arrivals"] for s in phase_stats.values())
+    for phase, stats in phase_stats.items():
+        row = _row(
+            spec.name, phase, platform, stats["recorder"],
+            stats["arrivals"], stats["wall_s"], skew,
+        )
+        row["intended_rps"] = stats["intended_rps"]
+        row["wall_s"] = stats["wall_s"]
+        row["wall_share"] = (
+            round(stats["wall_s"] / total_wall_s, 3)
+            if total_wall_s else 0.0
+        )
+        rows.append(row)
+    overall_row = _row(
+        spec.name, "overall", platform, overall,
+        total_arrivals, total_wall_s, skew,
+    )
+    overall_row["seed"] = cfg.seed
+    overall_row["verdict"] = {
+        k: v for k, v in verdict.items()
+        if isinstance(v, (int, float, str, bool))
+    }
+    rows.append(overall_row)
+    return {
+        "harness": (
+            f"gubernator-tpu-gubload --scenario {spec.name} "
+            f"--seed {cfg.seed} --duration {cfg.duration_s} "
+            f"--target-rps {cfg.target_rps}"
+        ),
+        "platform": platform,
+        "note": (
+            "open-loop scenario run (docs/loadgen.md): latency from "
+            "INTENDED send time against a precomputed seeded arrival "
+            "schedule — coordinated-omission-free; the verdict block "
+            "is the merged /debug/vars ledger proof of the admission "
+            "bound this run operated under."
+        ),
+        "results": rows,
+    }
+
+
+def validate_row(row: Dict) -> None:
+    """Schema check for one scenario row (load_smoke's gate)."""
+    missing = [f for f in ROW_REQUIRED if f not in row]
+    if missing:
+        raise AssertionError(
+            f"scenario artifact row missing fields {missing}: {row}"
+        )
+    for f in ("p50_ms", "p99_ms", "p999_ms", "checks_per_sec",
+              "send_skew_p99_ms"):
+        if not isinstance(row[f], (int, float)):
+            raise AssertionError(
+                f"scenario artifact row field {f!r} is not numeric: "
+                f"{row[f]!r}"
+            )
+    if row["config"] != LOAD_CONFIG:
+        raise AssertionError(
+            f"scenario row config {row['config']!r} != {LOAD_CONFIG!r}"
+        )

@@ -49,11 +49,11 @@ the semantic reference:
     forwarded traffic in a cluster.
 
 This is the JAX package's fast lane without the mesh's engine lane and
-shard grids (ROADMAP queue 1 item 3) and the region routing (ROADMAP queue
-1 item 1; the service refuses configurations that arm it).  While a reshard
-handoff is active, or while this node sheds under SLO pressure, the lane
-steps aside for the object path; lanes of keys this node mirrors serve
-from the local mirror allowance (service._mirror_serve).
+shard grids (ROADMAP queue 1, the mesh and collective GLOBAL).  While a
+reshard handoff is active, while this node sheds under SLO pressure, or
+whenever the region plane is on, the lane steps aside for the object path;
+lanes of keys this node mirrors serve from the local mirror allowance
+(service._mirror_serve).
 """
 from __future__ import annotations
 
@@ -693,6 +693,16 @@ class FastPath:
             # covered keys must forward back / serve the bounded shadow
             # and rerouted keys must leave this table — per-key routing
             # the object path owns.  The lane steps aside for the window.
+            self.fallbacks += 1
+            return None
+        if self.s.regions is not None:
+            # Planet-scale regions (docs/multiregion.md): a remote-homed
+            # key must serve the bounded `.region-carve` slot, and the
+            # home pick is a per-key rendezvous over STRING hashes
+            # (`key@region`) the columnar router cannot express — served
+            # on the compiled lane it would answer from the raw row at
+            # the full limit, breaking the region bound.  The object
+            # path owns region routing.
             self.fallbacks += 1
             return None
         cols = native.parse_reqs(payload)

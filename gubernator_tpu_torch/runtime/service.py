@@ -34,10 +34,10 @@ This is the JAX package's service with the Store/Loader, the reshard
 plane (runtime/reshard.py), the gubstat tenant ledger (runtime/gubstat.py),
 the cold tier's promote-on-access hook (runtime/coldtier.py), the hot-key
 survival plane (runtime/hotkey.py) and owner-side admission leases
-(runtime/lease.py), but without the mesh backend and its collective
-GlobalEngine (ROADMAP queue 1 item 3) and without the region plane (ROADMAP
-queue 1 item 1).  A config that arms regions raises a ValueError naming its
-ROADMAP item.
+(runtime/lease.py) and planet-scale regions (runtime/multiregion.py), but
+without the mesh backend and its collective GlobalEngine (ROADMAP queue 1,
+the mesh and collective GLOBAL): a sharded table is refused by
+DeviceConfig.
 """
 from __future__ import annotations
 
@@ -81,17 +81,6 @@ from gubernator_tpu_torch.runtime.backend import TorchBackend
 
 log = logging.getLogger("gubernator_tpu_torch.service")
 
-
-def refuse_unported(cfg) -> None:
-    """Raise for any part of `cfg` this port does not serve yet, naming
-    the ROADMAP item that brings it (a silently ignored knob would serve
-    different semantics than the operator configured)."""
-    if cfg.region.enabled:
-        raise ValueError(
-            "region.enabled: planet-scale regions are not ported yet "
-            "(ROADMAP, \"What the daemon still refuses\": queue 1 item 1, "
-            "regions); set GUBER_REGION_ENABLED=false"
-        )
 
 _EMPTY_I64 = np.empty(0, dtype=np.int64)
 
@@ -144,7 +133,6 @@ class Service:
         from gubernator_tpu_torch.runtime.metrics import Metrics
 
         self.cfg = cfg or Config()
-        refuse_unported(self.cfg)
         self.clock = clock or clock_mod.default_clock()
         self.metrics = metrics or Metrics()
         if backend is not None:
@@ -284,10 +272,17 @@ class Service:
         # handoff's covered-key test, reshard.inbound_covering).
         self._prev_picker = None
         self._reshard_watch_task: Optional[asyncio.Task] = None
-        # The region plane is not ported (refuse_unported): None, so the
-        # shared code that asks for it (LeaseManager._leasable_limit) sees
-        # it disabled.
+        # Planet-scale regions (runtime/multiregion.py;
+        # docs/multiregion.md): remote-homed keys serve from a bounded
+        # `.region-carve` slot and reconcile over the WAN lane.  None
+        # when disabled — every key is then home here.
         self.regions = None
+        if self.cfg.region.enabled:
+            from gubernator_tpu_torch.runtime.multiregion import RegionManager
+
+            self.regions = RegionManager(
+                self, self.cfg.region, metrics=self.metrics
+            )
         self.global_mgr = GlobalManager(self)
         self.multi_region_mgr = MultiRegionManager(self)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
@@ -307,6 +302,8 @@ class Service:
         self._loop = asyncio.get_running_loop()
         self.global_mgr.start()
         self.multi_region_mgr.start()
+        if self.regions is not None:
+            self.regions.start()
         if self.reshard is not None:
             self._reshard_watch_task = asyncio.ensure_future(
                 self._reshard_watch_loop()
@@ -373,6 +370,8 @@ class Service:
         if self.leases is not None and old_local.size() > 0:
             self.leases.on_remap()
         self._invalidate_unowned_mirrors()
+        if self.regions is not None:
+            self.regions.on_remap()
 
         shutdown: List[PeerClient] = []
         for peer in old_local.peers():
@@ -431,8 +430,7 @@ class Service:
     def _derived_slot_keys(self) -> List[str]:
         """Hash-key strings of every derived slot this node knows about
         (each ends with its reserved suffix class — lease carve,
-        hot-mirror, degraded shadow, handoff shadow; the region plane is
-        not served by this port)."""
+        hot-mirror, degraded shadow, handoff shadow, region carve)."""
         keys: List[str] = []
         if self.leases is not None:
             from gubernator_tpu_torch.runtime.lease import LEASE_SUFFIX
@@ -452,6 +450,8 @@ class Service:
             with self.reshard._lock:
                 for ib in self.reshard._inbound.values():
                     keys.extend(k + HANDOFF_SUFFIX for k in ib.shadow)
+        if self.regions is not None:
+            keys.extend(self.regions.carve_slot_keys())
         return keys
 
     def derived_slot_fps(self) -> np.ndarray:
@@ -939,6 +939,7 @@ class Service:
         forwards: List[Tuple[int, PeerClient, RateLimitReq, str]] = []
         mirrors: List[Tuple[int, PeerClient, RateLimitReq]] = []
         covered: List[Tuple[int, RateLimitReq, str, object]] = []
+        region_serves: List[Tuple[int, RateLimitReq, str, str]] = []
 
         reqs = self._strip_sketch_global(reqs)
 
@@ -980,7 +981,23 @@ class Service:
                 responses[i] = self._shed_response(req)
                 continue
             key = req.hash_key()
+            is_global = has_behavior(req.behavior, Behavior.GLOBAL)
+            # Region routing (docs/multiregion.md): a key whose HOME
+            # region is elsewhere serves from the bounded local
+            # `.region-carve` slot at the in-region owner — never a
+            # WAN round-trip on the request path.  GLOBAL and legacy
+            # MULTI_REGION traffic keep their own replication lanes.
+            region_home: Optional[str] = None
+            if (
+                self.regions is not None
+                and not is_global
+                and not has_behavior(req.behavior, Behavior.MULTI_REGION)
+            ):
+                region_home = self.regions.remote_home(key)
             if single_node:
+                if region_home is not None:
+                    region_serves.append((i, req, key, region_home))
+                    continue
                 local_idx.append(i)
                 local_cached.append(False)
                 local_owner_meta.append(None)
@@ -993,8 +1010,14 @@ class Service:
                     f"rate limit '{key}': {e}"
                 )
                 continue
-            is_global = has_behavior(req.behavior, Behavior.GLOBAL)
             if peer.info().is_owner:
+                if region_home is not None:
+                    # In-region owner of a remote-homed key: the one
+                    # node in this region that carves for it (one
+                    # carve per region, not one per node — the bound
+                    # counts regions).
+                    region_serves.append((i, req, key, region_home))
+                    continue
                 rs = self.reshard
                 if rs is not None and rs.active() and not is_global:
                     # Live resharding (docs/resharding.md): a key whose
@@ -1026,7 +1049,7 @@ class Service:
                 local_cached.append(True)
                 local_owner_meta.append(peer.info().grpc_address)
                 self.global_mgr.queue_hit(req)
-            elif self._mirror_eligible(req, key, peer):
+            elif region_home is None and self._mirror_eligible(req, key, peer):
                 # Hot-key widening (docs/hotkeys.md): the owner is
                 # measurably pressured and this node is one of the
                 # key's next-arc mirrors — serve from the local
@@ -1048,6 +1071,10 @@ class Service:
                 self.reshard.serve_covered(req, key, ib)
             )
             for (_, req, key, ib) in covered
+        ]
+        region_tasks = [
+            asyncio.ensure_future(self.regions.serve(req, key, home))
+            for (_, req, key, home) in region_serves
         ]
 
         try:
@@ -1093,6 +1120,18 @@ class Service:
                     if isinstance(resp, BaseException):
                         responses[i] = RateLimitResp(
                             error=f"Error serving resharding key "
+                            f"'{key}': {resp}"
+                        )
+                    else:
+                        responses[i] = resp
+            if region_tasks:
+                results = await asyncio.gather(
+                    *region_tasks, return_exceptions=True
+                )
+                for (i, _, key, _home), resp in zip(region_serves, results):
+                    if isinstance(resp, BaseException):
+                        responses[i] = RateLimitResp(
+                            error=f"Error serving region carve for "
                             f"'{key}': {resp}"
                         )
                     else:
@@ -1625,15 +1664,37 @@ class Service:
                     bulk_key_hash64([r.hash_key() for r in valid]),
                     np.array([r.hits for r in valid], dtype=np.int64),
                 )
-        rs = self.reshard
         special: Dict[int, object] = {}
+        if self.regions is not None:
+            # Region routing (docs/multiregion.md): a forwarded check
+            # for a remote-homed key lands here because this node is
+            # the key's in-region owner — serve the bounded
+            # `.region-carve` slot, never the raw row at full limit.
+            # The WAN reconcile lane arrives at the HOME region's
+            # owner, where remote_home() is None, and applies below.
+            for i, r in enumerate(reqs):
+                if not r.unique_key or not r.name:
+                    continue
+                if has_behavior(r.behavior, Behavior.GLOBAL):
+                    continue
+                if has_behavior(r.behavior, Behavior.MULTI_REGION):
+                    continue
+                key = r.hash_key()
+                home = self.regions.remote_home(key)
+                if home is not None:
+                    special[i] = ("region", key, home)
+        rs = self.reshard
         if rs is not None and rs.active():
             # Live resharding (docs/resharding.md): forwarded checks for
             # mid-handoff keys must not apply on this node's table.
             # Covered inbound keys (we are the new owner, handoff in
             # flight) forward back / serve the bounded shadow; rerouted
             # outbound keys (our rows are gone) forward to the new owner.
+            # (Remote-homed keys keep their region dispatch: the carve
+            # slot is a derived slot and migrates with the arc.)
             for i, r in enumerate(reqs):
+                if i in special:
+                    continue
                 if not r.unique_key or not r.name:
                     continue
                 if has_behavior(r.behavior, Behavior.GLOBAL):
@@ -1651,6 +1712,8 @@ class Service:
         if special:
             async def _serve_special(spec, r):
                 kind, key, arg = spec
+                if kind == "region":
+                    return await self.regions.serve(r, key, arg)
                 if kind == "covered":
                     return await rs.serve_covered(r, key, arg)
                 return await self._forward(arg, r, key)
@@ -1818,6 +1881,8 @@ class Service:
             self._lease_sweep_task = None
         await self.global_mgr.close()
         await self.multi_region_mgr.close()
+        if self.regions is not None:
+            await self.regions.close()
         await self._local_batcher.close()
         if self.cfg.loader is not None:
             loop = asyncio.get_running_loop()

@@ -82,8 +82,13 @@ DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent
     from gubernator_tpu_torch.core.types import RateLimitReq
     from gubernator_tpu_torch.daemon import Daemon
     from gubernator_tpu_torch.proto import gubernator_pb2 as pb
-    from gubernator_tpu_torch.runtime import hotkey, lease
+    from gubernator_tpu_torch.runtime import hotkey, lease, multiregion
     from gubernator_tpu_torch.testing import chaos, tracing
+    from gubernator_tpu_torch.discovery import dns, etcd, gossip, k8s
+    from gubernator_tpu_torch import loadgen
+    from gubernator_tpu_torch.loadgen import report
+    from gubernator_tpu_torch.cli import (
+        bench_client, cluster, flightrec, gubload, healthcheck)
 
     async def main():
         d = Daemon(DaemonConfig(
@@ -118,10 +123,20 @@ DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent
 
     asyncio.run(asyncio.wait_for(main(), 60))
     assert callable(client.LeasedClient) and tracing.MemorySpanExporter
+    assert multiregion.REGION_SUFFIX == ".region-carve"
+    assert report._platform() == "cpu" and "region_failover" in loadgen.SCENARIOS
+    assert all(callable(m.main) for m in (
+        bench_client, cluster, flightrec, gubload, healthcheck))
+    assert dns.DnsPool and gossip.GossipPool and k8s.K8sPool and etcd.EtcdPool
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
     for m in ("client", "runtime.hotkey", "runtime.lease", "testing.chaos",
-              "testing.tracing"):
+              "testing.tracing", "runtime.multiregion", "discovery.dns",
+              "discovery.gossip", "discovery.k8s", "discovery.etcd",
+              "loadgen", "loadgen.engine", "loadgen.runner",
+              "loadgen.scenarios", "loadgen.schedule", "loadgen.spec",
+              "loadgen.report", "cli.bench_client", "cli.cluster",
+              "cli.flightrec", "cli.gubload", "cli.healthcheck"):
         assert "gubernator_tpu_torch." + m in sys.modules, m
     print("DAEMON-ISOLATED-OK")
 """)
@@ -130,8 +145,9 @@ DAEMON_SCRIPT = SCRIPT.split("import gubernator_tpu_torch")[0] + textwrap.dedent
 def test_port_daemon_serves_without_jax():
     """With jax and the JAX package blocked, the port's daemon starts on
     the CPU with a chaos injector, answers one GetRateLimits over gRPC on
-    its compiled lane and grants a lease; the client SDK, the hot-key and
-    lease planes and the chaos and tracing fixtures import."""
+    its compiled lane and grants a lease; the client SDK, the hot-key,
+    lease and region planes, the chaos and tracing fixtures, the four
+    discovery pools, the load generator and the five CLIs import."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(

@@ -249,11 +249,14 @@ def test_oversized_batch_raises_the_same_api_error(frozen_clock):
 def test_unported_configurations_raise_naming_their_roadmap_item():
     cpu = pcfg.DeviceConfig(num_slots=256, ways=8, batch_size=16,
                             platform="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.*queue 1 item 1"):
-        Service(pcfg.Config(device=cpu,
-                            region=pcfg.RegionConfig(enabled=True, name="a")))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
+    # The only refusal left is the sharded table (the mesh).
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 1, the mesh"):
         pcfg.DeviceConfig(num_slots=256, ways=8, num_shards=2)
+    # The region plane is served.
+    svc = Service(pcfg.Config(device=cpu,
+                              region=pcfg.RegionConfig(enabled=True, name="a")))
+    assert svc.regions is not None and svc.regions.universe() == ("a",)
+    svc._dev_executor.shutdown()
     # The hot-key and lease planes are served and on by default, as in
     # the JAX package.
     assert pcfg.HotKeyConfig().enabled and pcfg.LeaseConfig().enabled
@@ -275,10 +278,12 @@ def test_unported_configurations_raise_naming_their_roadmap_item():
 
     from gubernator_tpu_torch.daemon import Daemon
 
-    for kw in (dict(peer_discovery_type="dns"),
-               dict(peer_discovery_type="gossip")):
-        with pytest.raises(ValueError, match="ROADMAP.*queue 1 item 2"):
-            Daemon(pcfg.DaemonConfig(device=cpu, **kw))
+    # Every discovery kind is served: the daemons construct (their pools
+    # start with the daemon).
+    for kind in ("dns", "gossip", "k8s", "etcd"):
+        assert Daemon(pcfg.DaemonConfig(
+            device=cpu, peer_discovery_type=kind)).conf.peer_discovery_type \
+            == kind
     Daemon(pcfg.DaemonConfig(device=cpu, reshard_drain_on_close=True))
     # The chaos plane is served: a daemon takes an injector.
     from gubernator_tpu_torch.testing.chaos import ChaosInjector, ChaosPlan
