@@ -111,7 +111,6 @@ JAX.
 """
 from __future__ import annotations
 
-import collections
 import json
 import subprocess
 import sys
@@ -3068,12 +3067,11 @@ REGION_CHECKS = 35           # checks a key
 REGION_LIMIT = 100
 REGION_FRACTION = 0.25       # a remote region's carve: 25 of 100
 REGION_BATCH = 1000          # requests a GetRateLimits (the wire's maximum)
-# One batch of arrivals every 0.4 s (2,500 checks/s offered), under what the
-# four in-process daemons serve on the card's host (3,395.9 checks/s when
-# offered 5,000/s): an offer of 10,000/s grew the forwards to the in-region
-# owner past the peer client's 1000-request queue, which shed 733 checks
-# (the JAX package's bound; PERF.md §6, PR 7).
-REGION_GROUP_S = 0.4
+# One batch of arrivals every 0.8 s: 1,250 checks/s offered, below what the
+# four in-process daemons served on the card's host when offered 2,500/s
+# (2,374.1 and 2,016.7 checks/s, PERF.md §6, PR 7), so that 15b's p50/p99
+# time a carve call's serve and not an open loop's backlog.
+REGION_GROUP_S = 0.8
 REGION_RECONCILE_MS = 200
 REGION_DURATION_MS = 600_000  # outlives the phase: one window a key
 REGION_BG_KEYS = 8192        # east-homed keys of the background load
@@ -3300,7 +3298,8 @@ def region_carve_load(c, smi, lags):
                 f"15b: errors {totals.errors}, admitted {totals.admitted}, "
                 f"denied {totals.denied}, keys admitted "
                 f"{len(per_key)} of {REGION_KEYS}, per-key admissions "
-                f"{sorted(set(per_key.values()))}")
+                f"{sorted(set(per_key.values()))}; failed checks said "
+                f"{totals.error_kinds.most_common(3)}")
         if bg["errors"] or bg["carved"] or not bg["calls"]:
             raise AssertionError(f"15b: background load {bg}")
         wait_for(lambda: reconciled(east), "15b's reconcile", "phase 15")
@@ -3339,23 +3338,6 @@ def region_carve_load(c, smi, lags):
         key_universe=REGION_KEYS, tenant="p15b", verdict=verdict,
         hooks={"background": background}, keys=tuple(keys))
     SCENARIOS[spec.name] = spec
-    from gubernator_tpu_torch.loadgen import runner
-
-    errors = collections.Counter()
-    plain_open_loop = runner.open_loop
-
-    async def open_loop(send, *a, **kw):
-        """The runner's open loop, keeping what each failed check said."""
-        async def kept(key_idx):
-            try:
-                return await send(key_idx)
-            except Exception as e:  # noqa: BLE001 — counted, then re-raised
-                errors[str(e)[:200]] += 1
-                raise
-
-        return await plain_open_loop(kept, *a, **kw)
-
-    runner.open_loop = open_loop
     try:
         t0 = time.perf_counter()
         out = run_scenario(
@@ -3363,13 +3345,9 @@ def region_carve_load(c, smi, lags):
             LoadConfig(seed=SEED, duration_s=REGION_KEYS * REGION_CHECKS
                        / rps, clients=4, target_rps=rps),
             cluster=c, addresses=[d.grpc_address for d in east],
-            batch=REGION_BATCH)
+            batch=REGION_BATCH, timeout=60.0)
         wall = time.perf_counter() - t0
-    except AssertionError:
-        log(f"phase 15b: failed checks said {errors.most_common(3)}")
-        raise
     finally:
-        runner.open_loop = plain_open_loop
         SCENARIOS.pop(spec.name, None)
     art = out["artifact"]
     row = next(r for r in art["results"] if r["phase"] == "carve")

@@ -21,6 +21,7 @@ artifact row can prove the load was actually delivered on plan.
 from __future__ import annotations
 
 import asyncio
+import collections
 import os
 import time
 from typing import Awaitable, Callable, Dict, List, Optional, Sequence
@@ -41,11 +42,15 @@ class OutcomeCounts:
         self.denied = 0
         self.errors = 0
         self.per_key_admitted: Dict[int, int] = {}
+        # What the failed sends said (the error's text, cut to 200
+        # characters) and how often: the port's own, for a verdict to show.
+        self.error_kinds: collections.Counter = collections.Counter()
 
     def merge(self, other: "OutcomeCounts") -> "OutcomeCounts":
         self.admitted += other.admitted
         self.denied += other.denied
         self.errors += other.errors
+        self.error_kinds.update(other.error_kinds)
         for k, n in other.per_key_admitted.items():
             self.per_key_admitted[k] = (
                 self.per_key_admitted.get(k, 0) + n
@@ -74,8 +79,9 @@ async def open_loop(
         skew.record(max(0.0, actual - intended))
         try:
             admitted = await send(int(key_idx))
-        except Exception:
+        except Exception as e:  # noqa: BLE001 — counted, with its text
             out.errors += 1
+            out.error_kinds[str(e)[:200]] += 1
         else:
             if admitted:
                 out.admitted += 1
@@ -120,8 +126,9 @@ async def closed_loop(
         t0 = loop.time()
         try:
             admitted = await send(int(key_idx))
-        except Exception:
+        except Exception as e:  # noqa: BLE001 — counted, with its text
             out.errors += 1
+            out.error_kinds[str(e)[:200]] += 1
         else:
             if admitted:
                 out.admitted += 1

@@ -7,11 +7,12 @@ The runner is the composition point: schedule.py plans, engine.py
 dispatches and records, spec.py/scenarios.py decide pass/fail, and
 report.py shapes the proof into an artifact bench_gate can gate on.
 
-Two knobs are the port's own, and both default to the JAX runner's
+Three knobs are the port's own, and each defaults to the JAX runner's
 behaviour: `device` places a cluster the runner boots (None = the test
-cluster's default device, the CUDA card), and `batch` > 1 sends the
+cluster's default device, the CUDA card), `batch` > 1 sends the
 arrivals that fall due together as GetRateLimits calls of up to `batch`
-requests instead of one request an arrival.
+requests instead of one request an arrival, and `timeout` is each call's
+deadline (5 s).
 """
 from __future__ import annotations
 
@@ -84,6 +85,7 @@ def run_scenario(
     num_daemons: int = 2,
     device=None,
     batch: int = 1,
+    timeout: float = 5.0,
 ) -> Dict:
     """Run one scenario end to end and return
     {"verdict", "artifact", "phase_stats", ...}.  Raises
@@ -96,6 +98,7 @@ def run_scenario(
     `device` (a DeviceConfig; None = the test cluster's default).
     `batch`: the most requests one GetRateLimits carries (1 = one RPC
     an arrival; each arrival's latency is then its batch's).
+    `timeout`: each GetRateLimits' deadline in seconds.
     """
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
@@ -174,19 +177,9 @@ def run_scenario(
                 duration=spec.window_ms,
             )
 
-        async def send(key_idx: int) -> bool:
-            nonlocal n_sent
-            n_sent += 1
-            c = clients[n_sent % len(clients)]
-            r = (await c.get_rate_limits([req_of(key_idx)],
-                                         timeout=5.0))[0]
-            if r.error != "":
-                raise RuntimeError(r.error)
-            return r.status == Status.UNDER_LIMIT
-
-        # Batched sends: open_loop creates every arrival that is due
-        # before it yields, so the first arrival's flush (scheduled
-        # behind them) takes them all, `batch` requests a call.
+        # open_loop creates every arrival that is due before it yields,
+        # so the first arrival's flush (scheduled behind them) takes them
+        # all, `batch` requests a call (batch 1: one call an arrival).
         loop = asyncio.get_running_loop()
         due: List[Tuple[int, asyncio.Future]] = []
         flushes: set = set()
@@ -197,7 +190,7 @@ def run_scenario(
             c = clients[n_sent % len(clients)]
             try:
                 rs = await c.get_rate_limits(
-                    [req_of(k) for k, _ in chunk], timeout=60.0
+                    [req_of(k) for k, _ in chunk], timeout=timeout
                 )
             except Exception as e:  # noqa: BLE001 — each arrival errs
                 for _, f in chunk:
@@ -216,7 +209,7 @@ def run_scenario(
                 for lo in range(0, len(taken), batch)
             ))
 
-        async def send_batched(key_idx: int) -> bool:
+        async def send(key_idx: int) -> bool:
             fut = loop.create_future()
             due.append((key_idx, fut))
             if len(due) == 1:
@@ -235,8 +228,7 @@ def run_scenario(
                     await spec.hooks[p.fault](ctx)
                 t0 = time.monotonic()
                 ctx.counts_by_phase[p.name] = await open_loop(
-                    send if batch == 1 else send_batched,
-                    sched, latency[p.name], skew,
+                    send, sched, latency[p.name], skew
                 )
                 wall[p.name] = time.monotonic() - t0
             tracker.exit()
