@@ -197,9 +197,14 @@ def useful_bytes(qs, resps, ways: int) -> int:
 
 
 def profile_check(be, reqs):
-    """One check() under torch.profiler.  Returns its wall ms, the ms in
-    which the device was busy (the union of the trace's device events), and
-    the device ms of each event name."""
+    """One check() under torch.profiler (profile_device)."""
+    return profile_device(lambda: be.check(reqs))
+
+
+def profile_device(fn):
+    """fn() under torch.profiler.  Returns its wall ms, the ms in which the
+    device was busy (the union of the trace's device events), and the
+    device ms of each event name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -207,7 +212,8 @@ def profile_check(be, reqs):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        be.check(reqs)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
     for e in prof.events():
@@ -1214,9 +1220,10 @@ async def control_key(addr):
         raise AssertionError(f"control key on the wire: {got}")
 
 
-def start_daemons(dev, n, slots, mode, **conf):
-    """n daemons of the port (one in-process cluster) on `dev`; `conf`
-    adds DaemonConfig fields (a Store, a Loader)."""
+def start_daemons(dev, n, slots, mode, shards=1, **conf):
+    """n daemons of the port (one in-process cluster) on `dev`, each table
+    split into `shards` shards; `conf` adds DaemonConfig fields (a Store, a
+    Loader)."""
     from gubernator_tpu_torch.core.config import (
         DaemonConfig,
         DeviceConfig,
@@ -1230,7 +1237,7 @@ def start_daemons(dev, n, slots, mode, **conf):
     return Cluster.start_with(
         [""] * n,
         device=DeviceConfig(num_slots=slots, ways=WAYS, batch_size=BATCH,
-                            platform=dev.type),
+                            num_shards=shards, platform=dev.type),
         conf_template=DaemonConfig(serve_mode=mode, sketch=sketch, **conf))
 
 
@@ -3534,6 +3541,642 @@ def phase_regions(dev, smi, state) -> float:
         clock_mod.freeze(T0_NS)
 
 
+# -- phase 16: the sharded table and the collective GLOBAL engine -------------
+MESH_SHARDS = 4              # BASELINE.json configurations 3 and 4
+MESH_GLOBAL_CALLS = 64       # 16b: check() calls of GLOBAL requests
+MESH_GLOBAL_REQS = 1000
+MESH_GLOBAL_KEYS = 4096
+MESH_GLOBAL_LIMIT = 1000     # keys pending that trigger a sync
+MESH_ZIPF_S = 1.1
+MESH_A2A_CALLS = 2           # the a2a window's check() calls
+MESH_DAEMON_GLOBAL_KEYS = 1024
+MESH_CLIENTS = DAEMON_CLIENTS
+MESH_RPCS = 3
+MESH_SMALL_CLIENTS = SMALL_CLIENTS
+MESH_PATHS = {"serve_kernel": {}, "cms_kernel": {}}  # path -> launches
+MESH_TIMES = {}
+
+
+class MeshRecorder:
+    """Keeps, in table order, every per-shard K1 launch of a mesh backend
+    and its GlobalEngine (the wrapper `serve_kernel.persistent_serve_step`,
+    which parallel/sharded.mesh_ring_step calls once a shard), every
+    broadcast upsert of a sync into a cache shard, and every K2 dispatch of
+    a sketch backend.  Nothing is copied: each input is a fresh tensor per
+    dispatch."""
+
+    def __init__(self, be, eng=None, sb=None):
+        from gubernator_tpu_torch.ops.kernels import serve_kernel
+        from gubernator_tpu_torch.parallel import global_sync
+
+        self.be, self.eng, self.sb = be, eng, sb
+        self.n = be.n
+        self.tables = {"auth": be.table}
+        if eng is not None:
+            self.tables["cache"] = eng.cache_table
+        where = {}
+        for label, t in self.tables.items():
+            L = t.key.shape[0] // self.n
+            for s in range(self.n):
+                where[t.key.data_ptr() + s * L * t.key.element_size()] = (
+                    label, s)
+        self.events, self.k2 = [], []
+        self._k1, self._bcast = (serve_kernel.persistent_serve_step,
+                                 global_sync.store_cached_rows)
+
+        def k1(table, qs, nows, seq, ways=8, claim=None, scratch=None):
+            out = self._k1(table, qs, nows, seq, ways, claim=claim,
+                           scratch=scratch)
+            label, s = where[table.key.data_ptr()]
+            self.events.append(("k1", label, s, qs, nows, seq, out[1]))
+            return out
+
+        def bcast(table, rows, now, ways=8):
+            label, s = where[table.key.data_ptr()]
+            self.events.append(("bcast", label, s, rows, now))
+            return self._bcast(table, rows, now, ways)
+
+        serve_kernel.persistent_serve_step = k1
+        global_sync.store_cached_rows = bcast
+        if sb is not None:
+            self._dispatch = sb._dispatch
+
+            def dispatch(kh, hc, lc, now):
+                packed = self._dispatch(kh, hc, lc, now)
+                self.k2.append((kh, hc, lc, now, packed))
+                return packed
+
+            sb._dispatch = dispatch
+
+    def close(self):
+        from gubernator_tpu_torch.ops.kernels import serve_kernel
+        from gubernator_tpu_torch.parallel import global_sync
+
+        serve_kernel.persistent_serve_step = self._k1
+        global_sync.store_cached_rows = self._bcast
+        if self.sb is not None:
+            del self.sb._dispatch
+
+    def k1_launches(self, label=None) -> int:
+        return sum(1 for ev in self.events if ev[0] == "k1"
+                   and label in (None, ev[1]))
+
+    def replay(self, dev, starts, sketch=None) -> float:
+        """Every recorded event again, in order, on copies of the starting
+        tables (`starts`: label -> table): each K1 launch through the plain
+        ring_step on the same shard's views of the copy, each broadcast
+        upsert through the same torch op; the K2 dispatches through the
+        plain multi_step on a copy of the sketch.  Requires every output,
+        the final tables and sketch and the claim words equal."""
+        import torch
+
+        from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+        from gubernator_tpu_torch.ops.ring import ring_step
+        from gubernator_tpu_torch.ops.sketch import multi_step
+        from gubernator_tpu_torch.parallel.mesh import shard_view
+
+        before = serve_kernel.launches, cms_kernel.launches
+        err = 0.0
+        for j, ev in enumerate(self.events):
+            view = shard_view(starts[ev[1]], ev[2], self.n)
+            if ev[0] == "bcast":
+                self._bcast(view, ev[3], ev[4], WAYS)
+                continue
+            _, _, s, qs, nows, seq, resps = ev
+            _, pr, _ = ring_step(view, qs, nows, seq, WAYS)
+            if not torch.equal(pr, resps):
+                raise AssertionError(f"K1 launch {j} ({ev[1]} shard {s}): "
+                                     "responses differ from the plain "
+                                     "version's")
+            err = max(err, max_abs_err(pr, resps))
+        def d(a):
+            return torch.as_tensor(a).to(dev)
+
+        for j, (kh, hc, lc, now, packed) in enumerate(self.k2):
+            sketch, pp = multi_step(sketch, d(kh), d(hc), d(lc), now)
+            if not torch.equal(pp, packed):
+                raise AssertionError(f"K2 dispatch {j}: outputs differ "
+                                     "from the plain version's")
+            err = max(err, max_abs_err(pp, packed))
+        torch.cuda.synchronize()
+        if (serve_kernel.launches, cms_kernel.launches) != before:
+            raise AssertionError("the plain replay launched a kernel")
+        for label, live in self.tables.items():
+            if not tables_equal(live, starts[label]):
+                raise AssertionError(f"the {label} table differs from the "
+                                     "plain replay's")
+        if self.sb is not None and not sketch_equal(self.sb.state, sketch):
+            raise AssertionError("the sketch differs from the plain "
+                                 "replay's")
+        claims = [self.be.claim] + ([self.eng.cache_claim]
+                                    if self.eng is not None else [])
+        for claim in claims:
+            if claim is not None and not bool(
+                    (claim == serve_kernel.INT32_MAX).all()):
+                raise AssertionError("claim words not restored")
+        return err
+
+
+def mesh_warm(be, ref, dev, label, keys=None) -> None:
+    """Warm a mesh backend to `keys` (WARM_KEYS) live synthetic keys
+    through K1, token:leaky 2:1, each fingerprint placed in its own shard's
+    lanes (hash bits 32-33 are the shard of a 4-shard mesh); the same
+    fingerprints, as rounds of BATCH lanes, go into the single-table
+    `ref` when one is given.  The rows are stamped a minute before the
+    clock: a full bucket's least recently touched row is then a warm row,
+    never a row of the traffic, whichever layout the bucket has (a tie of
+    stamps breaks by way index, which differs between the mesh's buckets
+    and the single table's)."""
+    import torch
+
+    keys = WARM_KEYS if keys is None else keys
+    n, k = be.n, 8
+    rng = np.random.default_rng(SEED + 1601)
+    now = be.clock.millisecond_now() - 60_000
+    seq = be.ring_seq_init()
+    rseq = ref.ring_seq_init() if ref is not None else None
+    fed, launches, t0 = 0, 0, time.perf_counter()
+    mask = np.int64(3 << 32)
+    while True:
+        if fed >= keys and be.occupancy() >= keys and (
+                ref is None or ref.occupancy() >= keys):
+            break
+        h = rng.integers(-(2**63), 2**63 - 1, size=(k, n, BATCH),
+                         dtype=np.int64, endpoint=True)
+        h = (h & ~mask) | (np.arange(n, dtype=np.int64)[None, :, None] << 32)
+        h[h == 0] = 1 << 40
+        hd = torch.from_numpy(h).to(dev)
+        qs = torch.zeros((k, 12, n, BATCH), dtype=torch.int64, device=dev)
+        qs[:, 0] = hd
+        qs[:, 1] = 1                                   # hits
+        qs[:, 2] = 100                                 # limit
+        qs[:, 3] = 3_600_000                           # live through the run
+        qs[:, 4] = (hd % 3 == 0).to(torch.int64)       # token:leaky 2:1
+        qs[:, 5] = 100                                 # burst
+        qs[:, 10] = 1                                  # active
+        nows = torch.full((k,), now, dtype=torch.int64, device=dev)
+        _, seq = be.ring_step_dispatch(qs, nows, seq)
+        if ref is not None:
+            rq = qs.permute(0, 2, 1, 3).reshape(k * n, 12, BATCH)
+            _, rseq = ref.persistent_serve_dispatch(
+                rq.contiguous(), torch.full((k * n,), now, dtype=torch.int64,
+                                            device=dev), rseq)
+        fed += k * n * BATCH
+        launches += 1
+        if fed >= keys:
+            k = 1
+    torch.cuda.synchronize()
+    log(f"{label}: fed {fed} fingerprints in {launches} mesh dispatches "
+        f"({launches * n} K1 launches) in {time.perf_counter() - t0:.3f} s; "
+        f"shard occupancy {be.shard_occupancy()} of {be.local_slots} slots "
+        f"each" + (f"; the single table's occupancy {ref.occupancy()}"
+                   if ref is not None else ""))
+
+
+def phase_mesh_library(dev, smi, name, clock):
+    """16a: the library mesh at full width against a single-table
+    TorchBackend fed the same requests on the same frozen clock, every
+    per-shard launch replayed through the plain version, timed.  Returns
+    (mesh backend, reference backend, max_abs_err)."""
+    import torch
+
+    from gubernator_tpu_torch.core.config import DeviceConfig
+    from gubernator_tpu_torch.ops.kernels import serve_kernel
+    from gubernator_tpu_torch.ops.ring import ring_step
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.parallel.mesh import claim_view, shard_view
+    from gubernator_tpu_torch.parallel.sharded import (
+        MeshBackend,
+        mesh_ring_step,
+    )
+    from gubernator_tpu_torch.runtime.backend import TorchBackend
+
+    n = MESH_SHARDS
+    be = MeshBackend(DeviceConfig(num_slots=NUM_SLOTS, ways=WAYS,
+                                  batch_size=BATCH, num_shards=n,
+                                  platform=dev.type), clock=clock)
+    ref = TorchBackend(DeviceConfig(num_slots=NUM_SLOTS, ways=WAYS,
+                                    batch_size=BATCH, platform=dev.type),
+                       clock=clock)
+    be.warmup()
+    ref.warmup()
+    mesh_warm(be, ref, dev, "phase 16a")
+    start = clone_table(be.table)
+    batches = make_batches(np.random.default_rng(SEED + 1600))
+    rec = MeshRecorder(be)
+    got, check_s = [], 0.0
+    try:
+        serve_kernel.launches = 0
+        for j, reqs in enumerate(batches):
+            clock.freeze(T0_NS + j * 250_000_000)
+            t0 = time.perf_counter()
+            got.append(be.check(reqs))
+            check_s += time.perf_counter() - t0
+        k1n = serve_kernel.launches
+    finally:
+        rec.close()
+    if k1n != CHECK_BATCHES * n or rec.k1_launches() != k1n:
+        raise AssertionError(f"16a: {k1n} K1 launches ({rec.k1_launches()} "
+                             f"recorded) for {CHECK_BATCHES} check() calls "
+                             f"on {n} shards")
+    MESH_PATHS["serve_kernel"]["phase 16a"] = k1n
+    for j, reqs in enumerate(batches):
+        clock.freeze(T0_NS + j * 250_000_000)
+        want = ref.check(reqs)
+        if [resp_tuple(r) for r in got[j]] != [resp_tuple(r) for r in want]:
+            diff = [(reqs[i].hash_key(), resp_tuple(a), resp_tuple(b))
+                    for i, (a, b) in enumerate(zip(got[j], want))
+                    if resp_tuple(a) != resp_tuple(b)]
+            raise AssertionError(f"16a check() {j}: {len(diff)} answers "
+                                 f"differ from the single table's (key, "
+                                 f"mesh, single): {diff[:4]}")
+    t0 = time.perf_counter()
+    err = rec.replay(dev, {"auth": start})
+    log(f"phase 16a: {CHECK_BATCHES} check() x {BATCH} requests on "
+        f"{n} shards: {k1n} K1 launches (one a shard a check()), every "
+        f"answer equal to the single-table TorchBackend's on the same "
+        f"clock; {len(rec.events)} per-shard launches replayed through the "
+        f"plain version on a copy of the shards' views in "
+        f"{time.perf_counter() - t0:.3f} s: responses, table, claim words "
+        f"bit-exact; occupancy {be.occupancy()}")
+
+    # Timing: check 0's launches again, per shard and as one dispatch.
+    l2_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = l2_buf.zero_
+    first = [ev for ev in rec.events[:n]]
+    nows, k = first[0][4], first[0][3].shape[0]
+    seq1 = torch.zeros(1, dtype=torch.int64, device=dev)
+    scratch = be._scratch_for(k, first[0][3].shape[2])
+    per_shard, bounds = [], []
+    for _, _, s, qs, _, _, resps in first:
+        view, claim = shard_view(be.table, s, n), claim_view(be.claim, s, n)
+        per_shard.append(cuda_ms(lambda: serve_kernel.persistent_serve_step(
+            view, qs, nows, seq1, WAYS, claim, scratch), 10, flush))
+        bounds.append(useful_bytes(qs, resps, WAYS) / hbm_bytes_per_s(name)
+                      * 1e3)
+    block = torch.stack([ev[3] for ev in first], dim=2).contiguous()
+    seqn = torch.zeros(n, dtype=torch.int64, device=dev)
+    grid_ms = cuda_ms(lambda: mesh_ring_step(
+        be.table, block, nows, seqn, n, WAYS, be.claim, scratch), 10, flush)
+    plain_ms = cuda_ms(lambda: [ring_step(shard_view(start, ev[2], n),
+                                          ev[3], nows, seq1, WAYS)
+                                for ev in first], 2, flush)
+    _, busy, by_name = profile_device(lambda: mesh_ring_step(
+        be.table, block, nows, seqn, n, WAYS, be.claim, scratch))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"phase 16a ({smi}): torch.profiler, one dispatch of {n}: device "
+        f"busy {busy:.4f} ms; " + "; ".join(f"{k} {v:.4f} ms" for k, v in top)
+        if by_name else "phase 16a: torch.profiler recorded no device time "
+        "for one dispatch")
+    log(f"phase 16a ({smi}): K1 on one shard's views (qs "
+        f"{list(first[0][3].shape)}, L2 flushed), ms per launch by shard: "
+        + ", ".join(f"{m:.4f}" for m in per_shard)
+        + f"; one dispatch of {n} (the block's shard-major copy included) "
+        f"{grid_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{sum(bounds):.4f} ms (by shard "
+        + ", ".join(f"{b:.4f}" for b in bounds) + ")")
+    per = 1e3 / CHECK_BATCHES
+    clock.freeze(T0_NS + CHECK_BATCHES * 250_000_000)
+    wall_ms, busy_ms, by_name = profile_check(be, batches[0])
+    busy = (f"device busy {busy_ms:.4f} ms ({busy_ms / wall_ms:.4%})"
+            if busy_ms > 0 else "device busy share not measured (no "
+            "device events)")
+    log(f"phase 16a ({smi}): check() of {BATCH} requests on {n} shards: "
+        f"{check_s * per:.3f} ms mean (host clock); torch.profiler, one "
+        f"check(): {wall_ms:.3f} ms wall, {busy}")
+    MESH_TIMES.update(per_shard_ms=per_shard, grid_ms=grid_ms,
+                      plain_ms=plain_ms, bound_ms=sum(bounds))
+    del l2_buf, start, rec
+    return be, ref, err
+
+
+
+def global_reqs(rng, ids):
+    """GLOBAL requests on the keys `ids` (token:leaky 2:1; each key's
+    parameters fixed)."""
+    from gubernator_tpu_torch.core.types import (
+        Algorithm,
+        Behavior,
+        RateLimitReq,
+    )
+
+    hits = rng.choice([1, 1, 1, 2, 3], len(ids))
+    return [RateLimitReq(
+        name="glob", unique_key=f"g{i}", hits=int(h),
+        limit=(100, 1000, 10_000)[i % 3], duration=60_000,
+        algorithm=(Algorithm.LEAKY_BUCKET if i % 3 == 2
+                   else Algorithm.TOKEN_BUCKET),
+        behavior=Behavior.GLOBAL) for i, h in zip(ids.tolist(), hits)]
+
+
+def cache_rows(be, eng, keys, now):
+    """(status, limit, remaining, expire_at) of each key's row in the
+    engine's cache, read at its serving shard."""
+    import torch
+
+    from gubernator_tpu_torch.core.hashing import key_hash64
+
+    with eng._lock:
+        found, slot = be._probe_grid(
+            keys, [key_hash64(k) for k in keys], now,
+            table=eng.cache_table, route=eng._arrival)
+        at = torch.from_numpy(slot).to(eng.cache_table.key.device)
+        cols = [getattr(eng.cache_table, f)[at].cpu().numpy()
+                for f in ("status", "limit", "remaining", "expire_at")]
+    return [tuple(int(c[i]) for c in cols) if found[i] else None
+            for i in range(len(keys))]
+
+
+def row_tuples(items, keys):
+    """The state of each key's CacheItem, comparable across backends."""
+    return [None if k not in items else (
+        int(items[k].algorithm), items[k].limit, items[k].duration, float(items[k].remaining),
+        items[k].created_at, int(items[k].status), items[k].burst,
+        items[k].expire_at) for k in keys]
+
+
+def phase_mesh_global(dev, smi, be, ref, clock):
+    """16b: the collective GLOBAL engine (psum) over 16a's mesh; after
+    each sync the auth rows equal the single table's after the same
+    per-sync aggregates, and the cache rows its hits=0 answers; one more
+    window under a2a on cloned tables agrees with psum; every K1 launch and
+    broadcast upsert replayed.  Returns max_abs_err."""
+    from dataclasses import replace as dc_replace
+
+    import torch
+
+    from gubernator_tpu_torch.ops.kernels import serve_kernel
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.parallel.global_sync import GlobalEngine
+    from gubernator_tpu_torch.parallel.sharded import MeshBackend
+
+    n = be.n
+    eng = GlobalEngine(be, batch_limit=1 << 30)  # the script syncs at 1000
+    eng.warmup()
+    rng = np.random.default_rng(SEED + 1602)
+    w = 1.0 / np.arange(1, MESH_GLOBAL_KEYS + 1) ** MESH_ZIPF_S
+    w /= w.sum()
+    starts = {"auth": clone_table(be.table),
+              "cache": clone_table(eng.cache_table)}
+    rec = MeshRecorder(be, eng)
+    pend, seen, stats = {}, {}, []
+    eng_launches = 0
+    t_now = T0_NS + 10 * 250_000_000
+
+    def do_sync():
+        nonlocal eng_launches
+        keys = list(pend)
+        before, ev0 = serve_kernel.launches, rec.k1_launches("auth")
+        t0 = time.perf_counter()
+        if eng.sync() != len(keys):
+            raise AssertionError("16b: the sync missed pending keys")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        eng_launches += serve_kernel.launches - before
+        stats.append((ms, len(keys), rec.k1_launches("auth") - ev0))
+        ref.check([dc_replace(r, hits=h) for r, h in pend.values()])
+        answers = ref.check([dc_replace(r, hits=0) for r, _ in pend.values()])
+        now = clock.millisecond_now()
+        want = [(int(a.status), a.limit, a.remaining, a.reset_time)
+                for a in answers]
+        if cache_rows(be, eng, keys, now) != want:
+            raise AssertionError(f"16b sync {len(stats)}: cache rows differ "
+                                 "from the broadcast answers")
+        names = list(seen)
+        if row_tuples(be.read_items_bulk(names), names) != row_tuples(
+                ref.read_items_bulk(names), names):
+            raise AssertionError(f"16b sync {len(stats)}: auth rows differ "
+                                 "from the single table's")
+        pend.clear()
+
+    try:
+        serve_kernel.launches = 0
+        for call in range(MESH_GLOBAL_CALLS):
+            t_now += 5_000_000
+            clock.freeze(t_now)
+            reqs = global_reqs(rng, rng.choice(MESH_GLOBAL_KEYS,
+                                               MESH_GLOBAL_REQS, p=w))
+            first = {}
+            for r in reqs:
+                key = r.hash_key()
+                seen[key] = r
+                a = first.get(key)
+                first[key] = (r if a is None else a[0],
+                              r.hits + (0 if a is None else a[1]))
+            for key, (r, h) in first.items():
+                cur = pend.get(key)
+                pend[key] = (r, h + (cur[1] if cur else 0))
+            before = serve_kernel.launches
+            eng.check(reqs)
+            eng_launches += serve_kernel.launches - before
+            if len(eng.pending) >= MESH_GLOBAL_LIMIT:
+                do_sync()
+        if pend:
+            do_sync()
+    finally:
+        rec.close()
+    MESH_PATHS["serve_kernel"]["phase 16b"] = eng_launches
+    if not stats or eng_launches == 0:
+        raise AssertionError("16b: no sync or no K1 launch")
+    t0 = time.perf_counter()
+    err = rec.replay(dev, starts)
+    ms = [s[0] for s in stats]
+    log(f"phase 16b ({smi}): {MESH_GLOBAL_CALLS} GLOBAL check() x "
+        f"{MESH_GLOBAL_REQS} over {MESH_GLOBAL_KEYS} keys (Zipf s = "
+        f"{MESH_ZIPF_S}) with {len(stats)} psum syncs: ms per sync mean "
+        f"{np.mean(ms):.3f}, p50 {np.percentile(ms, 50):.3f}, max "
+        f"{max(ms):.3f} (host clock, the write-through-free sync); keys per "
+        f"sync mean {np.mean([s[1] for s in stats]):.1f}; K1 launches per "
+        f"sync {sorted(set(s[2] for s in stats))} ({n} a chunk); engine K1 "
+        f"launches {eng_launches}; after every sync the auth rows equal the "
+        f"single table's and the cache rows its hits=0 answers; "
+        f"{len(rec.events)} events (K1 launches and broadcast upserts) "
+        f"replayed bit-exact in {time.perf_counter() - t0:.3f} s")
+    del starts, rec
+
+    # One more window under a2a on cloned tables: every answer agrees.
+    be2 = MeshBackend(be.cfg, clock=clock)
+    be2.table = clone_table(be.table)
+    eng2 = GlobalEngine(be2, collective="a2a", batch_limit=1 << 30)
+    eng2.cache_table = clone_table(eng.cache_table)
+    reqs_all = []
+    for call in range(MESH_A2A_CALLS):
+        t_now += 5_000_000
+        clock.freeze(t_now)
+        reqs = global_reqs(rng, rng.choice(MESH_GLOBAL_KEYS,
+                                           MESH_GLOBAL_REQS, p=w))
+        reqs_all += reqs
+        a, b = eng.check(reqs), eng2.check(reqs)
+        if [resp_tuple(x) for x in a] != [resp_tuple(x) for x in b]:
+            raise AssertionError("16b: a2a answers differ from psum's")
+    synced = (eng.sync(), eng2.sync())
+    keys = sorted({r.hash_key() for r in reqs_all})
+    now = clock.millisecond_now()
+    if synced[0] != synced[1] or cache_rows(be, eng, keys, now) != \
+            cache_rows(be2, eng2, keys, now) or row_tuples(
+                be.read_items_bulk(keys), keys) != row_tuples(
+                be2.read_items_bulk(keys), keys):
+        raise AssertionError("16b: the a2a sync disagrees with psum")
+    log(f"phase 16b: one more window ({MESH_A2A_CALLS} calls, {synced[0]} "
+        f"keys) synced under psum and under a2a on cloned tables: every "
+        f"answer, cache row and auth row agrees")
+    del be2, eng2
+    return err, eng
+
+
+def mesh_rpc_requests(rng, n_rpc: int, first_key: int):
+    """GetRateLimits payloads of RPC_REQS requests: 1/8 GLOBAL over
+    MESH_DAEMON_GLOBAL_KEYS keys, 1/8 on the sketch tier's name, the rest
+    the exact tier's mix (rpc_requests)."""
+    from gubernator_tpu_torch.proto import gubernator_pb2 as pb
+
+    out = []
+    for p in rpc_requests(rng, n_rpc, first_key=first_key):
+        msg = pb.GetRateLimitsReq.FromString(p)
+        glob = np.flatnonzero(
+            (rng.random(RPC_REQS) < 1 / 7)
+            & np.array([r.name != "cms" for r in msg.requests]))
+        ids = rng.integers(0, MESH_DAEMON_GLOBAL_KEYS, len(glob))
+        for j, i in zip(glob.tolist(), ids.tolist()):
+            r = msg.requests[j]
+            r.name, r.unique_key, r.hits = "glob", f"g{i}", 1
+            r.limit, r.duration, r.behavior = 100_000, 60_000, 2
+            r.algorithm = int(i % 3 == 2)
+        out.append(msg.SerializeToString())
+    return out
+
+
+def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
+    """16c: one serve mode on a mesh daemon built from GUBER_MESH_WAYS,
+    with the sketch tier; every K1 and K2 dispatch recorded and replayed
+    after the daemon stops.  Returns max_abs_err."""
+    import os
+
+    import torch
+
+    from gubernator_tpu_torch.core.config import mesh_ways_from_env
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+    from gubernator_tpu_torch.ops.sketch import clone_sketch
+    from gubernator_tpu_torch.ops.state import clone_table
+    from gubernator_tpu_torch.parallel.sharded import MeshBackend
+
+    os.environ["GUBER_MESH_WAYS"] = str(MESH_SHARDS)
+    c = start_daemons(dev, 1, slots, mode, shards=mesh_ways_from_env())
+    rec = None
+    try:
+        d = c.daemons[0]
+        be, eng = d.service.backend, d.service.global_engine
+        sb, fp = d.service.sketch_backend, d.fastpath
+        want = "megaround" if mode == "persistent" else mode
+        if (not isinstance(be, MeshBackend) or eng is None
+                or be.device.type != dev.type
+                or fp.effective_serve_mode != want):
+            raise AssertionError(f"16c {mode}: {type(be).__name__} on "
+                                 f"{be.device}, serving "
+                                 f"{fp.effective_serve_mode}")
+        if mode == "persistent":
+            log(f"{label}: GUBER_SERVE_MODE=persistent on the mesh serves "
+                f"{fp.effective_serve_mode}: {fp.persistent_status}")
+        if warm:
+            mesh_warm(be, None, dev, label)
+        torch.cuda.synchronize()
+        starts = {"auth": clone_table(be.table),
+                  "cache": clone_table(eng.cache_table)}
+        sketch = clone_sketch(sb.state)
+        rng = np.random.default_rng(seed)
+        per_client = [mesh_rpc_requests(rng, MESH_RPCS, 1 + 10_000 * j)
+                      for j in range(clients)]
+        rec = MeshRecorder(be, eng, sb)
+        serve_kernel.launches = cms_kernel.launches = 0
+        wall, lat, counts = c.run(drive_rpcs(d.grpc_address, per_client),
+                                  timeout=900)
+        k1, k2 = serve_kernel.launches, cms_kernel.launches
+        n_req = clients * MESH_RPCS * RPC_REQS
+        if sum(counts) != n_req or k1 == 0 or k2 == 0:
+            raise AssertionError(f"16c {mode}: {sum(counts)} of {n_req} "
+                                 f"answers, K1 launches {k1}, K2 {k2}")
+        MESH_PATHS["serve_kernel"][f"phase 16c {mode}"] = k1
+        MESH_PATHS["cms_kernel"][f"phase 16c {mode}"] = k2
+        dvars = http_json(d.http_address, "/debug/vars")
+        occ = dvars["backend"].get("shard_occupancy")
+        if (not occ or len(occ) != MESH_SHARDS
+                or sum(occ) != be.occupancy()):
+            raise AssertionError(f"16c {mode}: /debug/vars shard_occupancy "
+                                 f"{occ}, occupancy {be.occupancy()}")
+        p50, p99, _ = percentiles_ms(lat)
+        lanes = fp.debug_vars()["lanes"]
+        log(f"{label} ({smi}): {mode} mesh daemon ({MESH_SHARDS} shards from "
+            f"GUBER_MESH_WAYS, {slots} slots): {clients} clients x "
+            f"{MESH_RPCS} RPCs x {RPC_REQS} (1/8 GLOBAL over "
+            f"{MESH_DAEMON_GLOBAL_KEYS} keys, 1/8 cms): {n_req / wall:.1f} "
+            f"decisions/s; per-RPC p50 {p50:.3f} ms, p99 {p99:.3f} ms (host "
+            f"clock); K1 launches {k1}, K2 launches {k2}; engine syncs "
+            f"{eng.syncs}; /debug/vars shard_occupancy {occ} (sum = "
+            f"occupancy); fallbacks {fp.fallbacks}; lanes: " + "; ".join(
+                f"{lane} {v['drains']} merges, dispatch "
+                f"{v['dispatch_ms_total']:.1f}, fetch "
+                f"{v['fetch_ms_total']:.1f}, waiting for a fetch slot "
+                f"{v['bubble_ms_total']:.1f} ms"
+                for lane, v in lanes.items()))
+        if fp.fallbacks or (fp._ring is not None and (
+                fp._ring.seq_mismatches or sum(fp.blocking_fetches.values()))):
+            raise AssertionError(f"16c {mode}: fallbacks {fp.fallbacks}, "
+                                 f"blocking fetches {fp.blocking_fetches}")
+        require_planes_inactive(f"{label} ({mode})", c.daemons)
+        c.stop()  # the final sync runs at close and is recorded
+        c = None
+        t0 = time.perf_counter()
+        rec.close()
+        err = rec.replay(dev, starts, sketch)
+        log(f"{label}: {mode}: {rec.k1_launches()} per-shard K1 launches, "
+            f"{len(rec.k2)} K2 dispatches and "
+            f"{len(rec.events) - rec.k1_launches()} broadcast upserts "
+            f"replayed through the plain versions after the daemon stopped "
+            f"({time.perf_counter() - t0:.3f} s): responses, auth and cache "
+            f"tables, sketch, claim words bit-exact")
+        rec = None
+        return err
+    finally:
+        if rec is not None:
+            rec.close()
+        if c is not None:
+            c.stop()
+        os.environ.pop("GUBER_MESH_WAYS", None)
+
+
+def phase_mesh(dev, smi, name) -> float:
+    """Phase 16: the sharded table on one card at the north star's mesh
+    deployment.  Returns max_abs_err over every replay."""
+    import torch
+
+    from gubernator_tpu_torch.core.clock import Clock
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    clock = Clock()
+    clock.freeze(T0_NS)
+    be, ref, err = phase_mesh_library(dev, smi, name, clock)
+    e, eng = phase_mesh_global(dev, smi, be, ref, clock)
+    err = max(err, e)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del be, ref, eng
+    torch.cuda.empty_cache()
+    log(f"phase 16a-b ({smi}): peak device memory {peak:.2f} GiB (the mesh "
+        f"table, the engine's cache, the single table and the replay "
+        f"copies); freed before 16c")
+    torch.cuda.reset_peak_memory_stats()
+    for j, (mode, slots, clients, warm) in enumerate((
+            ("pipelined", DAEMON_SLOTS, MESH_CLIENTS, True),
+            ("megaround", SMALL_SLOTS, MESH_SMALL_CLIENTS, False),
+            ("persistent", SMALL_SLOTS, MESH_SMALL_CLIENTS, False))):
+        err = max(err, mesh_mode_run(dev, smi, mode, slots, clients, warm,
+                                     SEED + 1610 + j, "phase 16c"))
+    log(f"phase 16 ({smi}): {time.perf_counter() - t_phase:.1f} s; peak "
+        f"device memory in 16c {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return err
+
+
 STATE_OP_SOURCES = {
     "load_rows": ("gubernator_tpu_torch/ops/step.py",
                   "gubernator_tpu/ops/step.py:511"),
@@ -3610,8 +4253,13 @@ def main() -> int:
                phase_planes(dev, smi, state),
                phase_regions(dev, smi, state))
     state.close()
-    k1["max_abs_err"] = max(k1["max_abs_err"], derr)
-    k2["max_abs_err"] = max(k2["max_abs_err"], derr)
+    merr = phase_mesh(dev, smi, name)
+    k1["max_abs_err"] = max(k1["max_abs_err"], derr, merr)
+    k2["max_abs_err"] = max(k2["max_abs_err"], derr, merr)
+    # Phase 16's launches by path, beside the main path's count.
+    for k in (k1, k2):
+        k["launches_by_path"] = {"main path": k["launches"],
+                                 **MESH_PATHS[k["name"]]}
     # The result lines carry no time prefix: they are parsed as JSON.
     print(json.dumps(state_ops_line(times)), flush=True)
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

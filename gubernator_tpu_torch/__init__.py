@@ -8,7 +8,11 @@ version (ops/ring.py) when the caller asks for the CPU.  The approximate
 tier (runtime/sketch_backend.SketchBackend) answers its limit names from a
 sliding-window count-min sketch, one launch of a second hand-written kernel
 (csrc/cms_kernel.cu) per merge, or its plain version (ops/sketch.py) on the
-CPU.  The daemon (daemon.py, `python -m gubernator_tpu_torch.cli.server`)
+CPU.  A sharded table (DeviceConfig.num_shards > 1) is served by the mesh
+backend (parallel/sharded.MeshBackend: the shards are slices of one table,
+each served through the same kernel) with its collective GLOBAL engine
+(parallel/global_sync.GlobalEngine).  The daemon (daemon.py, `python -m
+gubernator_tpu_torch.cli.server`)
 serves both over gRPC and HTTP through the compiled fast lane
 (runtime/fastpath.py) in every serve mode.  The client SDK (client.py:
 V1Client, AsyncV1Client, FastV1Client, LeasedClient) talks to it.  The

@@ -2,8 +2,8 @@
 
 The planes' configs parse the GUBER_* surface as the JAX package does, with
 its defaults: the hot-key, lease, reshard and gubstat planes on, the cold tier
-and the region plane off.  Only a sharded table (num_shards > 1) is refused,
-by DeviceConfig (ROADMAP.md, "What the daemon still refuses").
+and the region plane off.  A sharded table (num_shards > 1, GUBER_MESH_WAYS)
+is served by the mesh backend (parallel/sharded.py).
 
 Mirrors the reference's struct + `GUBER_*` env-var config (config.go:44-459,
 example.conf), extended with the engine's own knobs (slot-table geometry, batch
@@ -784,27 +784,37 @@ class DeviceConfig:
     batch_size: int = 1024
     platform: Optional[str] = None
     batch_tiers: Optional[Tuple[int, ...]] = None
-    # The mesh axis (the JAX package's sharded table).  The port serves
-    # one table on one card; a mesh is ROADMAP queue 1 item 1.
+    # The mesh axis: the table's slots split into `num_shards` contiguous
+    # shards, each owning the keys whose fingerprint routes to it
+    # (parallel/mesh.shard_of_hash).  On one card the shards are slices
+    # of one table (parallel/sharded.MeshBackend).
     num_shards: int = 1
+    # GLOBAL replicated-serving cache table size (mesh GlobalEngine only).
+    # None = num_slots, i.e. the engine DOUBLES the table's device memory;
+    # size it to the expected GLOBAL working set to reclaim that memory.
+    # Same divisibility / power-of-two-buckets-per-shard rules as
+    # num_slots.
+    global_cache_slots: Optional[int] = None
 
     def __post_init__(self) -> None:
-        if self.num_shards != 1:
+        n = max(self.num_shards, 1)
+        if self.num_slots % (self.ways * n) != 0:
             raise ValueError(
-                f"num_shards={self.num_shards}: a sharded table is not "
-                "ported yet (ROADMAP queue 1 item 1, the mesh and collective "
-                "GLOBAL); the port serves num_shards=1"
+                "num_slots must be divisible by ways*num_shards "
+                f"(got {self.num_slots}, {self.ways}, {self.num_shards})"
             )
-        if self.num_slots % self.ways != 0:
-            raise ValueError(
-                "num_slots must be divisible by ways "
-                f"(got {self.num_slots}, {self.ways})"
-            )
-        nb = self.num_slots // self.ways
+        if self.global_cache_slots is not None:
+            if self.global_cache_slots % (self.ways * n) != 0:
+                raise ValueError(
+                    "global_cache_slots must be divisible by "
+                    "ways*num_shards (got "
+                    f"{self.global_cache_slots}, {self.ways}, "
+                    f"{self.num_shards})"
+                )
+        nb = self.num_slots // (self.ways * n)
         if nb & (nb - 1):
-            raise ValueError(
-                f"num_slots // ways ({nb}) must be a power of two"
-            )
+            what = "num_slots // ways" if n == 1 else "buckets per shard"
+            raise ValueError(f"{what} ({nb}) must be a power of two")
         if self.batch_size <= 0:
             raise ValueError(f"batch_size must be positive ({self.batch_size})")
 
@@ -1242,9 +1252,9 @@ def mesh_ways_from_env() -> int:
     spelling for "shards mapped onto mesh axes"; GUBER_TPU_NUM_SHARDS
     stays as the geometry-level alias).  Returns 0 when unset so the
     caller can defer to the alias; a SET value must be >= 1 — a zero or
-    negative mesh is a config mistake rejected at startup, and a count
-    past the attached device set is rejected when the mesh is built
-    (parallel/mesh.make_mesh names the shortfall)."""
+    negative mesh is a config mistake rejected at startup.  On one card
+    the shards are slices of one table (parallel/sharded.MeshBackend), so
+    any count whose geometry DeviceConfig accepts is served."""
     raw = _env("GUBER_MESH_WAYS")
     if not raw:
         return 0

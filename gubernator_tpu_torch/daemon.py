@@ -715,6 +715,26 @@ class Daemon:
                 self.service.backend.occupancy()
             )
             self.metrics.cache_size.set(self.service.backend.occupancy())
+            if self.service.global_engine is not None:
+                self.metrics.global_cache_occupancy.set(
+                    self.service.global_engine.cache_occupancy()
+                )
+            # Per-shard mesh gauges: occupancy skew and ring sequence
+            # words, refreshed at scrape like the aggregate occupancy.
+            shard_occ = getattr(
+                self.service.backend, "shard_occupancy", None
+            )
+            if shard_occ is not None:
+                for s, occ in enumerate(shard_occ()):
+                    self.metrics.shard_occupancy.labels(
+                        shard=str(s)
+                    ).set(occ)
+            fp = self.fastpath
+            if fp is not None and fp._ring is not None:
+                for s, word in enumerate(fp._ring.seq_shards):
+                    self.metrics.shard_ring_seq.labels(
+                        shard=str(s)
+                    ).set(word)
             # Per-peer rolling error windows (the HealthCheck signal,
             # peer_client.last_errors) as scrape-time gauges.
             for peer in (
@@ -791,6 +811,11 @@ class Daemon:
                 "occupancy": be.occupancy(),
             }
             out["backend"]["device"] = str(be.device)
+            # Mesh backends: the per-shard skew view (the per-shard ring
+            # sequence words ride the fast lane's `ring` block).
+            shard_occ = getattr(be, "shard_occupancy", None)
+            if shard_occ is not None:
+                out["backend"]["shard_occupancy"] = shard_occ()
             out["inflight_checks"] = s._inflight_checks
             out["global"] = {
                 "async_sends": s.global_mgr.async_sends,

@@ -98,10 +98,10 @@ def tier_of(active: np.ndarray, tiers: Sequence[int]) -> int:
 def rounds_to_qs(
     rounds: Sequence[DeviceBatch], tiers: Sequence[int]
 ) -> np.ndarray:
-    """Stack rounds into one int64[k, 12, t] block at the widest tier any of
-    them needs."""
+    """Stack rounds into one int64[k, 12, t] block (int64[k, 12, n, t] for
+    [n, B] grid rounds) at the widest tier any of them needs."""
     t = max(tier_of(db.active, tiers) for db in rounds)
-    return np.stack([pack_batch_q(db)[:, :t] for db in rounds])
+    return np.stack([pack_batch_q(db)[..., :t] for db in rounds])
 
 
 class Tally(NamedTuple):
@@ -155,12 +155,14 @@ class PendingFetch:
 
 
 def _packed_resp_dict(a: np.ndarray) -> Dict[str, np.ndarray]:
-    """[9, B] packed response -> named host columns."""
-    return {f: a[i] for i, f in enumerate(RESP_ROWS)}
+    """[9, B] packed response (or [n, 9, B], a shard grid's) -> named host
+    columns ([B] or [n, B])."""
+    return {f: a[..., i, :] for i, f in enumerate(RESP_ROWS)}
 
 
 def packed_rounds_to_host(resps) -> List[Dict[str, np.ndarray]]:
-    """int64[k, 9, B] responses -> per-round host dicts, in ONE
+    """int64[k, 9, B] responses (int64[k, n, 9, B] on a shard grid) ->
+    per-round host dicts, in ONE
     device-to-host copy.  `resps` is a device tensor (a blocking copy) or
     a PendingFetch of one (waits on its own event)."""
     if isinstance(resps, PendingFetch):
@@ -188,16 +190,19 @@ def unmarshal_responses(
     positions: Sequence[tuple],
     round_host: List[Dict[str, np.ndarray]],
 ) -> Tuple[List[RateLimitResp], Tally]:
-    """Per-request RateLimitResp from packed positions (round, lane).
+    """Per-request RateLimitResp from packed positions: (round, lane), or
+    (round, shard, lane) on a shard grid.
 
     The requested lanes are gathered with one numpy index per column
     first, so only they are converted to Python ints."""
-    pos = np.asarray(positions, dtype=np.int64).reshape(n_reqs, 2)
+    width = len(positions[0]) if n_reqs else 2
+    pos = np.asarray(positions, dtype=np.int64).reshape(n_reqs, width)
     ok = np.flatnonzero(pos[:, 0] >= 0)
+    at = tuple(pos[ok].T)
     cols = {}
     for f in ("status", "limit", "remaining", "reset_time", "persisted",
               "found"):
-        v = np.stack([r[f] for r in round_host])[pos[ok, 0], pos[ok, 1]] \
+        v = np.stack([r[f] for r in round_host])[at] \
             if len(ok) else np.zeros(0, dtype=np.int64)
         cols[f] = v
     status = cols["status"].tolist()
@@ -289,8 +294,10 @@ class PersistenceHost:
     The backend provides the device hooks `_found_mask(keys, hashes, now)`
     (bool residency per unsigned hash; caller holds `_lock`),
     `_bulk_upsert(rows, hashes, now)` (caller holds `_lock`),
-    `_read_items_locked(keys)`, `key_column()` and `snapshot()`, plus the
-    attributes `cfg`, `clock`, `store`, `_keymap` and `_lock`."""
+    `_gather_rows_dispatch(h64, now)` / `_gather_rows_finish(token, m)`,
+    `_read_items_locked(keys)`, `_columns_fetch(fields)`, `key_column()`
+    and `snapshot()`, plus the attributes `cfg`, `clock`, `store`,
+    `_keymap` and `_lock`."""
 
     def _maybe_prune_keymap(self) -> None:
         """Bound the fingerprint->key map: the table holds at most
@@ -416,6 +423,114 @@ class PersistenceHost:
             for h, k in zip(hs, keys):
                 km[h] = k
 
+    # -- live slot migration (runtime/reshard.py) ------------------------
+    def key_snapshot(self):
+        """(key int64[S], kind int32[S], expire_at int64[S]) host copies:
+        the reshard plane's remap-delta input (three columns, not the
+        whole table)."""
+        return tuple(
+            self._columns_fetch(("key", "kind", "expire_at")).wait())
+
+    def migrate_extract_rows(self, fps: np.ndarray):
+        """Atomically gather-and-clear the rows for int64 fingerprints
+        `fps`: returns (int64[10, n] in GATHER_ROW_FIELDS order, packed[0]
+        the found mask, float64[n] remaining_f).  Cleared rows read as
+        empty to every probe from the moment the lock releases.
+
+        The generic path (the mesh backend): a row gather plus an
+        expire_at=0 re-upsert in ONE critical section, two dispatches
+        with the same atomicity, over the backend's gather and upsert."""
+        n = len(fps)
+        now = self.clock.millisecond_now()
+        with self._lock:
+            token = self._gather_rows_dispatch(
+                np.asarray(fps, dtype=np.int64), now)
+            packed, rf = self._gather_rows_finish(token, n)
+            hit = np.flatnonzero(packed[0] != 0)
+            if len(hit):
+                rows = [
+                    {
+                        "algo": int(packed[2][j]),
+                        "limit": int(packed[3][j]),
+                        "duration": int(packed[4][j]),
+                        "remaining": int(packed[5][j]),
+                        "remaining_f": float(rf[j]),
+                        "t0": int(packed[6][j]),
+                        "status": int(packed[7][j]),
+                        "burst": int(packed[8][j]),
+                        "expire_at": 0,  # the clear
+                    }
+                    for j in hit
+                ]
+                self._bulk_upsert(rows, [_u64(fps[j]) for j in hit], now)
+        return packed, rf
+
+    def migrate_inject_rows(self, cols: Dict[str, np.ndarray]):
+        """Upsert migrated row columns (BucketRows field names) where the
+        key is absent; MERGE where it is resident: subtract the migrated
+        row's consumed budget from the resident row, clamped at 0 (counters
+        conserved, never inflated).  Returns (injected, merged).
+
+        The generic path (the mesh backend): probe + upsert + a gather /
+        re-upsert merge in one critical section."""
+        n = len(cols["key_hash"])
+        now = self.clock.millisecond_now()
+        h64 = np.asarray(cols["key_hash"], dtype=np.int64)
+        hashes_u = [_u64(h) for h in h64]
+        with self._lock:
+            found = np.asarray(self._found_mask([""] * n, hashes_u, now))
+            absent = np.flatnonzero(~found)
+            if len(absent):
+                self._bulk_upsert(
+                    [
+                        {
+                            "algo": int(cols["algo"][j]),
+                            "limit": int(cols["limit"][j]),
+                            "duration": int(cols["duration"][j]),
+                            "remaining": int(cols["remaining"][j]),
+                            "remaining_f": float(cols["remaining_f"][j]),
+                            "t0": int(cols["t0"][j]),
+                            "status": int(cols["status"][j]),
+                            "burst": int(cols["burst"][j]),
+                            "expire_at": int(cols["expire_at"][j]),
+                        }
+                        for j in absent
+                    ],
+                    [hashes_u[j] for j in absent], now,
+                )
+            idx = np.flatnonzero(found)
+            if len(idx):
+                packed, rf = self._gather_rows_finish(
+                    self._gather_rows_dispatch(h64[idx], now), len(idx))
+                rows = []
+                for k, j in enumerate(idx):
+                    consumed_i = max(
+                        int(cols["limit"][j]) - int(cols["remaining"][j]), 0)
+                    consumed_f = max(
+                        float(cols["limit"][j])
+                        - float(cols["remaining_f"][j]), 0.0)
+                    leaky = int(cols["algo"][j]) == 1
+                    rows.append({
+                        # The RESIDENT row's fields, with the migrated
+                        # consumption folded in.
+                        "algo": int(packed[2][k]),
+                        "limit": int(packed[3][k]),
+                        "duration": int(packed[4][k]),
+                        "remaining": max(
+                            int(packed[5][k])
+                            - (0 if leaky else consumed_i), 0),
+                        "remaining_f": max(
+                            float(rf[k]) - (consumed_f if leaky else 0.0),
+                            0.0),
+                        "t0": int(packed[6][k]),
+                        "status": int(packed[7][k]),
+                        "burst": int(packed[8][k]),
+                        "expire_at": int(packed[9][k]),
+                    })
+                self._bulk_upsert(rows, [hashes_u[j] for j in idx], now)
+        injected = len(absent)
+        return injected, n - injected
+
     def load_items(self, items) -> int:
         """Bulk upsert CacheItems (Loader restore, workers.go:340-426)."""
         from gubernator_tpu_torch.runtime.store import item_to_row_fields
@@ -469,28 +584,15 @@ class PersistenceHost:
         return out
 
 
-class TorchBackend(PersistenceHost):
-    """Single-table rate-limit engine on one torch device."""
+class TorchDeviceHost(PersistenceHost):
+    """The device plumbing every torch engine shares: the table's device
+    and stream, pinned uploads, fetches behind their own events, the
+    tallies and whole-table copies.  The single-table TorchBackend and the
+    sharded parallel/sharded.MeshBackend build on it."""
 
-    def __init__(
-        self,
-        cfg: Optional[DeviceConfig] = None,
-        clock=None,
-        metrics=None,
-        store=None,
-        track_keys: bool = False,
-    ) -> None:
-        self.cfg = cfg or DeviceConfig()
-        # Any object with millisecond_now() and now() will do.
-        self.clock = clock or clock_mod.default_clock()
-        self.metrics = metrics
-        # Store write-through (runtime/store.py) and the fingerprint ->
-        # key map that persistence needs to name device rows.
-        self.store = store
-        self._keymap: Optional[Dict[int, str]] = (
-            {} if (store is not None or track_keys) else None
-        )
-        self._init_write_through()
+    def _init_device(self) -> None:
+        """The table's device and the one stream every launch, copy and
+        event goes on; raises on a CUDA device without a card."""
         # Seconds the last bulk table copy (snapshot, key column) held
         # `_lock`: serving waits that long.
         self.last_copy_lock_s = 0.0
@@ -499,7 +601,7 @@ class TorchBackend(PersistenceHost):
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
-                    "TorchBackend: no CUDA device; pass "
+                    f"{type(self).__name__}: no CUDA device; pass "
                     "DeviceConfig(platform='cpu') to run on the CPU"
                 )
             if self.device.index is None:
@@ -508,23 +610,9 @@ class TorchBackend(PersistenceHost):
                 )
             self.stream = torch.cuda.current_stream(self.device)
         self._lock = threading.Lock()
-        with self._on_stream():
-            self.table: SlotTable = init_table(
-                self.cfg.num_slots, self.device
-            )
-            # The serve kernel's claim words: all INT32_MAX between
-            # launches.
-            self.claim = (
-                new_claim_buffer(self.cfg.num_slots, self.device)
-                if self.stream is not None else None
-            )
         # K1's lane-list scratch, reused in stream order and grown to the
         # largest dispatch seen (warmup launches every serving shape).
         self._scratch: Optional[torch.Tensor] = None
-        self._tiers = resolve_tiers(self.cfg)
-        self.checks = 0
-        self.over_limit = 0
-        self.not_persisted = 0
 
     def _on_stream(self):
         """Run the caller's device work on the backend's stream."""
@@ -567,13 +655,18 @@ class TorchBackend(PersistenceHost):
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _scratch_for(self, k: int, B: int) -> torch.Tensor:
-        """K1's scratch for a dispatch of k rounds of B lanes; caller holds
-        `_lock`.  Grows the kept buffer when a larger dispatch needs it."""
+        """K1's scratch for a dispatch of k rounds of B lanes.  Grows the
+        kept buffer when a larger dispatch needs it.  The buffer returned
+        is the one checked or made here, so two threads that dispatch on
+        different tables (the mesh's auth table and its engine's cache)
+        each get one large enough; launches on the one stream use it in
+        turn."""
         words = serve_kernel.scratch_words(self.device, k, B)
-        if self._scratch is None or self._scratch.numel() < words:
-            self._scratch = None
+        buf = self._scratch
+        if buf is None or buf.numel() < words:
+            self._scratch = buf = None
             try:
-                self._scratch = torch.empty(
+                buf = torch.empty(
                     max(words, 1), dtype=torch.int32, device=self.device)
             except torch.OutOfMemoryError as e:
                 raise ValueError(
@@ -582,31 +675,83 @@ class TorchBackend(PersistenceHost):
                     "GUBER_RING_SLOTS x GUBER_RING_ROUNDS or the batch "
                     "size"
                 ) from e
-        return self._scratch
-
-    def _launch(self, qs, nows, seq) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One serve-kernel dispatch on the backend's stream; caller holds
-        `_lock`.  Returns the un-synced (int64[k, 9, B], seq + k)."""
-        with self._on_stream():
-            qs = self._upload(qs).contiguous()
-            nows = self._upload(nows).contiguous()
-            if not isinstance(seq, torch.Tensor):
-                seq = np.asarray(seq, dtype=np.int64)
-            seq = self._upload(seq)
-            scratch = None
-            if self.stream is not None and qs.shape[0]:
-                scratch = self._scratch_for(qs.shape[0], qs.shape[2])
-            self.table, resps, seq = persistent_serve_step(
-                self.table, qs, nows, seq,
-                ways=self.cfg.ways, claim=self.claim, scratch=scratch,
-            )
-        return resps, seq
+            self._scratch = buf
+        return buf
 
     def _fetch_later(self, *tensors: torch.Tensor) -> PendingFetch:
         """Start copying `tensors` to the host behind their own event;
         caller holds `_lock`, right after the dispatch that made them."""
         with self._on_stream():
             return PendingFetch(tensors, self.stream)
+
+    # -- state -----------------------------------------------------------
+    def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
+                       n: Optional[int] = None) -> PendingFetch:
+        """Start copying table columns [lo, lo + n) to the host.  The host
+        buffers (pinned on the card) are allocated before the lock is
+        taken, so `_lock` is held only while the copies are queued on the
+        backend's stream: they read the columns at that point of the
+        stream, and launches queued later cannot change what they copy.
+        On the CPU the copy itself runs under the lock."""
+        n = self.cfg.num_slots - lo if n is None else n
+        pin = self.stream is not None
+        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
+                for f in fields]
+        t0 = time.monotonic()
+        with self._lock, self._on_stream():
+            pending = PendingFetch(
+                [getattr(self.table, f)[lo:lo + n] for f in fields],
+                self.stream, host=host,
+            )
+        self.last_copy_lock_s = time.monotonic() - t0
+        return pending
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Copy the whole table to the host, in the snapshot dict format of
+        gubernator_tpu's DeviceBackend (the Loader-save and checkpoint
+        path)."""
+        fields = SlotTable._fields
+        return dict(zip(fields, self._columns_fetch(fields).wait()))
+
+    def key_column(self) -> np.ndarray:
+        """Host copy of the fingerprint column (the keymap prune)."""
+        return self._columns_fetch(("key",)).wait()[0]
+
+    def _install_table(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Replace the live table from host arrays (snapshot format)."""
+        if arrays["key"].shape[0] != self.cfg.num_slots:
+            raise ValueError(
+                f"snapshot has {arrays['key'].shape[0]} slots, backend "
+                f"expects {self.cfg.num_slots}"
+            )
+        with self._lock, self._on_stream():
+            self.table = table_from_host(arrays, self.device)
+
+    def occupancy(self) -> int:
+        with self._lock, self._on_stream():
+            return int(self.table.occupancy())
+
+    def _upload_cols(self, parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
+        """Host arrays of one shape (int64, int32 or float64) -> device
+        tensors of their dtypes, in one pinned copy: they travel as the
+        rows of one int64 array (int32 widened, float64 as its bits) and
+        are split and narrowed back on the device."""
+        packed = np.empty((len(parts),) + np.shape(parts[0]), dtype=np.int64)
+        for i, a in enumerate(parts):
+            packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
+        dev = self._upload(packed)
+        return [
+            dev[i].view(torch.float64) if a.dtype == np.float64
+            else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
+            for i, a in enumerate(parts)
+        ]
+
+    def occupancy_dispatch(self):
+        """Dispatch the resident-slot count under the lock; the returned
+        closure fetches it (the tier manager's watermark read)."""
+        with self._lock, self._on_stream():
+            pending = PendingFetch([self.table.occupancy()], self.stream)
+        return lambda: int(pending.wait()[0])
 
     # -- hot path --------------------------------------------------------
     def check(
@@ -621,7 +766,7 @@ class TorchBackend(PersistenceHost):
         marks request i to serve a live GLOBAL broadcast row verbatim
         (gubernator.go:434-447).
         """
-        packed = pack_requests(reqs, self.cfg.batch_size, self.clock, use_cached)
+        packed = self._pack(reqs, use_cached)
         now = self.clock.millisecond_now()
         if self._keymap is not None:
             self._note_keys([
@@ -673,8 +818,9 @@ class TorchBackend(PersistenceHost):
     def step_rounds(
         self, rounds: Sequence[DeviceBatch], add_tally: bool = True
     ) -> List[Dict[str, np.ndarray]]:
-        """Columnar hot path: apply pre-packed [B] rounds; returns host
-        response dicts per round (at the launch's tier width)."""
+        """Columnar hot path: apply pre-packed rounds ([B], or [n, B] on a
+        shard grid); returns host response dicts per round (at the
+        launch's tier width)."""
         return self.step_rounds_begin(rounds, add_tally)()
 
     def step_rounds_begin(
@@ -709,8 +855,9 @@ class TorchBackend(PersistenceHost):
         return fetch
 
     def _dispatch_rounds_locked(self, rounds) -> torch.Tensor:
-        """Launch the serve kernel once for all `rounds`; caller holds
-        `_lock`.  Returns the un-synced int64[k, 9, t] responses."""
+        """Launch the serve kernel once for all `rounds` (once a shard on a
+        shard grid); caller holds `_lock`.  Returns the un-synced
+        int64[k, 9, t] responses (int64[k, n, 9, t] on a grid)."""
         t_start = time.monotonic()
         now = self.clock.millisecond_now()
         qs = rounds_to_qs(rounds, self._tiers)
@@ -725,22 +872,15 @@ class TorchBackend(PersistenceHost):
         and this backend dispatches such blocks with K1."""
         return True
 
-    def ring_q_shape(self, tb: int) -> tuple:
-        """Per-round request-slot shape at batch tier `tb`: [12, tb]."""
-        return (12, tb)
-
     def ring_pack_round(self, db, tb: int) -> np.ndarray:
-        """One [B] DeviceBatch -> its ring slot layout [12, tb]."""
-        return pack_batch_q(db)[:, :tb]
+        """One round -> its ring slot layout: [12, tb], or [12, n, tb] for
+        an [n, B] grid round."""
+        return pack_batch_q(db)[..., :tb]
 
-    def ring_seq_init(self) -> torch.Tensor:
-        """A fresh device-resident ring sequence word."""
-        with self._on_stream():
-            return torch.zeros((), dtype=torch.int64, device=self.device)
-
-    def persistent_serve_dispatch(self, qs, nows, seq, fetch: bool = False):
+    def ring_step_dispatch(self, qs, nows, seq, fetch: bool = False):
         """Drain `qs` int64[k, 12, B] stacked rounds in ONE kernel dispatch
-        under the lock.  Returns (responses[k, 9, B], seq + k), the
+        under the lock (int64[k, 12, n, B] on a shard grid, one dispatch a
+        shard).  Returns (responses[k, 9, B], seq + k), the
         responses un-synced on the device (the JAX backend's contract); with
         `fetch` (the ring runner), a PendingFetch of (responses, seq + k)
         started right after the dispatch in their place.  The word is a
@@ -754,8 +894,6 @@ class TorchBackend(PersistenceHost):
         self._observe_step(t_start)
         return out, seq
 
-    ring_step_dispatch = persistent_serve_dispatch
-
     def ring_mega_dispatch(self, qs, nows, seq, fetch: bool = False):
         """One megaround iteration: `qs` int64[r, s, 12, B] applied in
         order as r*s rounds in ONE dispatch (megaround is a sequential
@@ -763,12 +901,131 @@ class TorchBackend(PersistenceHost):
         with `fetch` a PendingFetch of the flat [r*s, 9, B] responses and
         the word."""
         r, s = qs.shape[0], qs.shape[1]
-        out, seq = self.persistent_serve_dispatch(
+        out, seq = self.ring_step_dispatch(
             qs.reshape((r * s,) + tuple(qs.shape[2:])), nows.reshape(r * s),
             seq, fetch=fetch)
         if not fetch:
             out = out.reshape((r, s) + tuple(out.shape[1:]))
         return out, seq
+
+    def read_items_bulk(
+        self, keys: Sequence[str], include_cached: bool = False
+    ) -> Dict[str, CacheItem]:
+        """Batched point reads: probe + row gather in batch_size chunks,
+        one host fetch.  KIND_CACHED_RESP rows (the GLOBAL broadcast
+        cache, not bucket state) are skipped unless asked for."""
+        with self._lock:
+            return self._read_items_locked(keys, include_cached)
+
+    def _read_items_locked(
+        self, keys: Sequence[str], include_cached: bool = False
+    ) -> Dict[str, CacheItem]:
+        """read_items_bulk body; caller holds `_lock` (write-through
+        capture reads back rows in the same critical section as the
+        step)."""
+        if not keys:
+            return {}
+        now = self.clock.millisecond_now()
+        hashes = bulk_key_hash64(list(keys))
+        packed, rf = self._gather_rows_finish(
+            self._gather_rows_dispatch(hashes, now), len(keys))
+        rows = {f: packed[i] for i, f in enumerate(GATHER_ROW_FIELDS)}
+        rows["remaining_f"] = rf
+        out: Dict[str, CacheItem] = {}
+        for j, k in enumerate(keys):
+            if not rows["found"][j]:
+                continue
+            if rows["kind"][j] == KIND_CACHED_RESP and not include_cached:
+                continue
+            out[k] = _row_to_item(rows, j, k)
+        return out
+
+    def get_cache_item(self, key: str) -> Optional[CacheItem]:
+        """Point read of one key; copies only the key's bucket (`ways`
+        slots), not the whole table."""
+        ways = self.cfg.ways
+        now = self.clock.millisecond_now()
+        fields = SlotTable._fields
+        rows = dict(zip(fields, self._columns_fetch(
+            fields, self.bucket_offset(key), ways).wait()))
+        return probe_bucket(rows, ways, key, now)
+
+
+class TorchBackend(TorchDeviceHost):
+    """Single-table rate-limit engine on one torch device."""
+
+    def __init__(
+        self,
+        cfg: Optional[DeviceConfig] = None,
+        clock=None,
+        metrics=None,
+        store=None,
+        track_keys: bool = False,
+    ) -> None:
+        self.cfg = cfg or DeviceConfig()
+        # Any object with millisecond_now() and now() will do.
+        self.clock = clock or clock_mod.default_clock()
+        self.metrics = metrics
+        # Store write-through (runtime/store.py) and the fingerprint ->
+        # key map that persistence needs to name device rows.
+        self.store = store
+        self._keymap: Optional[Dict[int, str]] = (
+            {} if (store is not None or track_keys) else None
+        )
+        self._init_write_through()
+        self._init_device()
+        with self._on_stream():
+            self.table: SlotTable = init_table(
+                self.cfg.num_slots, self.device
+            )
+            # The serve kernel's claim words: all INT32_MAX between
+            # launches.
+            self.claim = (
+                new_claim_buffer(self.cfg.num_slots, self.device)
+                if self.stream is not None else None
+            )
+        self._tiers = resolve_tiers(self.cfg)
+        self.checks = 0
+        self.over_limit = 0
+        self.not_persisted = 0
+
+    def _launch(self, qs, nows, seq) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One serve-kernel dispatch on the backend's stream; caller holds
+        `_lock`.  Returns the un-synced (int64[k, 9, B], seq + k)."""
+        with self._on_stream():
+            qs = self._upload(qs).contiguous()
+            nows = self._upload(nows).contiguous()
+            if not isinstance(seq, torch.Tensor):
+                seq = np.asarray(seq, dtype=np.int64)
+            seq = self._upload(seq)
+            scratch = None
+            if self.stream is not None and qs.shape[0]:
+                scratch = self._scratch_for(qs.shape[0], qs.shape[2])
+            self.table, resps, seq = persistent_serve_step(
+                self.table, qs, nows, seq,
+                ways=self.cfg.ways, claim=self.claim, scratch=scratch,
+            )
+        return resps, seq
+
+    def _pack(self, reqs, use_cached=None):
+        return pack_requests(reqs, self.cfg.batch_size, self.clock, use_cached)
+
+    def bucket_offset(self, key: str) -> int:
+        """Row index of `key`'s bucket."""
+        nb = self.cfg.num_slots // self.cfg.ways
+        return (key_hash64(key) & (nb - 1)) * self.cfg.ways
+
+    # -- ring drain discipline (runtime/ring.py) -------------------------
+    def ring_q_shape(self, tb: int) -> tuple:
+        """Per-round request-slot shape at batch tier `tb`: [12, tb]."""
+        return (12, tb)
+
+    def ring_seq_init(self) -> torch.Tensor:
+        """A fresh device-resident ring sequence word."""
+        with self._on_stream():
+            return torch.zeros((), dtype=torch.int64, device=self.device)
+
+    persistent_serve_dispatch = TorchDeviceHost.ring_step_dispatch
 
     def persistent_serve_supported(self):
         """(ok, reason) for GUBER_SERVE_MODE=persistent.  On the card:
@@ -852,64 +1109,18 @@ class TorchBackend(PersistenceHost):
                 self.table = store_cached_rows(
                     self.table, cr, now, ways=self.cfg.ways)
 
-    # -- state -----------------------------------------------------------
-    def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
-                       n: Optional[int] = None) -> PendingFetch:
-        """Start copying table columns [lo, lo + n) to the host.  The host
-        buffers (pinned on the card) are allocated before the lock is
-        taken, so `_lock` is held only while the copies are queued on the
-        backend's stream: they read the columns at that point of the
-        stream, and launches queued later cannot change what they copy.
-        On the CPU the copy itself runs under the lock."""
-        n = self.cfg.num_slots - lo if n is None else n
-        pin = self.stream is not None
-        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
-                for f in fields]
-        t0 = time.monotonic()
-        with self._lock, self._on_stream():
-            pending = PendingFetch(
-                [getattr(self.table, f)[lo:lo + n] for f in fields],
-                self.stream, host=host,
-            )
-        self.last_copy_lock_s = time.monotonic() - t0
-        return pending
-
-    def snapshot(self) -> Dict[str, np.ndarray]:
-        """Copy the whole table to the host, in the snapshot dict format of
-        gubernator_tpu's DeviceBackend (the Loader-save and checkpoint
-        path)."""
-        fields = SlotTable._fields
-        return dict(zip(fields, self._columns_fetch(fields).wait()))
-
-    def key_column(self) -> np.ndarray:
-        """Host copy of the fingerprint column (the keymap prune)."""
-        return self._columns_fetch(("key",)).wait()[0]
-
-    def key_snapshot(self):
-        """(key int64[S], kind int32[S], expire_at int64[S]) host copies:
-        the reshard plane's remap-delta input (three columns, not the
-        whole table)."""
-        return tuple(
-            self._columns_fetch(("key", "kind", "expire_at")).wait())
-
-    def _install_table(self, arrays: Dict[str, np.ndarray]) -> None:
-        """Replace the live table from host arrays (snapshot format)."""
-        if arrays["key"].shape[0] != self.cfg.num_slots:
-            raise ValueError(
-                f"snapshot has {arrays['key'].shape[0]} slots, backend "
-                f"expects {self.cfg.num_slots}"
-            )
-        with self._lock, self._on_stream():
-            self.table = table_from_host(arrays, self.device)
-
-    def occupancy(self) -> int:
-        with self._lock, self._on_stream():
-            return int(self.table.occupancy())
-
     # -- persistence device hooks (PersistenceHost) ----------------------
     def _chunks(self, n: int):
         B = self.cfg.batch_size
         return [(lo, min(lo + B, n)) for lo in range(0, n, B)]
+
+    def _upload_rows(self, cols: Dict[str, np.ndarray], sel) -> BucketRows:
+        """BucketRows of the lanes `sel` of host columns (BucketRows field
+        names), uploaded in one pinned copy."""
+        return BucketRows(*self._upload_cols([
+            np.asarray(cols[f], dtype=_ROW_DTYPES[f])[sel]
+            for f in BucketRows._fields
+        ]))
 
     def _probe_padded(self, hashes: np.ndarray, now: int) -> np.ndarray:
         """found mask for an int64 hash vector, probed in batch_size chunks
@@ -926,23 +1137,6 @@ class TorchBackend(PersistenceHost):
 
     def _found_mask(self, keys, hashes, now: int) -> np.ndarray:
         return self._probe_padded(_h64s(hashes), now)
-
-    def _upload_rows(self, cols: Dict[str, np.ndarray], sel) -> BucketRows:
-        """BucketRows of the lanes `sel` of host columns (BucketRows field
-        names), uploaded in one pinned copy: the columns travel as the rows
-        of one int64 array (int32 columns widened, remaining_f as its
-        bits) and are split and narrowed back on the device."""
-        parts = [np.asarray(cols[f], dtype=_ROW_DTYPES[f])[sel]
-                 for f in BucketRows._fields]
-        packed = np.empty((len(parts), len(parts[0])), dtype=np.int64)
-        for i, a in enumerate(parts):
-            packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
-        dev = self._upload(packed)
-        return BucketRows(*[
-            dev[i].view(torch.float64) if a.dtype == np.float64
-            else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
-            for i, a in enumerate(parts)
-        ])
 
     def _bulk_upsert(
         self, rows: List[dict], hashes: List[int], now: int
@@ -982,50 +1176,6 @@ class TorchBackend(PersistenceHost):
         host = token.wait()
         return (np.concatenate(host[0::2], axis=1)[:, :m],
                 np.concatenate(host[1::2])[:m])
-
-    def read_items_bulk(
-        self, keys: Sequence[str], include_cached: bool = False
-    ) -> Dict[str, CacheItem]:
-        """Batched point reads: probe + row gather in batch_size chunks,
-        one host fetch.  KIND_CACHED_RESP rows (the GLOBAL broadcast
-        cache, not bucket state) are skipped unless asked for."""
-        with self._lock:
-            return self._read_items_locked(keys, include_cached)
-
-    def _read_items_locked(
-        self, keys: Sequence[str], include_cached: bool = False
-    ) -> Dict[str, CacheItem]:
-        """read_items_bulk body; caller holds `_lock` (write-through
-        capture reads back rows in the same critical section as the
-        step)."""
-        if not keys:
-            return {}
-        now = self.clock.millisecond_now()
-        hashes = bulk_key_hash64(list(keys))
-        packed, rf = self._gather_rows_finish(
-            self._gather_rows_dispatch(hashes, now), len(keys))
-        rows = {f: packed[i] for i, f in enumerate(GATHER_ROW_FIELDS)}
-        rows["remaining_f"] = rf
-        out: Dict[str, CacheItem] = {}
-        for j, k in enumerate(keys):
-            if not rows["found"][j]:
-                continue
-            if rows["kind"][j] == KIND_CACHED_RESP and not include_cached:
-                continue
-            out[k] = _row_to_item(rows, j, k)
-        return out
-
-    def get_cache_item(self, key: str) -> Optional[CacheItem]:
-        """Point read of one key; copies only the key's bucket (`ways`
-        slots), not the whole table."""
-        ways = self.cfg.ways
-        nb = self.cfg.num_slots // ways
-        bucket = key_hash64(key) & (nb - 1)
-        now = self.clock.millisecond_now()
-        fields = SlotTable._fields
-        rows = dict(zip(fields, self._columns_fetch(
-            fields, bucket * ways, ways).wait()))
-        return probe_bucket(rows, ways, key, now)
 
     # -- live slot migration (runtime/reshard.py) ------------------------
     def migrate_extract_rows(self, fps: np.ndarray):
@@ -1105,13 +1255,6 @@ class TorchBackend(PersistenceHost):
             return TableStats(*[a[None] for a in pending.wait()])
 
         return fetch
-
-    def occupancy_dispatch(self):
-        """Dispatch the resident-slot count under the lock; the returned
-        closure fetches it (the tier manager's watermark read)."""
-        with self._lock, self._on_stream():
-            pending = PendingFetch([self.table.occupancy()], self.stream)
-        return lambda: int(pending.wait()[0])
 
     def demote_extract_dispatch(self, protect_fps: np.ndarray, batch: int):
         """ONE ops/state.demote_extract under the lock: the `batch` coldest

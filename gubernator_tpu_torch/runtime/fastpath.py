@@ -34,7 +34,10 @@ the semantic reference:
     Python objects, so the lane decodes one request per UNIQUE key per
     drain; on_change fires once per unique key per drain;
   - GLOBAL is served HERE — use_cached lanes for non-owned reads, queued
-    hits/updates for the managers; MULTI_REGION serves like a plain lane
+    hits/updates for the managers, and node-owned lanes on a mesh service
+    ingesting into the collective GlobalEngine's replicated table (client
+    path; the peer RPC keeps RPC-tier semantics like _check_local);
+    MULTI_REGION serves like a plain lane
     with owner-side hits queued to the region manager (one decode per
     unique key);
   - sketch-tier names are served HERE too: the parser's name_hash
@@ -48,9 +51,9 @@ the semantic reference:
     construction, so the fast lane also serves the owner side of
     forwarded traffic in a cluster.
 
-This is the JAX package's fast lane without the mesh's engine lane and
-shard grids (ROADMAP queue 1, the mesh and collective GLOBAL).  While a
-reshard handoff is active, while this node sheds under SLO pressure, or
+On a mesh backend every round is an [n_shards, B] grid routed by owner
+shard, and node-owned GLOBAL lanes ride the engine lane into the collective
+GlobalEngine.  While a reshard handoff is active, while this node sheds under SLO pressure, or
 whenever the region plane is on, the lane steps aside for the object path;
 lanes of keys this node mirrors serve from the local mirror allowance
 (service._mirror_serve).
@@ -75,6 +78,7 @@ from gubernator_tpu_torch.core.interval import (
 )
 from gubernator_tpu_torch.core.types import Behavior
 from gubernator_tpu_torch.ops.batch import DeviceBatch, empty_batch
+from gubernator_tpu_torch.parallel.mesh import shard_of_hash
 
 _ERR_EMPTY_KEY = b"field 'unique_key' cannot be empty"
 _ERR_EMPTY_NAME = b"field 'namespace' cannot be empty"
@@ -89,7 +93,8 @@ _TIER_SKETCH_FRAME = native.meta_frame(b"tier", b"sketch")
 
 
 class _Coalescer:
-    """The drain discipline shared by the machinery and sketch lanes: arrivals accumulate in the queue; each drain takes the WHOLE
+    """The drain discipline shared by the machinery, sketch and engine
+    lanes: arrivals accumulate in the queue; each drain takes the WHOLE
     queue as one merge (bigger merges amortize the per-merge device
     round-trip).  `process` runs on a pool thread with the drained entry
     list; results deliver through each entry's future.
@@ -544,7 +549,7 @@ class FastPath:
         # (a coalescer dispatch/fetch stage), by lane.  The ring
         # acceptance criterion: steady-state == 0 in ring mode
         # (scripts/ring_smoke.py; bench_e2e budget split).
-        self.blocking_fetches = {"mach": 0, "sketch": 0}
+        self.blocking_fetches = {"mach": 0, "sketch": 0, "engine": 0}
         # Worker budget: one thread per concurrent dispatch stage plus
         # one per outstanding fetch (pipeline depth + sparse overlap
         # slots) — a fetch blocked on the device (or on a write-through
@@ -577,6 +582,16 @@ class FastPath:
                        metrics=metrics, lane="sketch")
             if service.sketch_backend is not None else None
         )
+        self._engine_pool = ThreadPoolExecutor(
+            max_workers=1 + pipeline_depth,
+            thread_name_prefix="tpu-fastlane-engine",
+        )
+        self._engine_lane = (
+            _Coalescer(self._engine_pool, self._engine_process,
+                       pipeline_depth=pipeline_depth,
+                       metrics=metrics, lane="engine")
+            if service.global_engine is not None else None
+        )
         self.pipeline_depth = pipeline_depth
         # Servings since start (observability; also asserted in tests to
         # prove the fast lane actually ran).
@@ -591,6 +606,8 @@ class FastPath:
         lanes = {"mach": self._mach.debug_vars()}
         if self._sketch_lane is not None:
             lanes["sketch"] = self._sketch_lane.debug_vars()
+        if self._engine_lane is not None:
+            lanes["engine"] = self._engine_lane.debug_vars()
         out = {
             "served": self.served,
             "fallbacks": self.fallbacks,
@@ -1022,7 +1039,7 @@ class FastPath:
                 )
             mgr.queue_update(req, st)
 
-    def _touch_captures(self, cols, sk=None) -> None:
+    def _touch_captures(self, cols, sk=None, eng=None) -> None:
         """Degrade stale captured GLOBAL broadcast rows for every key
         this drain mutated on the machinery table (a non-GLOBAL request
         must not let a pending capture ship pre-mutation state — the
@@ -1036,6 +1053,9 @@ class FastPath:
         mask = cols.err == 0
         if sk is not None:
             mask &= ~sk
+        # Engine lanes stay in the set: they mutate the engine's own
+        # tables, but engine services never create RPC captures, so
+        # touching them is a no-op — not worth a mask.
         if mask.any():
             mgr.touch_hashes(cols.hash[mask])
 
@@ -1053,24 +1073,31 @@ class FastPath:
             mgr.queue_hits(dc_replace(req, hits=total))
 
     async def _serve_split(
-        self, payload, cols, is_greg, ge, gd, use_cached, sk
+        self, payload, cols, is_greg, ge, gd, use_cached, sk, eng=None
     ) -> Tuple[np.ndarray, ...]:
         """Serve a column set, splitting sketch-named lanes to the CMS
-        merge; the rest rides the exact machinery.  Both branches run
-        concurrently and scatter into full-size response arrays."""
-        if sk is None or not sk.any():
+        merge and engine lanes (node-owned GLOBAL on a mesh service) to
+        the collective GlobalEngine; the rest rides the exact machinery.
+        All branches run concurrently and scatter into full-size
+        response arrays."""
+        no_sk = sk is None or not sk.any()
+        no_eng = eng is None or not eng.any()
+        if no_sk and no_eng:
             return await self._serve_cols(
                 payload, cols, is_greg, ge, gd, use_cached=use_cached
             )
         n = cols.n
-        sk_idx = np.flatnonzero(sk)
-        ex_idx = np.flatnonzero(~sk)
+        sk_m = sk if sk is not None else np.zeros(n, dtype=bool)
+        eng_m = eng if eng is not None else np.zeros(n, dtype=bool)
+        sk_idx = np.flatnonzero(sk_m)
+        eng_idx = np.flatnonzero(eng_m)
+        ex_idx = np.flatnonzero(~sk_m & ~eng_m)
         status = np.zeros(n, dtype=np.int64)
         out_lim = np.zeros(n, dtype=np.int64)
         remaining = np.zeros(n, dtype=np.int64)
         reset = np.zeros(n, dtype=np.int64)
-        # Post-step stored columns (machinery lanes only — sketch lanes
-        # never feed the RPC broadcast capture, so their cap_ok
+        # Post-step stored columns (machinery lanes only — sketch/engine
+        # lanes never feed the RPC broadcast capture, so their cap_ok
         # stays False).
         stored = np.zeros(n, dtype=np.int64)
         stored_st = np.zeros(n, dtype=np.int64)
@@ -1087,6 +1114,21 @@ class FastPath:
             out_lim[sk_idx] = ll
             remaining[sk_idx] = rem
             reset[sk_idx] = rst
+
+        async def run_engine() -> None:
+            st, lm, rem, rst = await self._engine_lane.do(
+                _EngineEntry(payload, cols, eng_idx, is_greg, ge, gd)
+            )
+            status[eng_idx] = st
+            out_lim[eng_idx] = lm
+            remaining[eng_idx] = rem
+            reset[eng_idx] = rst
+            # Open the sync window for the queued hits (the object
+            # path's notify after GlobalEngine.check; an asyncio.Event must
+            # be set on the loop thread, hence here and not in
+            # _engine_process).
+            if self.s._collective_loop is not None:
+                self.s._collective_loop.notify()
 
         async def run_exact() -> None:
             sub = cols.subset(ex_idx)
@@ -1107,10 +1149,158 @@ class FastPath:
         tasks = []
         if len(sk_idx):
             tasks.append(run_sketch())
+        if len(eng_idx):
+            tasks.append(run_engine())
         if len(ex_idx):
             tasks.append(run_exact())
         await asyncio.gather(*tasks)
         return status, out_lim, remaining, reset, stored, stored_st, cap_ok
+
+    def _engine_process(self, entries):
+        """Merged columnar serving for node-owned GLOBAL lanes on the
+        mesh GlobalEngine — one coalescer drain = ONE engine lock hold
+        and dispatch chain (runs on the engine lane's worker thread).
+        Dispatch stage: aggregate + pack + serve_packed (engine lock);
+        the returned closure (host fetch, unmarshal, tally, deferred
+        sync) is the fetch stage.
+
+        Per ENTRY, duplicates aggregate to one lane per unique key
+        (hits summed, first occurrence's params, shared response) —
+        mirroring one GlobalEngine.check call.  ACROSS entries the same
+        key keeps separate lanes, which assign_rounds places in later
+        rounds — so a drain of N entries is semantically N sequential
+        engine calls, amortized into one round-trip."""
+        from gubernator_tpu_torch.parallel.global_sync import arrival_dev
+        from gubernator_tpu_torch.parallel.sharded import (
+            packed_grid_rounds_to_host,
+        )
+        from gubernator_tpu_torch.runtime.backend import (
+            Tally,
+            tally_from_rounds,
+        )
+
+        engine = self.s.global_engine
+        cfg = self.s.backend.cfg
+        n_shards, B = cfg.num_shards, cfg.batch_size
+
+        per = []
+        for e in entries:
+            sub_h = e.cols.hash[e.idx]
+            uniq, first, inv = np.unique(
+                sub_h, return_index=True, return_inverse=True
+            )
+            rep = e.idx[first]             # first occurrence per key
+            m = len(uniq)
+            # Exact int64 sums (float64 bincount weights would corrupt
+            # hits above 2^53 and diverge from the pending queue).
+            hits_sum = np.zeros(m, dtype=np.int64)
+            np.add.at(hits_sum, inv, e.cols.hits[e.idx])
+            burst = e.cols.burst[rep]
+            burst = np.where(burst == 0, e.cols.limit[rep], burst)
+            per.append((e, uniq, inv, rep, m, hits_sum, burst))
+
+        def cat(parts):
+            # Uncontended drains (one entry) skip the copies.
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+        h_all = cat([p[1] for p in per])
+        offs = np.zeros(len(per) + 1, dtype=np.int64)
+        np.cumsum([p[4] for p in per], out=offs[1:])
+        sh = arrival_dev(h_all, n_shards).astype(np.int32)
+        rnd, lane, n_rounds = native.assign_rounds(h_all, sh, n_shards, B)
+        values = dict(
+            key_hash=h_all,
+            hits=cat([p[5] for p in per]),
+            limit=cat([p[0].cols.limit[p[3]] for p in per]),
+            duration=cat([p[0].cols.duration[p[3]] for p in per]),
+            algo=cat([p[0].cols.algo[p[3]] for p in per]),
+            burst=cat([p[6] for p in per]),
+            reset_remaining=cat([
+                (p[0].cols.behavior[p[3]]
+                 & int(Behavior.RESET_REMAINING)) != 0
+                for p in per
+            ]),
+            is_greg=cat([p[0].is_greg[p[3]] for p in per]),
+            greg_expire=cat([p[0].ge[p[3]] for p in per]),
+            greg_duration=cat([p[0].gd[p[3]] for p in per]),
+            use_cached=np.ones(len(h_all), dtype=bool),
+        )
+        rounds, order, bounds = _build_rounds(
+            values, rnd, lane, n_rounds, B, sh, n_shards
+        )
+        # _decode_unique yields groups in ascending-hash order — exactly
+        # each entry's uniq order — so the decoded reqs zip with the
+        # computed sums and arrival shards (one source of truth).
+        pend = []
+        for i, (e, _uniq, _inv, _rep, _m, hits_sum, _burst) in enumerate(
+            per
+        ):
+            off = int(offs[i])
+            for j, (req, _group) in enumerate(
+                self._decode_unique(e.payload, e.cols, e.idx)
+            ):
+                pend.append(
+                    (req, int(hits_sum[j]), int(sh[off + j]))
+                )
+        resps, want_sync = engine.serve_packed(rounds, pend)
+
+        def fetch_body() -> List[Tuple[np.ndarray, ...]]:
+            host = (packed_grid_rounds_to_host(resps)
+                    if resps is not None else [])
+
+            mt = len(h_all)
+            st_u = np.zeros(mt, dtype=np.int64)
+            lm_u = np.zeros(mt, dtype=np.int64)
+            rem_u = np.zeros(mt, dtype=np.int64)
+            rst_u = np.zeros(mt, dtype=np.int64)
+            for r_idx in range(n_rounds):
+                sel = order[bounds[r_idx]:bounds[r_idx + 1]]
+                hr = host[r_idx]
+                at = (sh[sel], lane[sel])
+                st_u[sel] = hr["status"][at]
+                lm_u[sel] = hr["limit"][at]
+                rem_u[sel] = hr["remaining"][at]
+                rst_u[sel] = hr["reset_time"][at]
+
+            t = tally_from_rounds(rounds, host)
+            self.s.backend._add_tally(Tally(
+                checks=mt,
+                over_limit=int((st_u == 1).sum()),
+                not_persisted=t.not_persisted,
+                cache_hits=t.cache_hits,
+            ))
+            if want_sync:
+                engine.sync()
+            outs: List[Tuple[np.ndarray, ...]] = []
+            for i, (_e, _uq, inv, _rep, _m, _hits, _bst) in enumerate(per):
+                lo, hi = int(offs[i]), int(offs[i + 1])
+                outs.append((
+                    st_u[lo:hi][inv], lm_u[lo:hi][inv],
+                    rem_u[lo:hi][inv], rst_u[lo:hi][inv],
+                ))
+            return outs
+
+        # Ring discipline: the engine readback (and a triggered sync's
+        # collective + write-through) runs on the ring runner, FIFO with
+        # the ring iterations — the mesh request path stays fetch-free
+        # even for GLOBAL lanes (the sketch-lane pattern).
+        wait_body = None
+        ring = self._ring_live()
+        if ring is not None:
+            from gubernator_tpu_torch.runtime.ring import RingClosedError
+
+            try:
+                wait_body = ring.submit_host(fetch_body)
+            except RingClosedError:
+                wait_body = None
+
+        def fetch() -> List[Tuple[np.ndarray, ...]]:
+            if wait_body is not None:
+                return wait_body()
+            self.blocking_fetches["engine"] += 1
+            return fetch_body()
+
+        return fetch
 
     @staticmethod
     def _sketch_meta(n: int, sk) -> Tuple[Optional[bytes],
@@ -1130,15 +1320,34 @@ class FastPath:
     ) -> bytes:
         """Single-node / peer-RPC path: everything is local (and owned,
         so GLOBAL lanes serve authoritatively and queue broadcast
-        updates)."""
+        updates).  On a mesh service the CLIENT path routes GLOBAL lanes
+        to the collective GlobalEngine; the peer RPC keeps RPC-tier
+        semantics (machinery serve + queued update) like the object
+        path's _check_local — engine keys sync with the collective,
+        cross-node forwards ride the managers."""
         is_greg, ge, gd, err_extra = self._prep_greg(cols, exclude=sk)
+        use_engine = self.s.global_engine is not None and not peer_rpc
+        eng = None
+        if use_engine and is_global.any():
+            eng = is_global & (cols.err == 0)
+            if not eng.any():
+                eng = None
         status, limit, remaining, reset, stored, stored_st, cap_ok = (
             await self._serve_split(
-                payload, cols, is_greg, ge, gd, None, sk
+                payload, cols, is_greg, ge, gd, None, sk, eng
             )
         )
-        self._touch_captures(cols, sk)
-        if is_global.any():
+        if eng is not None:
+            # Metric parity: the object path's routing counts engine
+            # requests under the "global" source label.
+            self.s.metrics.getratelimit_counter.labels("global").inc(
+                int(eng.sum())
+            )
+        self._touch_captures(cols, sk, eng)
+        if is_global.any() and not use_engine:
+            # With a collective engine, GLOBAL lanes (errored included)
+            # belong to the engine path on the object flow — the RPC
+            # update manager is never consulted.
             self._queue_global_updates(
                 payload, cols, is_global, peer_rpc=peer_rpc,
                 capture=(stored_st, stored, reset, limit, cap_ok),
@@ -1254,8 +1463,18 @@ class FastPath:
             # propagate so the GLOBAL queue/metadata block (filtered on
             # cols.err == 0) never replicates or annotates a failed lane.
             cols.err[idx] = sub.err
+            sub_eng = None
+            if self.s.global_engine is not None:
+                # Node-owned GLOBAL lanes ride the collective engine
+                # (service.py routing: owner + engine -> engine_idx).
+                sub_eng = (
+                    is_global[idx] & owned[idx] & (sub.err == 0)
+                )
+                if not sub_eng.any():
+                    sub_eng = None
             st, lm, rem, rst, sto, sst, cok = await self._serve_split(
                 payload, sub, is_greg, ge, gd, glob_cached[idx], sub_sk,
+                sub_eng,
             )
             status[idx] = st
             out_lim[idx] = lm
@@ -1264,7 +1483,7 @@ class FastPath:
             stored[idx] = sto
             stored_st[idx] = sst
             cap_ok[idx] = cok
-            self._touch_captures(sub, sub_sk)
+            self._touch_captures(sub, sub_sk, sub_eng)
             sub_errs = self._error_strings(sub, err_extra)
             for j, i in enumerate(idx):
                 if sub_errs[j]:
@@ -1273,9 +1492,11 @@ class FastPath:
                 for i in idx[sub_sk]:
                     metas[int(i)] = _TIER_SKETCH_FRAME
             # Metric parity with the object path's routing: non-owned
-            # GLOBAL reads count as "global", everything else owner-side
-            # counts as "local".
-            n_glob = int(glob_cached[idx].sum())
+            # GLOBAL reads and engine-served lanes count as "global",
+            # everything else owner-side counts as "local".
+            n_glob = int(glob_cached[idx].sum()) + (
+                int(sub_eng.sum()) if sub_eng is not None else 0
+            )
             m = self.s.metrics.getratelimit_counter
             if n_glob:
                 m.labels("global").inc(n_glob)
@@ -1422,10 +1643,14 @@ class FastPath:
                     peers[int(owner[int(i)])].info().grpc_address.encode()
                 )
             self._queue_global(payload, cols, gc_idx)
-            self._queue_global_updates(
-                payload, cols, is_global, owned=owned,
-                capture=(stored_st, stored, reset, out_lim, cap_ok),
-            )
+            if self.s.global_engine is None:
+                # Owner-side updates broadcast via the RPC manager only
+                # when no collective engine owns replication (the engine
+                # broadcasts through sync + the _engine_synced bridge).
+                self._queue_global_updates(
+                    payload, cols, is_global, owned=owned,
+                    capture=(stored_st, stored, reset, out_lim, cap_ok),
+                )
 
         mr = (cols.behavior & _MULTI_REGION) != 0
         if mr.any():
@@ -1561,8 +1786,10 @@ class FastPath:
         duplicate groups instead take the host-cascade path (_plan_cascade):
         one read lane, an exact host-side replay of the per-occurrence
         algorithm branches, and one effective write-back lane — two rounds
-        total regardless of skew."""
-        B = self.s.backend.cfg.batch_size
+        total regardless of skew.  On a mesh backend every round is an
+        [n_shards, B] grid routed by owner shard."""
+        cfg = self.s.backend.cfg
+        n_shards, B = cfg.num_shards, cfg.batch_size
 
         if len(entries) == 1:
             c = entries[0].cols
@@ -1616,7 +1843,11 @@ class FastPath:
             h_mach[plan.firsts] = h[plan.firsts]  # keep one READ lane
             hits_mach[plan.firsts] = 0
 
-        rnd, lane, n_rounds = native.assign_rounds(h_mach, None, 1, B)
+        sh_all = None
+        if n_shards > 1:
+            sh_all = shard_of_hash(h, n_shards).astype(np.int32)
+        rnd, lane, n_rounds = native.assign_rounds(
+            h_mach, sh_all, n_shards, B)
 
         values = dict(
             key_hash=h_mach, hits=hits_mach, limit=lim, duration=dur,
@@ -1626,20 +1857,23 @@ class FastPath:
         )
         # Ring-eligible merge (plain): scatter the parsed columns
         # STRAIGHT into ring slot layout — no DeviceBatch objects exist
-        # between the C++ parse and the device loop.
+        # between the C++ parse and the device loop.  On a mesh backend
+        # the scatter targets shard-grid slots ([n_shards, tb] per field
+        # row), where the mesh ring step reads them.
         ring = (
             self._ring_live() if (plan is None and not do_store) else None
         )
         ring_qs = None
         if ring is not None:
             ring_qs, order, bounds = _build_rounds_q(
-                values, rnd, lane, n_rounds, backend._tiers,
+                values, rnd, lane, n_rounds, backend._tiers, sh_all,
+                n_shards,
             )
             rounds = [_QRound(ring_qs[i, 10] != 0)
                       for i in range(n_rounds)]
         else:
             rounds, order, bounds = _build_rounds(
-                values, rnd, lane, n_rounds, B
+                values, rnd, lane, n_rounds, B, sh_all, n_shards
             )
 
         status = np.zeros(n, dtype=np.int64)
@@ -1656,7 +1890,7 @@ class FastPath:
             for r_idx in range(n_rounds):
                 sel = order[bounds[r_idx]:bounds[r_idx + 1]]
                 hr = host[r_idx]
-                idx = lane[sel]
+                idx = _lanes(sel, lane, sh_all)
                 status[sel] = hr["status"][idx]
                 out_lim[sel] = hr["limit"][idx]
                 remaining[sel] = hr["remaining"][idx]
@@ -1699,7 +1933,7 @@ class FastPath:
                     # landed, so re-dispatching would double-apply
                     # them; the error propagates and fails the merge.
                     rounds, order, bounds = _build_rounds(
-                        values, rnd, lane, n_rounds, B
+                        values, rnd, lane, n_rounds, B, sh_all, n_shards
                     )
                 else:
                     def fetch_ring() -> List[Tuple[np.ndarray, ...]]:
@@ -1776,7 +2010,12 @@ class FastPath:
                 if wb is not None:
                     (wb_h, wb_hits, wb_lim, wb_dur, wb_algo,
                      wb_burst) = wb
-                    wrnd, wlane, wn = native.assign_rounds(wb_h, None, 1, B)
+                    wb_sh = (
+                        shard_of_hash(wb_h, n_shards).astype(np.int32)
+                        if n_shards > 1 else None
+                    )
+                    wrnd, wlane, wn = native.assign_rounds(
+                        wb_h, wb_sh, n_shards, B)
                     m = len(wb_h)
                     wvals = dict(
                         key_hash=wb_h, hits=wb_hits, limit=wb_lim,
@@ -1787,7 +2026,7 @@ class FastPath:
                         greg_duration=np.zeros(m, dtype=np.int64),
                     )
                     wb_rounds, _, _ = _build_rounds(
-                        wvals, wrnd, wlane, wn, B,
+                        wvals, wrnd, wlane, wn, B, wb_sh, n_shards,
                     )
                     backend._dispatch_rounds_locked(wb_rounds)
                     if do_store:
@@ -1803,7 +2042,7 @@ class FastPath:
                             is_greg=is_greg, greg_expire=ge,
                             greg_duration=gd, use_cached=use_cached,
                         ),
-                        B, now_ms, cap_fps,
+                        sh_all, n_shards, B, now_ms, cap_fps,
                         (status, out_lim, remaining, reset, stored,
                          cachedv, stored_st),
                     )
@@ -1883,8 +2122,8 @@ class FastPath:
         return uniq
 
     def _repair_cold_store_keys(
-        self, backend, uniq, foundv, h, cols_d, B, now_ms, cap_fps,
-        out_arrays,
+        self, backend, uniq, foundv, h, cols_d, sh_all, n_shards, B,
+        now_ms, cap_fps, out_arrays,
     ):
         """Post-step Store.get for COLD keys (backend lock held, response
         already fetched): the step's `found` column replaces a pre-step
@@ -1919,11 +2158,12 @@ class FastPath:
             return None
         rep_fps = np.array([fps[i] for i in seeded], dtype=np.int64)
         R = np.flatnonzero(np.isin(h, rep_fps))
-        rrnd, rlane, rn = native.assign_rounds(h[R], None, 1, B)
+        r_sh = sh_all[R] if sh_all is not None else None
+        rrnd, rlane, rn = native.assign_rounds(h[R], r_sh, n_shards, B)
         rvals = {"key_hash": h[R]}
         rvals.update({k: v[R] for k, v in cols_d.items()})
         r_rounds, r_order, r_bounds = _build_rounds(
-            rvals, rrnd, rlane, rn, B
+            rvals, rrnd, rlane, rn, B, r_sh, n_shards
         )
         r_pending = backend._fetch_later(
             backend._dispatch_rounds_locked(r_rounds))
@@ -1935,7 +2175,7 @@ class FastPath:
             sub = r_order[r_bounds[r_idx]:r_bounds[r_idx + 1]]
             sel = R[sub]
             hr = rhost[r_idx]
-            idx = rlane[sub]
+            idx = _lanes(sub, rlane, r_sh)
             status[sel] = hr["status"][idx]
             out_lim[sel] = hr["limit"][idx]
             remaining[sel] = hr["remaining"][idx]
@@ -2086,10 +2326,13 @@ class FastPath:
         await self._mach.close()
         if self._sketch_lane is not None:
             await self._sketch_lane.close()
+        if self._engine_lane is not None:
+            await self._engine_lane.close()
         if self._ring is not None:
             self._ring.close()
         self._pool.shutdown(wait=True)
         self._sketch_pool.shutdown(wait=True)
+        self._engine_pool.shutdown(wait=True)
 
 
 class _Entry:
@@ -2112,6 +2355,25 @@ class _Entry:
         self.trace_ctx = None
 
 
+class _EngineEntry:
+    """Engine-lane coalescer entry (fut assigned by _Coalescer.do)."""
+
+    __slots__ = (
+        "payload", "cols", "idx", "is_greg", "ge", "gd", "fut",
+        "trace_ctx",
+    )
+
+    def __init__(self, payload, cols, idx, is_greg, ge, gd):
+        self.payload = payload
+        self.cols = cols
+        self.idx = idx
+        self.is_greg = is_greg
+        self.ge = ge
+        self.gd = gd
+        self.fut = None
+        self.trace_ctx = None
+
+
 class _SketchEntry:
     """Sketch-lane coalescer entry (fut assigned by _Coalescer.do)."""
 
@@ -2125,23 +2387,30 @@ class _SketchEntry:
         self.trace_ctx = None
 
 
-def _build_rounds(values, rnd, lane, n_rounds, B):
-    """Scatter columnar values into fixed-shape DeviceBatch rounds.
-    Returns (rounds, order, bounds) — order/bounds group request indices
-    by round for the response gather."""
+def _build_rounds(values, rnd, lane, n_rounds, B, sh_all=None, n_shards=1):
+    """Scatter columnar values into fixed-shape DeviceBatch rounds: [B], or
+    [n_shards, B] shard-grid rounds when `sh_all` gives each request's
+    shard (a mesh backend).  Returns (rounds, order, bounds) — order/bounds
+    group request indices by round for the response gather."""
     ok = np.flatnonzero(rnd >= 0)
     order = ok[np.argsort(rnd[ok], kind="stable")]
     bounds = np.searchsorted(rnd[order], np.arange(n_rounds + 1))
     rounds: List[DeviceBatch] = []
     for r_idx in range(n_rounds):
-        db = empty_batch(B)
+        db = empty_batch(B if sh_all is None else (n_shards, B))
         sel = order[bounds[r_idx]:bounds[r_idx + 1]]
-        l_m = lane[sel]
+        idx = _lanes(sel, lane, sh_all)
         for f, v in values.items():
-            getattr(db, f)[l_m] = v[sel]
-        db.active[l_m] = True
+            getattr(db, f)[idx] = v[sel]
+        db.active[idx] = True
         rounds.append(db)
     return rounds, order, bounds
+
+
+def _lanes(sel, lane, sh_all):
+    """The response/request index of requests `sel`: their lanes, or their
+    (shard, lane) pairs on a shard grid."""
+    return lane[sel] if sh_all is None else (sh_all[sel], lane[sel])
 
 
 # Ring slot row order == DeviceBatch field order == unpack_batch_q rows.
@@ -2164,27 +2433,32 @@ class _QRound:
         self.active = active
 
 
-def _build_rounds_q(values, rnd, lane, n_rounds, tiers):
+def _build_rounds_q(values, rnd, lane, n_rounds, tiers, sh_all=None,
+                    n_shards=1):
     """Scatter columnar values STRAIGHT into ring slot layout — one
-    int64[k, 12, tb] stacked request block (pack_batch_q row order) —
+    int64[k, 12, tb] stacked request block (pack_batch_q row order), or
+    int64[k, 12, n_shards, tb] on a mesh backend, where the parser's
+    columns land in shard-grid slots with one scatter per field —
     skipping DeviceBatch assembly entirely.  Returns (qs, order, bounds)
     with order/bounds exactly as _build_rounds computes them."""
     ok = np.flatnonzero(rnd >= 0)
     order = ok[np.argsort(rnd[ok], kind="stable")]
     bounds = np.searchsorted(rnd[order], np.arange(n_rounds + 1))
-    # Lanes fill contiguously from 0 per round (assign_rounds), so the
-    # max assigned lane bounds the highest used one — the same tier rule
-    # as backend.tier_of.
+    # Lanes fill contiguously from 0 per (round, shard) (assign_rounds), so
+    # the max assigned lane bounds the highest used one — the same tier
+    # rule as backend.tier_of.
     occ = int(lane[ok].max()) + 1 if len(ok) else 0
     tb = next((t for t in tiers if occ <= t), tiers[-1])
-    qs = np.zeros((n_rounds, 12, tb), dtype=np.int64)
+    grid = () if sh_all is None else (n_shards,)
+    qs = np.zeros((n_rounds, 12) + grid + (tb,), dtype=np.int64)
     for r_idx in range(n_rounds):
         sel = order[bounds[r_idx]:bounds[r_idx + 1]]
-        l_m = lane[sel]
+        idx = _lanes(sel, lane, sh_all)
+        idx = idx if sh_all is not None else (idx,)
         q = qs[r_idx]
         for f, v in values.items():
-            q[_Q_ROW[f], l_m] = v[sel]
-        q[_Q_ROW["active"], l_m] = 1
+            q[(_Q_ROW[f],) + idx] = v[sel]
+        q[(_Q_ROW["active"],) + idx] = 1
     return qs, order, bounds
 
 

@@ -35,6 +35,13 @@ pipelined discipline.  `close()` finishes the in-flight iteration (its
 device effects already happened), fails never-started jobs, and joins the
 runner.
 
+The runner is LAYOUT-AGNOSTIC: a slot is whatever the backend's
+`ring_q_shape(tb)` says — int64[12, B] on the single-table backend,
+int64[12, n_shards, B] on the mesh (parallel/sharded.MeshBackend, whose
+per-shard sequence words all advance by the consumed tier and are verified
+against the host mirror element-wise).  Blocks stack rounds along the
+leading slot axis either way.
+
 MEGAROUND (GUBER_RING_ROUNDS > 1): capacity multiplies to slots x rounds
 and the runner becomes an ADAPTIVE ROUND ACCUMULATOR — a shallow queue
 (<= the base slot tier) dispatches immediately, while a backlog past the
@@ -66,8 +73,8 @@ from gubernator_tpu_torch.runtime.tracing import device_step_annotation
 
 
 class _Job:
-    """One submitted unit: either `qs` (an int64[k, 12, B] request block
-    already in ring slot layout) or `fn` (a host job run verbatim on the
+    """One submitted unit: either `qs` (an int64[k, 12, B] request block,
+    int64[k, 12, n, B] on the mesh, already in ring slot layout) or `fn` (a host job run verbatim on the
     runner thread).  `trace_ctx` is the submitter's trace context,
     carried explicitly because the runner is a plain thread — ring
     iterations and host jobs re-attach to the request's trace through
@@ -248,7 +255,8 @@ class RingBackend:
 
     def submit_q(self, qs: np.ndarray) -> Callable[[], list]:
         """Queue one merge's request block — int64[k, 12, B] rounds
-        already in ring slot layout — into `k` ring slots; returns a zero-arg wait
+        (int64[k, 12, n, B] grid rounds on the mesh) already in ring slot
+        layout — into `k` ring slots; returns a zero-arg wait
         producing the per-round host response dicts
         (packed_rounds_to_host shape).  Blocks while the ring is full —
         the backpressure the slot-wait metrics measure.
@@ -486,9 +494,9 @@ class RingBackend:
         be = self._backend
         k = sum(int(job.qs.shape[0]) for job in block)
         tier = ring_tier_of(k, self._all_tiers)
-        # Slot layout is backend-defined (ring_q_shape): [12, B].  The
-        # inner dims are constant across jobs; only the trailing batch
-        # tier varies.
+        # Slot layout is backend-defined (ring_q_shape): [12, B] single
+        # table, [12, n, B] mesh grid.  The inner dims are constant across
+        # jobs; only the trailing batch tier varies.
         tb = max(int(job.qs.shape[-1]) for job in block)
         inner = tuple(block[0].qs.shape[1:-1])
         qs = np.zeros((tier,) + inner + (tb,), dtype=np.int64)

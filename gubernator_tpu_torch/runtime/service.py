@@ -34,10 +34,10 @@ This is the JAX package's service with the Store/Loader, the reshard
 plane (runtime/reshard.py), the gubstat tenant ledger (runtime/gubstat.py),
 the cold tier's promote-on-access hook (runtime/coldtier.py), the hot-key
 survival plane (runtime/hotkey.py) and owner-side admission leases
-(runtime/lease.py) and planet-scale regions (runtime/multiregion.py), but
-without the mesh backend and its collective GlobalEngine (ROADMAP queue 1,
-the mesh and collective GLOBAL): a sharded table is refused by
-DeviceConfig.
+(runtime/lease.py), planet-scale regions (runtime/multiregion.py) and, for
+a sharded table (DeviceConfig.num_shards > 1), the mesh backend
+(parallel/sharded.py) with its collective GlobalEngine
+(parallel/global_sync.py).
 """
 from __future__ import annotations
 
@@ -137,6 +137,19 @@ class Service:
         self.metrics = metrics or Metrics()
         if backend is not None:
             self.backend = backend
+        elif self.cfg.device.num_shards > 1:
+            # A sharded table: one shard a contiguous slice of the table,
+            # each served through the serve kernel on its views (full
+            # Store/Loader SPI, as the single-table backend).
+            from gubernator_tpu_torch.parallel.sharded import MeshBackend
+
+            self.backend = MeshBackend(
+                self.cfg.device,
+                clock=self.clock,
+                metrics=self.metrics,
+                store=self.cfg.store,
+                track_keys=(self.cfg.loader is not None),
+            )
         else:
             self.backend = TorchBackend(
                 self.cfg.device,
@@ -285,6 +298,27 @@ class Service:
             )
         self.global_mgr = GlobalManager(self)
         self.multi_region_mgr = MultiRegionManager(self)
+        # On a mesh backend, GLOBAL keys owned by THIS node serve from the
+        # collective engine's replicated cache and sync with one collective
+        # (hits -> owner, broadcast rows -> every shard) instead of the RPC
+        # loops — wired at construction like the reference's globalManager
+        # (gubernator.go:137, global.go:63-64).  The RPC GlobalManager still
+        # handles keys owned by OTHER nodes.
+        self.global_engine = None
+        self._collective_loop: Optional[CollectiveGlobalLoop] = None
+        from gubernator_tpu_torch.parallel.sharded import MeshBackend
+
+        if isinstance(self.backend, MeshBackend):
+            from gubernator_tpu_torch.parallel.global_sync import GlobalEngine
+
+            self.global_engine = GlobalEngine(
+                self.backend,
+                batch_limit=self.cfg.behaviors.global_batch_limit,
+            )
+            self.global_engine.on_synced = self._engine_synced
+            self._collective_loop = CollectiveGlobalLoop(
+                self, self.global_engine
+            )
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._closed = False
         self._started = False
@@ -304,6 +338,8 @@ class Service:
         self.multi_region_mgr.start()
         if self.regions is not None:
             self.regions.start()
+        if self._collective_loop is not None:
+            self._collective_loop.start()
         if self.reshard is not None:
             self._reshard_watch_task = asyncio.ensure_future(
                 self._reshard_watch_loop()
@@ -317,6 +353,10 @@ class Service:
         # deadline.
         loop = asyncio.get_running_loop()
         await loop.run_in_executor(self._dev_executor, self.backend.warmup)
+        if self.global_engine is not None:
+            await loop.run_in_executor(
+                self._dev_executor, self.global_engine.warmup
+            )
         if self.sketch_backend is not None:
             await loop.run_in_executor(
                 self._dev_executor, self.sketch_backend.warmup
@@ -940,6 +980,7 @@ class Service:
         mirrors: List[Tuple[int, PeerClient, RateLimitReq]] = []
         covered: List[Tuple[int, RateLimitReq, str, object]] = []
         region_serves: List[Tuple[int, RateLimitReq, str, str]] = []
+        engine_idx: List[int] = []
 
         reqs = self._strip_sketch_global(reqs)
 
@@ -998,9 +1039,17 @@ class Service:
                 if region_home is not None:
                     region_serves.append((i, req, key, region_home))
                     continue
-                local_idx.append(i)
-                local_cached.append(False)
-                local_owner_meta.append(None)
+                if is_global and self.global_engine is not None:
+                    self.metrics.getratelimit_counter.labels("global").inc()
+                    engine_idx.append(i)
+                    if has_behavior(req.behavior, Behavior.MULTI_REGION):
+                        # The engine path bypasses _check_local's owner-side
+                        # queueing — keep cross-region replication alive.
+                        self.multi_region_mgr.queue_hits(req)
+                else:
+                    local_idx.append(i)
+                    local_cached.append(False)
+                    local_owner_meta.append(None)
                 continue
             try:
                 peer = self.get_peer(key)
@@ -1037,6 +1086,14 @@ class Service:
                         if tp is not None:
                             forwards.append((i, tp, req, key))
                             continue
+                if is_global and self.global_engine is not None:
+                    # This node's mesh owns the key: replicated serving +
+                    # the collective sync instead of the RPC loops.
+                    self.metrics.getratelimit_counter.labels("global").inc()
+                    engine_idx.append(i)
+                    if has_behavior(req.behavior, Behavior.MULTI_REGION):
+                        self.multi_region_mgr.queue_hits(req)
+                    continue
                 self.metrics.getratelimit_counter.labels("local").inc()
                 local_idx.append(i)
                 local_cached.append(False)
@@ -1087,6 +1144,17 @@ class Service:
                     if local_owner_meta[j] is not None and not resp.error:
                         resp.metadata = {"owner": local_owner_meta[j]}
                     responses[i] = resp
+            if engine_idx:
+                eng_reqs = [reqs[i] for i in engine_idx]
+                loop = asyncio.get_running_loop()
+                eng_resps = await loop.run_in_executor(
+                    self._dev_executor,
+                    lambda: self.global_engine.check(eng_reqs),
+                )
+                for j, i in enumerate(engine_idx):
+                    responses[i] = eng_resps[j]
+                if self._collective_loop is not None:
+                    self._collective_loop.notify()
         finally:
             # Always await in-flight forwards — a local-check failure must
             # not orphan tasks whose hits were already applied on peers.
@@ -1861,6 +1929,30 @@ class Service:
             h.message = f"{h.message}|{slo}" if h.message else slo
         return h
 
+    def _engine_synced(self, pending) -> None:
+        """Bridge collective syncs to the RPC tier: after the engine applies
+        a window's hits on the auth table, broadcast the (now authoritative)
+        statuses to cross-NODE peers via the RPC GlobalManager.  Runs on a
+        device-executor thread, so hop to the loop for the asyncio queues."""
+        if self.local_picker.size() <= 1:
+            return  # single node: every shard already saw the broadcast rows
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return
+
+        def queue_all() -> None:
+            for p in pending.values():
+                self.global_mgr.queue_update(p.req)
+
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if running is loop:
+            queue_all()
+        else:
+            loop.call_soon_threadsafe(queue_all)
+
     async def close(self) -> None:
         """Flush managers, run the Loader save, shut down peers
         (gubernator.go:159-189)."""
@@ -1879,6 +1971,8 @@ class Service:
                 self._lease_sweep_task, return_exceptions=True
             )
             self._lease_sweep_task = None
+        if self._collective_loop is not None:
+            await self._collective_loop.close()
         await self.global_mgr.close()
         await self.multi_region_mgr.close()
         if self.regions is not None:
@@ -1989,6 +2083,56 @@ async def window_flush_loop(event, sync_wait_s, take, flush) -> None:
                 await flush(batch)
             except Exception as e:  # noqa: BLE001 — keep the cadence
                 log.error("window flush failed: %s", e)
+
+
+class CollectiveGlobalLoop:
+    """Drives GlobalEngine.sync on the global_sync_wait cadence — the
+    collective analog of the reference's runAsyncHits + runBroadcasts
+    timers (global.go:63-64, 96-119): the first queued hit opens a sync
+    window; everything queued within it syncs in one collective step.
+    (The batch-limit trigger lives in GlobalEngine.check itself.)
+    """
+
+    def __init__(self, service: Service, engine) -> None:
+        self.s = service
+        self.engine = engine
+        self.sync_wait_s = service.cfg.behaviors.global_sync_wait_s
+        self._event = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.ensure_future(
+                window_flush_loop(
+                    self._event, self.sync_wait_s,
+                    lambda: self.engine.pending, self._flush,
+                )
+            )
+
+    def notify(self) -> None:
+        """Hits were queued on the engine — open/extend a sync window."""
+        self._event.set()
+
+    async def _flush(self, _pending) -> None:
+        loop = asyncio.get_running_loop()
+        start = time.monotonic()
+        n = await loop.run_in_executor(
+            self.s._dev_executor, self.engine.sync
+        )
+        if n:
+            self.s.metrics.async_durations.observe(time.monotonic() - start)
+
+    async def close(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            await asyncio.gather(self._task, return_exceptions=True)
+            self._task = None
+        # Final flush so queued hits survive a graceful shutdown.
+        if self.engine.pending:
+            loop = asyncio.get_running_loop()
+            await loop.run_in_executor(
+                self.s._dev_executor, self.engine.sync
+            )
 
 
 class GlobalManager:

@@ -1,6 +1,7 @@
 """gubernator_tpu_torch stands alone: in a fresh interpreter where `jax` and
 the JAX package cannot be imported, the port imports and answers a check()
-on the CPU from both the exact engine and the sketch tier, and no module
+on the CPU from the exact engine, the sketch tier and a 4-shard mesh (whose
+collective GLOBAL engine syncs once), and no module
 named jax, gubernator_tpu or gubernator_tpu.* is ever loaded
 (gubernator_tpu_torch itself must pass the prefix test)."""
 from __future__ import annotations
@@ -52,10 +53,27 @@ SCRIPT = textwrap.dedent("""
     assert [x.remaining for x in sb.check(reqs)] == [1, 1]
     s = sb.check(reqs[:1])[0]
     assert (int(s.status), s.metadata) == (1, {"tier": "sketch"}), s
+    # The sharded table and the collective GLOBAL engine.
+    from gubernator_tpu_torch.parallel import global_sync, mesh, sharded
+
+    mb = sharded.MeshBackend(DeviceConfig(num_slots=1024, ways=8,
+                                          batch_size=16, num_shards=4,
+                                          platform="cpu"))
+    r = mb.check([RateLimitReq(name="iso", unique_key="k", hits=1, limit=5,
+                               duration=60_000)])[0]
+    assert (r.error, r.remaining) == ("", 4), r
+    eng = global_sync.GlobalEngine(mb)
+    g = RateLimitReq(name="iso", unique_key="g", hits=2, limit=5,
+                     duration=60_000, behavior=2)
+    assert eng.check([g])[0].remaining == 3
+    assert eng.sync() == 1
+    assert mb.get_cache_item("iso_g").remaining == 3
+    assert sum(mb.shard_occupancy()) == mb.occupancy() == 2
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
     for m in ("runtime.backend", "runtime.sketch_backend", "ops.sketch",
-              "ops.kernels.cms_kernel"):
+              "ops.kernels.cms_kernel", "parallel.mesh", "parallel.sharded",
+              "parallel.global_sync"):
         assert "gubernator_tpu_torch." + m in sys.modules, m
     print("ISOLATED-OK")
 """)

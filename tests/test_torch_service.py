@@ -5,8 +5,8 @@ The object path (`get_rate_limits`, `get_peer_rate_limits`), the GLOBAL
 broadcast receive (`update_peer_globals` through the port's
 `store_cached_rows`), `health_check` and the planes' peer RPCs answer as the
 JAX service answers; `MAX_BATCH_SIZE` raises the same ApiError; every
-configuration the port does not serve yet raises a ValueError that names its
-ROADMAP item; under the default environment both daemons grant leases
+configuration of the JAX package constructs, the sharded table included;
+under the default environment both daemons grant leases
 alike."""
 from __future__ import annotations
 
@@ -249,9 +249,20 @@ def test_oversized_batch_raises_the_same_api_error(frozen_clock):
 def test_unported_configurations_raise_naming_their_roadmap_item():
     cpu = pcfg.DeviceConfig(num_slots=256, ways=8, batch_size=16,
                             platform="cpu")
-    # The only refusal left is the sharded table (the mesh).
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 1, the mesh"):
-        pcfg.DeviceConfig(num_slots=256, ways=8, num_shards=2)
+    # Nothing is refused any more: the sharded table (the mesh) is
+    # served, by the mesh backend and the collective GLOBAL engine, and
+    # a geometry the JAX package rejects is rejected with its message.
+    from gubernator_tpu_torch.parallel.global_sync import GlobalEngine
+    from gubernator_tpu_torch.parallel.sharded import MeshBackend
+
+    svc = Service(pcfg.Config(device=pcfg.DeviceConfig(
+        num_slots=256, ways=8, batch_size=16, num_shards=2,
+        platform="cpu")))
+    assert isinstance(svc.backend, MeshBackend)
+    assert isinstance(svc.global_engine, GlobalEngine)
+    svc._dev_executor.shutdown()
+    with pytest.raises(ValueError, match="divisible by ways\\*num_shards"):
+        pcfg.DeviceConfig(num_slots=256, ways=8, num_shards=3)
     # The region plane is served.
     svc = Service(pcfg.Config(device=cpu,
                               region=pcfg.RegionConfig(enabled=True, name="a")))
