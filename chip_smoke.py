@@ -100,6 +100,24 @@ Phases (any failure exits non-zero and prints no result line):
      partition of east from west admits nothing past a carve, requeues the
      burns and applies them once after the heal.  Every K1 dispatch of the
      phase replays through the plain version.
+ 16. the sharded table on one card: a 4-shard MeshBackend at 2^24 slots
+     warmed to 10M keys answers phase 4's check() calls as a single table
+     does; the psum GlobalEngine's syncs leave the single table's rows;
+     a GUBER_MESH_WAYS=4 daemon serves pipelined, megaround and
+     persistent traffic; every per-shard K1 launch replays bit-exact.
+ 17. the benchmark entry points: 17a cli/bench at 2^24 slots, 10M keys,
+     262144 lanes a round and 4096 fed lanes (no skip, error or partial
+     fed result; its first timed K1 dispatch replayed bit-exact through
+     the plain ring_step on the CPU; staged batch 0's keys hold 1000 -
+     hits, or what re-entry after an eviction left, or are missing from a
+     full bucket; K1 timed at one 262144-lane round beside its byte
+     bound); 17b cli/bench_e2e with --seconds 1, depth 2, the pipelined
+     and persistent serve modes and every client mode (no error, platform
+     cuda, K1 and K2 launched, each cluster's first K1 and K2 dispatches
+     replayed bit-exact through the plain versions); 17c cli/microbench
+     --seconds 1 --recompile-audit (six scenarios with ops, each kernel's
+     library loaded, the first dispatches replayed); 17d graft.entry()'s
+     step against its plain version and dryrun_multichip(4) on the card.
 
 Phases 10-13 run with the JAX package's defaults: the hot-key and lease
 planes on, the flight recorder off, so no owner advertises pressure; each
@@ -111,6 +129,7 @@ JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -4177,6 +4196,453 @@ def phase_mesh(dev, smi, name) -> float:
     return err
 
 
+# -- phase 17: the benchmark entry points ----------------------------------
+BENCH_SLOTS = 1 << 24        # cli/bench's geometry (its CLI passes 2^24)
+BENCH_SPOT_KEYS = 65_536     # keys of staged batch 0 the spot check reads
+BENCH_E2E_SECONDS = 1.0
+BENCH_E2E_CONCURRENCY = 8    # cli/bench_e2e's default
+MICROBENCH_ARGS = ["--seconds", "1", "--recompile-audit"]
+BENCH_PATHS = {"serve_kernel": {}, "cms_kernel": {}}  # path -> launches
+
+
+def count_path(label: str) -> None:
+    """Record the K1 and K2 launches since the counters were set to 0 as
+    the launches of path `label`."""
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+
+    BENCH_PATHS["serve_kernel"][label] = serve_kernel.launches
+    BENCH_PATHS["cms_kernel"][label] = cms_kernel.launches
+    log(f"{label}: K1 launches {serve_kernel.launches}, K2 launches "
+        f"{cms_kernel.launches}")
+
+
+def zero_counts() -> None:
+    from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+
+    serve_kernel.launches = 0
+    cms_kernel.launches = 0
+
+
+class FirstDispatchReplay:
+    """17b-17c's witness that the harnesses' K1 and K2 dispatches give the
+    plain versions' answers.  Wraps K1 where it is called (the module
+    attribute serve_kernel.persistent_serve_step and the name
+    runtime/backend.py imported from it), K2 (cms_kernel.cms_multi_step)
+    and Cluster.start_with, which opens an epoch: one cluster of a
+    harness.  In each epoch the first REPLAYS dispatches on each table (or
+    shard) and each sketch that carry a hit are replayed at once, before
+    their caller goes on: through the plain ring_step or multi_step, on a copy
+    of the table or sketch as it was before the dispatch, on the card.  It
+    must equal the kernel bit for bit: responses, sequence word, the table
+    or sketch after, the claim words.  A dispatch is looked at only when
+    its stream is idle, so that no probe syncs behind queued work (a
+    measurement's dispatches queued behind a spinning kernel); at most
+    PROBES are looked at a table and epoch.  A mismatch is kept and raised by check(),
+    not in the serving thread."""
+
+    PROBES = 64
+    REPLAYS = 4
+
+    def __init__(self, label: str):
+        import threading
+
+        from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+        from gubernator_tpu_torch.runtime import backend
+        from gubernator_tpu_torch.testing.cluster import Cluster
+
+        self.label = label
+        self.lock = threading.Lock()
+        self.epoch = 0
+        self.probes = {}  # (epoch, kind, data_ptr) -> [probes, replays]
+        self.k1_launches = {}  # epoch -> K1 dispatches
+        self.replayed = {"k1": {}, "k2": {}}  # kind -> epoch -> replays
+        self.lanes = 0
+        self.failures = []
+        self.err = 0.0
+        self._k1 = serve_kernel.persistent_serve_step
+        self._k2 = cms_kernel.cms_multi_step
+        self._start = Cluster.__dict__["start_with"]
+        start = self._start.__func__
+
+        def start_with(cls, *a, **k):
+            with self.lock:
+                self.epoch += 1
+            return start(cls, *a, **k)
+
+        serve_kernel.persistent_serve_step = self.k1
+        backend.persistent_serve_step = self.k1
+        cms_kernel.cms_multi_step = self.k2
+        Cluster.start_with = classmethod(start_with)
+
+    def close(self) -> None:
+        from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
+        from gubernator_tpu_torch.runtime import backend
+        from gubernator_tpu_torch.testing.cluster import Cluster
+
+        serve_kernel.persistent_serve_step = self._k1
+        backend.persistent_serve_step = self._k1
+        cms_kernel.cms_multi_step = self._k2
+        Cluster.start_with = self._start
+
+    def _wanted(self, kind, t, has_hit):
+        """The epoch if this dispatch is to be replayed, else None."""
+        import torch
+
+        with self.lock:
+            ep = self.epoch
+            if kind == "k1":
+                self.k1_launches[ep] = self.k1_launches.get(ep, 0) + 1
+            n = self.probes.setdefault((ep, kind, t.data_ptr()), [0, 0])
+            if n[0] >= self.PROBES or n[1] >= self.REPLAYS:
+                return None
+            if t.device.type == "cuda" and not torch.cuda.current_stream(
+                    t.device).query():
+                return None
+            n[0] += 1
+        if not has_hit():
+            return None
+        with self.lock:
+            n[1] += 1
+        return ep
+
+    def _done(self, kind, ep, ok, what, err) -> None:
+        with self.lock:
+            by = self.replayed[kind]
+            by[ep] = by.get(ep, 0) + 1
+            self.err = max(self.err, err)
+            if not ok:
+                self.failures.append(f"{kind} in cluster {ep}: {what}")
+
+    def k1(self, table, qs, nows, seq, ways=8, claim=None, scratch=None):
+        import torch
+
+        from gubernator_tpu_torch.ops.kernels import serve_kernel
+        from gubernator_tpu_torch.ops.ring import ring_step
+        from gubernator_tpu_torch.ops.state import clone_table
+
+        ep = self._wanted("k1", table.key, lambda: bool(
+            ((qs[:, 10] != 0) & (qs[:, 1] != 0)).any()))
+        if ep is None:
+            return self._k1(table, qs, nows, seq, ways, claim, scratch)
+        before = clone_table(table)
+        out = self._k1(table, qs, nows, seq, ways, claim, scratch)
+        _, pr, ps = ring_step(before, qs, nows, seq, ways)
+        what = [n for n, same in (
+            ("responses", torch.equal(pr, out[1])),
+            ("sequence word", torch.equal(ps, out[2])),
+            ("table", tables_equal(out[0], before)),
+            ("claim words", claim is None or bool(
+                (claim == serve_kernel.INT32_MAX).all()))) if not same]
+        with self.lock:
+            self.lanes += int((qs[:, 10] != 0).sum())
+        self._done("k1", ep, not what, what, max_abs_err(pr, out[1]))
+        return out
+
+    def k2(self, state, kh, hits, lim, now):
+        import torch
+
+        from gubernator_tpu_torch.ops.sketch import SketchState, multi_step
+
+        ep = self._wanted("k2", state.cur, lambda: bool((hits != 0).any()))
+        if ep is None:
+            return self._k2(state, kh, hits, lim, now)
+        before = SketchState(*[x.clone() for x in state])
+        out = self._k2(state, kh, hits, lim, now)
+        ps, pp = multi_step(before, kh, hits, lim, int(now))
+        what = [n for n, same in (
+            ("outputs", torch.equal(pp, out[1])),
+            ("sketch", sketch_equal(out[0], ps))) if not same]
+        self._done("k2", ep, not what, what, max_abs_err(pp, out[1]))
+        return out
+
+    def check(self, need_k2: bool) -> float:
+        """Fails on a mismatch, on no replay of a kernel the path needs,
+        and on a cluster that launched more than PROBES K1 dispatches with
+        none replayed.  Returns max_abs_err over the replays."""
+        if self.failures:
+            raise AssertionError(f"{self.label}: replays differ from the "
+                                 f"plain versions: {self.failures}")
+        k1, k2 = self.replayed["k1"], self.replayed["k2"]
+        bare = {ep: n for ep, n in self.k1_launches.items() if ep not in k1}
+        if (not k1 or (need_k2 and not k2)
+                or any(n > self.PROBES for n in bare.values())):
+            raise AssertionError(
+                f"{self.label}: K1 replays by cluster {k1}, K2 {k2}; K1 "
+                f"dispatches of the clusters with none replayed: {bare}")
+        log(f"{self.label}: {sum(k1.values())} K1 dispatches ({self.lanes} "
+            f"active lanes) in {len(k1)} of {len(self.k1_launches)} "
+            f"clusters and {sum(k2.values())} K2 dispatches replayed "
+            f"bit-exact through the plain versions; K1 dispatches of the "
+            f"clusters with none replayed (no hit among the first "
+            f"{self.PROBES}): {bare}")
+        return self.err
+
+
+def phase_bench(dev, name: str, smi: str) -> float:
+    """17a: cli/bench at 2^24 slots and 10M keys, B = 262144, fed 4096.
+    Records the first timed K1 dispatch (the table before and after it, its
+    round and responses) and replays it through the plain ring_step on the
+    CPU; spot-checks staged batch 0's rows; times one 262144-lane round.
+    Returns max_abs_err of the replay."""
+    import torch
+
+    from gubernator_tpu_torch.cli import bench
+    from gubernator_tpu_torch.ops.kernels import serve_kernel
+    from gubernator_tpu_torch.ops.ring import ring_step
+    from gubernator_tpu_torch.ops.state import SlotTable, clone_table
+    from gubernator_tpu_torch.ops.step import gather_rows
+
+    t_phase = time.perf_counter()
+    k1 = serve_kernel.persistent_serve_step
+    rec = {}
+    seen = [0]
+
+    def recording(table, qs, nows, seq, ways=8, claim=None, scratch=None):
+        seen[0] += qs.shape[0] == 1
+        if seen[0] != 3 or qs.shape[0] != 1 or rec:
+            return k1(table, qs, nows, seq, ways, claim, scratch)
+        # The third one-round dispatch is the first timed one: the populate
+        # dispatches many rounds, two warm-up rounds go before it, and the
+        # fed rounds come after the kernel metric.
+        rec["before"] = clone_table(table)
+        out = k1(table, qs, nows, seq, ways, claim, scratch)
+        rec.update(after=clone_table(out[0]), qs=qs.clone(),
+                   nows=nows.clone(), seq=seq.clone(), resps=out[1].clone())
+        return out
+
+    serve_kernel.persistent_serve_step = recording
+    zero_counts()
+    try:
+        r = bench.run(BENCH_SLOTS, dev)
+    finally:
+        serve_kernel.persistent_serve_step = k1
+    count_path("phase 17a: cli/bench")
+    line = r.line
+    log(f"phase 17a: {json.dumps(line)}")
+    bad = sorted((bench.FAILED_KEYS | {"skipped"}) & set(line))
+    if bad or BENCH_PATHS["serve_kernel"]["phase 17a: cli/bench"] == 0:
+        raise AssertionError(f"phase 17a: bench line has {bad}")
+    # The claim words are shared by the table and the fed phase's clone.
+    if dev.type == "cuda" and not bool(
+            (r.claim == serve_kernel.INT32_MAX).all()):
+        raise AssertionError("phase 17a: claim words not restored")
+    if not rec:
+        raise AssertionError("phase 17a: no timed dispatch recorded")
+    # Replay the recorded dispatch on the CPU.
+    t0 = time.perf_counter()
+    cpu = SlotTable(*[c.cpu() for c in rec["before"]])
+    cpu, presps, pseq = ring_step(cpu, rec["qs"].cpu(), rec["nows"].cpu(),
+                                  rec["seq"].cpu(), WAYS)
+    kresps = rec["resps"].cpu()
+    if not torch.equal(kresps, presps):
+        bad = (kresps != presps).nonzero()[:5].tolist()
+        raise AssertionError(f"phase 17a: responses differ at {bad}")
+    if not tables_equal(SlotTable(*[c.cpu() for c in rec["after"]]), cpu):
+        raise AssertionError("phase 17a: table after the dispatch differs "
+                             "from the plain replay's")
+    err = max_abs_err(kresps, presps)
+    act = rec["qs"][:, 10] != 0
+    log(f"phase 17a: timed dispatch (qs {list(rec['qs'].shape)}, "
+        f"{int(act.sum())} active, {int(kresps[:, 5].sum())} found) "
+        f"replayed bit-exact through the plain ring_step on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del rec["before"], rec["after"], cpu
+    # Spot check over the first BENCH_SPOT_KEYS keys of staged batch 0,
+    # whose hits are the populate's one and one a round that carried them.
+    # A key whose bucket holds at most INSERT_ROUNDS keys of the pool is
+    # never evicted and no claim round runs out for it: it holds exactly
+    # 1000 - hits.  At the bench's ~60% load a fuller bucket evicts rows
+    # (and a fourth new key of a bucket in one round is answered but not
+    # stored), as in the JAX package (tests/test_torch_bench.py holds the
+    # two packages' tables equal at that load): such a key either holds
+    # what the hits since it last entered left, 1000 - hits up to 999, or
+    # is missing from a bucket whose ways all hold other live keys.
+    from gubernator_tpu_torch.ops.step import INSERT_ROUNDS
+
+    nb = BENCH_SLOTS // WAYS
+    per_bucket = np.bincount(r.key_pool & (nb - 1), minlength=nb)
+    sample = r.staged_idx[0][:BENCH_SPOT_KEYS]
+    keys = r.key_pool[sample]
+    small = per_bucket[keys & (nb - 1)] <= INSERT_ROUNDS
+    times = np.bincount(r.applied, minlength=bench.N_STAGED)
+    hits = 1 + sum(int(times[i]) * np.isin(sample, r.staged_idx[i])
+                   for i in range(bench.N_STAGED))
+    packed, rf = gather_rows(r.table, torch.from_numpy(keys).to(dev),
+                             r.now, WAYS)
+    packed, rf = packed.cpu().numpy(), rf.cpu().numpy()
+    rows = ((keys & (nb - 1))[:, None] * WAYS + np.arange(WAYS)).ravel()
+    ways_keys = r.table.key[torch.from_numpy(rows).to(dev)].cpu().numpy()
+    ways_keys = ways_keys.reshape(-1, WAYS)
+    found = packed[0] == 1
+    want = np.maximum(1000 - hits, 0)
+    got = np.where(packed[2] == 1, rf, packed[5])
+    full = (ways_keys != 0).all(axis=1) & (ways_keys != keys[:, None]).all(
+        axis=1)
+    bad = {
+        "small bucket, not exact": int((small & ~(found & (got == want)))
+                                       .sum()),
+        "found, outside 1000 - hits..999": int(
+            (found & ((got < want) | (got > 999))).sum()),
+        "missing from a bucket with room": int((~found & ~full).sum()),
+    }
+    if int(small.sum()) < BENCH_SPOT_KEYS // 8 or any(bad.values()):
+        raise AssertionError(f"phase 17a: spot check failed over "
+                             f"{len(sample)} keys ({int(small.sum())} in "
+                             f"small buckets): {bad}")
+    log(f"phase 17a: spot check: {len(sample)} keys of staged batch 0: "
+        f"{int(small.sum())} in buckets of <= {INSERT_ROUNDS} pool keys "
+        f"hold 1000 - hits; of the rest {int((found & ~small).sum())} "
+        f"found ({int((found & ~small & (got == want)).sum())} at 1000 - "
+        f"hits, the others re-entered), {int((~found).sum())} missing from "
+        f"full buckets (hits {int(hits.min())}-{int(hits.max())}, "
+        f"{len(r.applied)} rounds applied after the populate)")
+    # K1 at one 262144-lane round, L2 flushed, beside its byte bound.
+    qs, nows, seq = rec["qs"], rec["nows"], rec["seq"]
+    scratch = torch.empty(serve_kernel.scratch_words(dev, 1, qs.shape[2]),
+                          dtype=torch.int32, device=dev)
+    kern = lambda: serve_kernel.persistent_serve_step(  # noqa: E731
+        r.table, qs, nows, seq, WAYS, r.claim, scratch)
+    _, first, _ = kern()
+    bound = useful_bytes(qs, first, WAYS) / hbm_bytes_per_s(name) * 1e3
+    kern()
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(kern, 20, l2.zero_)
+    log(f"phase 17a ({smi}): kernel {line['value']:.1f} decisions/s, fed "
+        f"{line['fed_decisions_per_sec']:.1f} decisions/s at "
+        f"{line['fed_batch']} lanes; K1 at one {qs.shape[2]}-lane round "
+        f"(L2 flushed): {ms:.4f} ms, bound {bound:.4f} ms (bytes); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del r, rec, l2, scratch
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_bench_e2e(smi: str) -> float:
+    """17b: cli/bench_e2e with --seconds 1 --pipeline-depth 2 --serve-mode
+    pipelined,persistent --client-mode python,native,leased, in this
+    process.  Fails on any line with an error or a platform other than
+    cuda, unless the cms config launched K2, and unless each cluster's
+    first dispatches replay bit-exact (FirstDispatchReplay).  Returns
+    max_abs_err of the replays."""
+    from gubernator_tpu_torch.cli import bench_e2e
+
+    t0 = time.perf_counter()
+    zero_counts()
+    rec = FirstDispatchReplay("phase 17b")
+    try:
+        # The harness's JSON lines go to stderr: stdout ends in the
+        # result lines.
+        with contextlib.redirect_stdout(sys.stderr):
+            lines = bench_e2e.bench(
+                BENCH_E2E_SECONDS, BENCH_E2E_CONCURRENCY, depth_sweep=(2,),
+                serve_sweep=("pipelined", "persistent"),
+                client_modes=("python", "native", "leased"))
+    finally:
+        rec.close()
+    count_path("phase 17b: cli/bench_e2e")
+    errors = [x for x in lines if "error" in x]
+    if errors:
+        raise AssertionError(f"phase 17b: lines with an error: {errors}")
+    summary = lines[-1]
+    if summary.get("platform") != "cuda":
+        raise AssertionError(f"phase 17b: summary {summary}")
+    if not (BENCH_PATHS["serve_kernel"]["phase 17b: cli/bench_e2e"]
+            and BENCH_PATHS["cms_kernel"]["phase 17b: cli/bench_e2e"]):
+        raise AssertionError("phase 17b: K1 or K2 never launched")
+    err = rec.check(need_k2=True)
+    by = {x["config"]: x for x in lines}
+    bound = by["colocated_latency_bound"]
+    log(f"phase 17b ({smi}): {len(lines)} lines in "
+        f"{time.perf_counter() - t0:.1f} s; device_step_exec "
+        f"{bound['device_step_exec_ms']} ms ({bound['device_step_exec_src']})"
+        f"; merge turnaround {bound['rig_merge_turnaround_ms']} ms")
+    for x in lines:
+        if "checks_per_sec" in x:
+            log(f"phase 17b: {x['config']}"
+                f"{' ' + x['serve_mode'] if 'serve_mode' in x else ''}"
+                f"{' ' + x['client_mode'] if 'client_mode' in x else ''}: "
+                f"{x['checks_per_sec']} checks/s, p50 {x['p50_ms']} ms, "
+                f"p99 {x['p99_ms']} ms")
+    return err
+
+
+def phase_microbench(smi: str) -> float:
+    """17c: cli/microbench --seconds 1 --recompile-audit, in this process:
+    six scenario lines with ops > 0, each kernel's library loaded, and
+    each daemon's first dispatches replayed bit-exact
+    (FirstDispatchReplay).  Returns max_abs_err of the replays."""
+    import asyncio
+
+    from gubernator_tpu_torch.cli import microbench
+
+    zero_counts()
+    rec = FirstDispatchReplay("phase 17c")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            lines = asyncio.run(microbench.run(
+                microbench.parse_args(MICROBENCH_ARGS)))
+    finally:
+        rec.close()
+    count_path("phase 17c: cli/microbench")
+    scen = [x for x in lines if x["scenario"] != "recompile_audit"]
+    if len(scen) != 6 or not all(x["ops"] > 0 for x in scen):
+        raise AssertionError(f"phase 17c: scenarios {scen}")
+    audit = lines[-1]["kernels"]
+    if any(k["builds"] != 1 for k in audit.values()):
+        raise AssertionError(f"phase 17c: audit {audit}")
+    for x in scen:
+        log(f"phase 17c ({smi}): {x['scenario']}: {x['ops_per_sec']} ops/s, "
+            f"p50 {x['p50_ms']} ms, p99 {x['p99_ms']} ms")
+    log(f"phase 17c: recompile audit {json.dumps(audit)}")
+    return rec.check(need_k2=True)
+
+
+def phase_graft(dev) -> float:
+    """17d: graft.entry()'s step once on the card against its plain version
+    on the CPU, then dryrun_multichip(4) with every assertion.  Returns
+    max_abs_err of the step."""
+    import torch
+
+    from gubernator_tpu_torch import graft
+    from gubernator_tpu_torch.ops.state import SlotTable
+
+    zero_counts()
+    fn, (table, q, now) = graft.entry()
+    table, resp = fn(table, q, now)
+    torch.cuda.synchronize()
+    pfn, (ptable, pq, pnow) = graft.entry(device="cpu")
+    ptable, presp = pfn(ptable, pq, pnow)
+    if not torch.equal(resp.cpu(), presp):
+        raise AssertionError("phase 17d: entry() step differs from plain")
+    if not tables_equal(SlotTable(*[c.cpu() for c in table]), ptable):
+        raise AssertionError("phase 17d: entry() table differs from plain")
+    graft.dryrun_multichip(4)
+    count_path("phase 17d: graft")
+    return max_abs_err(resp.cpu(), presp)
+
+
+def phase_entry_points(dev, name: str, smi: str) -> float:
+    """Phase 17: the benchmark entry points on the card.  Returns
+    max_abs_err over its replays."""
+    import torch
+
+    from gubernator_tpu_torch.core import clock as clock_mod
+
+    t_phase = time.perf_counter()
+    err = phase_bench(dev, name, smi)
+    # The JAX harnesses run on the live clock (a LeasedClient judges a
+    # grant's expiry by time.time()).
+    clock_mod.unfreeze()
+    try:
+        err = max(err, phase_bench_e2e(smi), phase_microbench(smi),
+                  phase_graft(dev))
+    finally:
+        clock_mod.freeze(T0_NS)
+    torch.cuda.synchronize()
+    log(f"phase 17 ({smi}): {time.perf_counter() - t_phase:.1f} s")
+    return err
+
+
 STATE_OP_SOURCES = {
     "load_rows": ("gubernator_tpu_torch/ops/step.py",
                   "gubernator_tpu/ops/step.py:511"),
@@ -4254,12 +4720,14 @@ def main() -> int:
                phase_regions(dev, smi, state))
     state.close()
     merr = phase_mesh(dev, smi, name)
-    k1["max_abs_err"] = max(k1["max_abs_err"], derr, merr)
-    k2["max_abs_err"] = max(k2["max_abs_err"], derr, merr)
-    # Phase 16's launches by path, beside the main path's count.
+    berr = phase_entry_points(dev, name, smi)
+    k1["max_abs_err"] = max(k1["max_abs_err"], derr, merr, berr)
+    k2["max_abs_err"] = max(k2["max_abs_err"], derr, merr, berr)
+    # Phases 16-17's launches by path, beside the main path's count.
     for k in (k1, k2):
         k["launches_by_path"] = {"main path": k["launches"],
-                                 **MESH_PATHS[k["name"]]}
+                                 **MESH_PATHS[k["name"]],
+                                 **BENCH_PATHS[k["name"]]}
     # The result lines carry no time prefix: they are parsed as JSON.
     print(json.dumps(state_ops_line(times)), flush=True)
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -1,8 +1,9 @@
 """gubernator_tpu_torch stands alone: in a fresh interpreter where `jax` and
 the JAX package cannot be imported, the port imports and answers a check()
 on the CPU from the exact engine, the sketch tier and a 4-shard mesh (whose
-collective GLOBAL engine syncs once), and no module
-named jax, gubernator_tpu or gubernator_tpu.* is ever loaded
+collective GLOBAL engine syncs once), the bench entry points, the graft
+entry (one decision step), the oracle and raceguard import, and no module
+named jax, gubernator_tpu, gubernator_tpu.* or tools is ever loaded
 (gubernator_tpu_torch itself must pass the prefix test)."""
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ SCRIPT = textwrap.dedent("""
 
     def blocked(name):
         top = name.split(".")[0]
-        return top in ("jax", "jaxlib", "gubernator_tpu")
+        return top in ("jax", "jaxlib", "gubernator_tpu", "tools")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -69,11 +70,27 @@ SCRIPT = textwrap.dedent("""
     assert eng.sync() == 1
     assert mb.get_cache_item("iso_g").remaining == 3
     assert sum(mb.shard_occupancy()) == mb.occupancy() == 2
+    # The bench entry points, the graft entry, the oracle and raceguard.
+    from gubernator_tpu_torch import graft
+    from gubernator_tpu_torch.cli import bench, bench_e2e, microbench
+    from gubernator_tpu_torch.core import pymodel
+    from gubernator_tpu_torch.testing import raceguard
+
+    fn, (tbl, q, now) = graft.entry(device="cpu")
+    tbl, resp = fn(tbl, q, now)
+    assert resp[2, :64].tolist() == [99] * 64
+    assert bench.batch_from_keys(q[0]).shape == (12, 256)
+    assert pymodel.PyRateLimiter().get_rate_limit(RateLimitReq(
+        name="iso", unique_key="k", hits=1, limit=5,
+        duration=60_000)).remaining == 4
+    assert callable(bench_e2e.main) and callable(microbench.main)
+    assert raceguard.LockOrderGraph().record(1, 2) is False
     bad = sorted(m for m in sys.modules if blocked(m))
     assert not bad, bad
     for m in ("runtime.backend", "runtime.sketch_backend", "ops.sketch",
               "ops.kernels.cms_kernel", "parallel.mesh", "parallel.sharded",
-              "parallel.global_sync"):
+              "parallel.global_sync", "graft", "cli.bench", "cli.bench_e2e",
+              "cli.microbench", "core.pymodel", "testing.raceguard"):
         assert "gubernator_tpu_torch." + m in sys.modules, m
     print("ISOLATED-OK")
 """)
