@@ -100,11 +100,15 @@ Phases (any failure exits non-zero and prints no result line):
      partition of east from west admits nothing past a carve, requeues the
      burns and applies them once after the heal.  Every K1 dispatch of the
      phase replays through the plain version.
- 16. the sharded table on one card: a 4-shard MeshBackend at 2^24 slots
-     warmed to 10M keys answers phase 4's check() calls as a single table
-     does; the psum GlobalEngine's syncs leave the single table's rows;
-     a GUBER_MESH_WAYS=4 daemon serves pipelined, megaround and
-     persistent traffic; every per-shard K1 launch replays bit-exact.
+ 16. the sharded table, shard s on visible card s % count, each shard
+     with its own table, claim words, stream and K1 scratch (one card: four
+     streams on it): the placement line; a 4-shard MeshBackend at 2^24
+     slots warmed to 10M keys answers phase 4's check() calls as a single
+     table does; the psum GlobalEngine's syncs (cross-shard copies) leave
+     the single table's rows; a GUBER_MESH_WAYS=4 daemon serves pipelined,
+     megaround and persistent traffic; every per-shard K1 launch replays
+     bit-exact from a copy of its shard's own table; each shard's K1 ms,
+     a dispatch over the shards' streams and the sync's copies timed.
  17. the benchmark entry points: 17a cli/bench at 2^24 slots, 10M keys,
      262144 lanes a round and 4096 fed lanes (no skip, error or partial
      fed result; its first timed K1 dispatch replayed bit-exact through
@@ -3573,16 +3577,71 @@ MESH_CLIENTS = DAEMON_CLIENTS
 MESH_RPCS = 3
 MESH_SMALL_CLIENTS = SMALL_CLIENTS
 MESH_PATHS = {"serve_kernel": {}, "cms_kernel": {}}  # path -> launches
-MESH_TIMES = {}
+
+
+def sync_all() -> None:
+    """Wait for every visible card (every stream on it)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def clone_shards(tables):
+    """Copies of a mesh's per-shard tables, each on its own device, taken
+    while every card is idle."""
+    from gubernator_tpu_torch.ops.state import clone_table
+
+    sync_all()
+    out = [clone_table(t) for t in tables]
+    sync_all()
+    return out
+
+
+def span_ms(fn, iters: int, flush, places) -> float:
+    """Mean ms per call of fn(), whose work goes out on the streams of the
+    shards `places`.  On one card, CUDA events: flush(), then an event on
+    the current stream that every shard's stream waits on, fn(), and an
+    event on the current stream after it has waited on every shard's
+    stream.  Across cards, the host clock from idle cards to the
+    synchronisation of every card."""
+    import torch
+
+    if len({p.device for p in places}) > 1:
+        total = 0.0
+        for _ in range(iters):
+            flush()
+            sync_all()
+            t0 = time.perf_counter()
+            fn()
+            sync_all()
+            total += time.perf_counter() - t0
+        return total / iters * 1e3
+    pairs = []
+    cur = torch.cuda.current_stream()
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for p in places:
+            p.stream.wait_event(start)
+        fn()
+        for p in places:
+            cur.wait_stream(p.stream)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 class MeshRecorder:
     """Keeps, in table order, every per-shard K1 launch of a mesh backend
     and its GlobalEngine (the wrapper `serve_kernel.persistent_serve_step`,
-    which parallel/sharded.mesh_ring_step calls once a shard), every
-    broadcast upsert of a sync into a cache shard, and every K2 dispatch of
-    a sketch backend.  Nothing is copied: each input is a fresh tensor per
-    dispatch."""
+    which parallel/sharded.mesh_ring_step calls once a shard, on the
+    shard's own table), every broadcast upsert of a sync into a cache
+    replica, and every K2 dispatch of a sketch backend.  Nothing is copied:
+    each input is a fresh tensor per dispatch."""
 
     def __init__(self, be, eng=None, sb=None):
         from gubernator_tpu_torch.ops.kernels import serve_kernel
@@ -3590,15 +3649,12 @@ class MeshRecorder:
 
         self.be, self.eng, self.sb = be, eng, sb
         self.n = be.n
-        self.tables = {"auth": be.table}
+        self.tables = {"auth": be.tables}
         if eng is not None:
-            self.tables["cache"] = eng.cache_table
-        where = {}
-        for label, t in self.tables.items():
-            L = t.key.shape[0] // self.n
-            for s in range(self.n):
-                where[t.key.data_ptr() + s * L * t.key.element_size()] = (
-                    label, s)
+            self.tables["cache"] = eng.cache_tables
+        where = {t.key.data_ptr(): (label, s)
+                 for label, ts in self.tables.items()
+                 for s, t in enumerate(ts)}
         self.events, self.k2 = [], []
         self._k1, self._bcast = (serve_kernel.persistent_serve_step,
                                  global_sync.store_cached_rows)
@@ -3642,22 +3698,23 @@ class MeshRecorder:
 
     def replay(self, dev, starts, sketch=None) -> float:
         """Every recorded event again, in order, on copies of the starting
-        tables (`starts`: label -> table): each K1 launch through the plain
-        ring_step on the same shard's views of the copy, each broadcast
-        upsert through the same torch op; the K2 dispatches through the
-        plain multi_step on a copy of the sketch.  Requires every output,
-        the final tables and sketch and the claim words equal."""
+        tables (`starts`: label -> per-shard tables, clone_shards): each K1
+        launch through the plain ring_step on the copy of the same shard's
+        own table, each broadcast upsert through the same torch op; the K2
+        dispatches through the plain multi_step on a copy of the sketch.
+        Requires every output, the final tables and sketch and the claim
+        words equal."""
         import torch
 
         from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
         from gubernator_tpu_torch.ops.ring import ring_step
         from gubernator_tpu_torch.ops.sketch import multi_step
-        from gubernator_tpu_torch.parallel.mesh import shard_view
 
         before = serve_kernel.launches, cms_kernel.launches
         err = 0.0
+        sync_all()
         for j, ev in enumerate(self.events):
-            view = shard_view(starts[ev[1]], ev[2], self.n)
+            view = starts[ev[1]][ev[2]]
             if ev[0] == "bcast":
                 self._bcast(view, ev[3], ev[4], WAYS)
                 continue
@@ -3677,18 +3734,19 @@ class MeshRecorder:
                 raise AssertionError(f"K2 dispatch {j}: outputs differ "
                                      "from the plain version's")
             err = max(err, max_abs_err(pp, packed))
-        torch.cuda.synchronize()
+        sync_all()
         if (serve_kernel.launches, cms_kernel.launches) != before:
             raise AssertionError("the plain replay launched a kernel")
         for label, live in self.tables.items():
-            if not tables_equal(live, starts[label]):
-                raise AssertionError(f"the {label} table differs from the "
-                                     "plain replay's")
+            for s, (t, want) in enumerate(zip(live, starts[label])):
+                if not tables_equal(t, want):
+                    raise AssertionError(f"the {label} table's shard {s} "
+                                         "differs from the plain replay's")
         if self.sb is not None and not sketch_equal(self.sb.state, sketch):
             raise AssertionError("the sketch differs from the plain "
                                  "replay's")
-        claims = [self.be.claim] + ([self.eng.cache_claim]
-                                    if self.eng is not None else [])
+        claims = list(self.be.claims) + (list(self.eng.cache_claims)
+                                         if self.eng is not None else [])
         for claim in claims:
             if claim is not None and not bool(
                     (claim == serve_kernel.INT32_MAX).all()):
@@ -3701,11 +3759,12 @@ def mesh_warm(be, ref, dev, label, keys=None) -> None:
     through K1, token:leaky 2:1, each fingerprint placed in its own shard's
     lanes (hash bits 32-33 are the shard of a 4-shard mesh); the same
     fingerprints, as rounds of BATCH lanes, go into the single-table
-    `ref` when one is given.  The rows are stamped a minute before the
-    clock: a full bucket's least recently touched row is then a warm row,
-    never a row of the traffic, whichever layout the bucket has (a tie of
-    stamps breaks by way index, which differs between the mesh's buckets
-    and the single table's)."""
+    `ref` when one is given.  The blocks are made on `dev` and the mesh
+    carries each shard's part to its card.  The rows are stamped a minute
+    before the clock: a full bucket's least recently touched row is then a
+    warm row, never a row of the traffic, whichever layout the bucket has
+    (a tie of stamps breaks by way index, which differs between the mesh's
+    buckets and the single table's)."""
     import torch
 
     keys = WARM_KEYS if keys is None else keys
@@ -3744,7 +3803,7 @@ def mesh_warm(be, ref, dev, label, keys=None) -> None:
         launches += 1
         if fed >= keys:
             k = 1
-    torch.cuda.synchronize()
+    sync_all()
     log(f"{label}: fed {fed} fingerprints in {launches} mesh dispatches "
         f"({launches * n} K1 launches) in {time.perf_counter() - t0:.3f} s; "
         f"shard occupancy {be.shard_occupancy()} of {be.local_slots} slots "
@@ -3762,8 +3821,6 @@ def phase_mesh_library(dev, smi, name, clock):
     from gubernator_tpu_torch.core.config import DeviceConfig
     from gubernator_tpu_torch.ops.kernels import serve_kernel
     from gubernator_tpu_torch.ops.ring import ring_step
-    from gubernator_tpu_torch.ops.state import clone_table
-    from gubernator_tpu_torch.parallel.mesh import claim_view, shard_view
     from gubernator_tpu_torch.parallel.sharded import (
         MeshBackend,
         mesh_ring_step,
@@ -3780,7 +3837,7 @@ def phase_mesh_library(dev, smi, name, clock):
     be.warmup()
     ref.warmup()
     mesh_warm(be, ref, dev, "phase 16a")
-    start = clone_table(be.table)
+    start = clone_shards(be.tables)
     batches = make_batches(np.random.default_rng(SEED + 1600))
     rec = MeshRecorder(be)
     got, check_s = [], 0.0
@@ -3815,45 +3872,80 @@ def phase_mesh_library(dev, smi, name, clock):
         f"{n} shards: {k1n} K1 launches (one a shard a check()), every "
         f"answer equal to the single-table TorchBackend's on the same "
         f"clock; {len(rec.events)} per-shard launches replayed through the "
-        f"plain version on a copy of the shards' views in "
+        f"plain version on a copy of each shard's own table in "
         f"{time.perf_counter() - t0:.3f} s: responses, table, claim words "
         f"bit-exact; occupancy {be.occupancy()}")
 
-    # Timing: check 0's launches again, per shard and as one dispatch.
-    l2_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    flush = l2_buf.zero_
-    first = [ev for ev in rec.events[:n]]
-    nows, k = first[0][4], first[0][3].shape[0]
-    seq1 = torch.zeros(1, dtype=torch.int64, device=dev)
-    scratch = be._scratch_for(k, first[0][3].shape[2])
-    per_shard, bounds = [], []
-    for _, _, s, qs, _, _, resps in first:
-        view, claim = shard_view(be.table, s, n), claim_view(be.claim, s, n)
-        per_shard.append(cuda_ms(lambda: serve_kernel.persistent_serve_step(
-            view, qs, nows, seq1, WAYS, claim, scratch), 10, flush))
-        bounds.append(useful_bytes(qs, resps, WAYS) / hbm_bytes_per_s(name)
-                      * 1e3)
-    block = torch.stack([ev[3] for ev in first], dim=2).contiguous()
-    seqn = torch.zeros(n, dtype=torch.int64, device=dev)
-    grid_ms = cuda_ms(lambda: mesh_ring_step(
-        be.table, block, nows, seqn, n, WAYS, be.claim, scratch), 10, flush)
-    plain_ms = cuda_ms(lambda: [ring_step(shard_view(start, ev[2], n),
-                                          ev[3], nows, seq1, WAYS)
-                                for ev in first], 2, flush)
-    _, busy, by_name = profile_device(lambda: mesh_ring_step(
-        be.table, block, nows, seqn, n, WAYS, be.claim, scratch))
+    # Timing: check 0's launches again, per shard on its own stream, as
+    # one dispatch over the shards' streams, and (on one card) as the same
+    # four launches on one stream.
+    sync_all()
+    cards = sorted({p.device for p in be.shards}, key=str)
+    l2 = {d: torch.empty(256 << 20, dtype=torch.uint8, device=d)
+          for d in cards}
+
+    def flush_all():
+        for buf in l2.values():
+            buf.zero_()
+
+    first = rec.events[:n]
+    nows, k, B = first[0][4], first[0][3].shape[0], first[0][3].shape[2]
+    per_shard, bounds = [], {d: 0.0 for d in cards}
+    for _, _, s, qs, nw, _, resps in first:
+        place = be.shards[s]
+        seq1 = torch.zeros((), dtype=torch.int64, device=place.device)
+        with place.on_stream():
+            scratch = place.scratch_for(k, B)
+            per_shard.append(cuda_ms(
+                lambda: serve_kernel.persistent_serve_step(
+                    be.tables[s], qs, nw, seq1, WAYS, be.claims[s],
+                    scratch), 10, l2[place.device].zero_))
+        bounds[place.device] += (useful_bytes(qs, resps, WAYS)
+                                 / hbm_bytes_per_s(name) * 1e3)
+    qparts = [ev[3] for ev in first]
+    nparts = [ev[4] for ev in first]
+    seqs = [torch.zeros((), dtype=torch.int64, device=p.device)
+            for p in be.shards]
+
+    def dispatch():
+        return mesh_ring_step(be.shards, be.tables, qparts, nparts, seqs,
+                              WAYS, be.claims)
+
+    sync_all()
+    grid_ms = span_ms(dispatch, 10, flush_all, be.shards)
+    one_ms = None
+    if len(cards) == 1:
+        one_scratch = torch.empty(serve_kernel.scratch_words(dev, k, B),
+                                  dtype=torch.int32, device=dev)
+        one_ms = cuda_ms(lambda: [serve_kernel.persistent_serve_step(
+            be.tables[s], qparts[s], nparts[s], seqs[s], WAYS, be.claims[s],
+            one_scratch) for s in range(n)], 10, flush_all)
+    plain_ms = span_ms(lambda: [ring_step(start[ev[2]], ev[3], ev[4],
+                                          seqs[ev[2]], WAYS)
+                                for ev in first], 2, flush_all, be.shards)
+    _, busy, by_name = profile_device(lambda: (dispatch(), sync_all()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"phase 16a ({smi}): torch.profiler, one dispatch of {n}: device "
-        f"busy {busy:.4f} ms; " + "; ".join(f"{k} {v:.4f} ms" for k, v in top)
+    log(f"phase 16a ({smi}): torch.profiler, one dispatch of {n} on "
+        f"{n} streams: device busy {busy:.4f} ms; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in top)
         if by_name else "phase 16a: torch.profiler recorded no device time "
         "for one dispatch")
-    log(f"phase 16a ({smi}): K1 on one shard's views (qs "
-        f"{list(first[0][3].shape)}, L2 flushed), ms per launch by shard: "
-        + ", ".join(f"{m:.4f}" for m in per_shard)
-        + f"; one dispatch of {n} (the block's shard-major copy included) "
-        f"{grid_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{sum(bounds):.4f} ms (by shard "
-        + ", ".join(f"{b:.4f}" for b in bounds) + ")")
+    bound = max(bounds.values())
+    log(f"phase 16a ({smi}): K1 on each shard's own table, on its own "
+        f"stream (qs {list(first[0][3].shape)}, L2 flushed), ms per launch "
+        "by shard: " + ", ".join(
+            f"{m:.4f} ({be.shards[s].device})"
+            for s, m in enumerate(per_shard))
+        + f"; one dispatch of {n} over the shards' {n} streams "
+        f"{grid_ms:.4f} ms" + (
+            f"; the same {n} launches on one stream {one_ms:.4f} ms"
+            if one_ms is not None else "")
+        + f"; plain {plain_ms:.4f} ms; bound {bound:.4f} ms (the "
+        f"busiest card's shards' bytes; by card " + ", ".join(
+            f"{d} {b:.4f}" for d, b in bounds.items()) + ")")
+    if len(cards) > 1:
+        log(f"phase 16a ({smi}): per-card K1 ms " + json.dumps(
+            {str(be.shards[s].device): m for s, m in enumerate(per_shard)}))
     per = 1e3 / CHECK_BATCHES
     clock.freeze(T0_NS + CHECK_BATCHES * 250_000_000)
     wall_ms, busy_ms, by_name = profile_check(be, batches[0])
@@ -3863,9 +3955,7 @@ def phase_mesh_library(dev, smi, name, clock):
     log(f"phase 16a ({smi}): check() of {BATCH} requests on {n} shards: "
         f"{check_s * per:.3f} ms mean (host clock); torch.profiler, one "
         f"check(): {wall_ms:.3f} ms wall, {busy}")
-    MESH_TIMES.update(per_shard_ms=per_shard, grid_ms=grid_ms,
-                      plain_ms=plain_ms, bound_ms=sum(bounds))
-    del l2_buf, start, rec
+    del l2, start, rec
     return be, ref, err
 
 
@@ -3890,20 +3980,27 @@ def global_reqs(rng, ids):
 
 def cache_rows(be, eng, keys, now):
     """(status, limit, remaining, expire_at) of each key's row in the
-    engine's cache, read at its serving shard."""
+    engine's cache, read from its serving shard's replica."""
     import torch
 
     from gubernator_tpu_torch.core.hashing import key_hash64
 
+    fields = ("status", "limit", "remaining", "expire_at")
+    out = [None] * len(keys)
     with eng._lock:
         found, slot = be._probe_grid(
             keys, [key_hash64(k) for k in keys], now,
-            table=eng.cache_table, route=eng._arrival)
-        at = torch.from_numpy(slot).to(eng.cache_table.key.device)
-        cols = [getattr(eng.cache_table, f)[at].cpu().numpy()
-                for f in ("status", "limit", "remaining", "expire_at")]
-    return [tuple(int(c[i]) for c in cols) if found[i] else None
-            for i in range(len(keys))]
+            tables=eng.cache_tables, route=eng._arrival)
+        shard, local = slot // eng.cache_local, slot % eng.cache_local
+        for s in np.unique(shard[found]).tolist():
+            idx = np.flatnonzero(found & (shard == s))
+            t, place = eng.cache_tables[s], be.shards[s]
+            with place.on_stream():
+                at = torch.from_numpy(local[idx]).to(place.device)
+                cols = [getattr(t, f)[at].cpu().numpy() for f in fields]
+            for j, i in enumerate(idx.tolist()):
+                out[i] = tuple(int(c[j]) for c in cols)
+    return out
 
 
 def row_tuples(items, keys):
@@ -3925,7 +4022,6 @@ def phase_mesh_global(dev, smi, be, ref, clock):
     import torch
 
     from gubernator_tpu_torch.ops.kernels import serve_kernel
-    from gubernator_tpu_torch.ops.state import clone_table
     from gubernator_tpu_torch.parallel.global_sync import GlobalEngine
     from gubernator_tpu_torch.parallel.sharded import MeshBackend
 
@@ -3935,10 +4031,10 @@ def phase_mesh_global(dev, smi, be, ref, clock):
     rng = np.random.default_rng(SEED + 1602)
     w = 1.0 / np.arange(1, MESH_GLOBAL_KEYS + 1) ** MESH_ZIPF_S
     w /= w.sum()
-    starts = {"auth": clone_table(be.table),
-              "cache": clone_table(eng.cache_table)}
+    starts = {"auth": clone_shards(be.tables),
+              "cache": clone_shards(eng.cache_tables)}
     rec = MeshRecorder(be, eng)
-    pend, seen, stats = {}, {}, []
+    pend, seen, stats, last = {}, {}, [], {}
     eng_launches = 0
     t_now = T0_NS + 10 * 250_000_000
 
@@ -3946,10 +4042,13 @@ def phase_mesh_global(dev, smi, be, ref, clock):
         nonlocal eng_launches
         keys = list(pend)
         before, ev0 = serve_kernel.launches, rec.k1_launches("auth")
+        if len(eng.pending) >= len(last):  # the largest sync's keys
+            last.clear()
+            last.update(eng.pending)
         t0 = time.perf_counter()
         if eng.sync() != len(keys):
             raise AssertionError("16b: the sync missed pending keys")
-        torch.cuda.synchronize()
+        sync_all()
         ms = (time.perf_counter() - t0) * 1e3
         eng_launches += serve_kernel.launches - before
         stats.append((ms, len(keys), rec.k1_launches("auth") - ev0))
@@ -4013,11 +4112,43 @@ def phase_mesh_global(dev, smi, be, ref, clock):
         f"replayed bit-exact in {time.perf_counter() - t0:.3f} s")
     del starts, rec
 
+    # The collective's copies alone, on the last sync's first chunk: the
+    # owners' receive and merge, and the all_gather of int64[6, L] rows.
+    chunks = eng._build_chunks(last, clock.now())
+    staged = eng._stage(chunks[0])
+    sync_all()
+    l2 = {p.device: torch.empty(256 << 20, dtype=torch.uint8,
+                                device=p.device) for p in be.shards}
+
+    def flush_all():
+        for buf in l2.values():
+            buf.zero_()
+
+    recv_ms = span_ms(lambda: eng._receive(staged), 10, flush_all,
+                      be.shards)
+    qs = eng._receive(staged)
+    rows = []
+    for d, place in enumerate(be.shards):
+        with place.on_stream():
+            rows.append(qs[d][0, :6].contiguous())
+    gather_ms = span_ms(lambda: eng._all_gather(rows), 10, flush_all,
+                        be.shards)
+    cards = len({p.device for p in be.shards})
+    log(f"phase 16b ({smi}): the sync's collective on {n} shards over "
+        f"{cards} card(s), one chunk of D = {eng.delta_slots} lanes an "
+        f"owner ({len(last)} keys, {len(chunks)} chunk(s)): psum receive "
+        f"and merge {recv_ms:.4f} ms, all_gather of int64[6, "
+        f"{rows[0].shape[1]}] rows to every replica {gather_ms:.4f} ms "
+        + ("(one card: the copies are stream waits, so these time the "
+           "merge's and concatenation's ops)" if cards == 1 else
+           "(host clock from idle cards to every card's synchronisation)"))
+    del l2, staged, qs, rows
+
     # One more window under a2a on cloned tables: every answer agrees.
     be2 = MeshBackend(be.cfg, clock=clock)
-    be2.table = clone_table(be.table)
+    be2.tables = clone_shards(be.tables)
     eng2 = GlobalEngine(be2, collective="a2a", batch_limit=1 << 30)
-    eng2.cache_table = clone_table(eng.cache_table)
+    eng2.cache_tables = clone_shards(eng.cache_tables)
     reqs_all = []
     for call in range(MESH_A2A_CALLS):
         t_now += 5_000_000
@@ -4040,7 +4171,7 @@ def phase_mesh_global(dev, smi, be, ref, clock):
         f"keys) synced under psum and under a2a on cloned tables: every "
         f"answer, cache row and auth row agrees")
     del be2, eng2
-    return err, eng
+    return err, eng, {"recv_ms": recv_ms, "gather_ms": gather_ms}
 
 
 def mesh_rpc_requests(rng, n_rpc: int, first_key: int):
@@ -4076,7 +4207,6 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
     from gubernator_tpu_torch.core.config import mesh_ways_from_env
     from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
     from gubernator_tpu_torch.ops.sketch import clone_sketch
-    from gubernator_tpu_torch.ops.state import clone_table
     from gubernator_tpu_torch.parallel.sharded import MeshBackend
 
     os.environ["GUBER_MESH_WAYS"] = str(MESH_SHARDS)
@@ -4098,9 +4228,8 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
                 f"{fp.effective_serve_mode}: {fp.persistent_status}")
         if warm:
             mesh_warm(be, None, dev, label)
-        torch.cuda.synchronize()
-        starts = {"auth": clone_table(be.table),
-                  "cache": clone_table(eng.cache_table)}
+        starts = {"auth": clone_shards(be.tables),
+                  "cache": clone_shards(eng.cache_tables)}
         sketch = clone_sketch(sb.state)
         rng = np.random.default_rng(seed)
         per_client = [mesh_rpc_requests(rng, MESH_RPCS, 1 + 10_000 * j)
@@ -4119,9 +4248,12 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
         dvars = http_json(d.http_address, "/debug/vars")
         occ = dvars["backend"].get("shard_occupancy")
         if (not occ or len(occ) != MESH_SHARDS
-                or sum(occ) != be.occupancy()):
+                or sum(occ) != be.occupancy()
+                or dvars["backend"].get("shard_devices") != be.shard_devices):
             raise AssertionError(f"16c {mode}: /debug/vars shard_occupancy "
-                                 f"{occ}, occupancy {be.occupancy()}")
+                                 f"{occ}, occupancy {be.occupancy()}, "
+                                 "shard_devices "
+                                 f"{dvars['backend'].get('shard_devices')}")
         p50, p99, _ = percentiles_ms(lat)
         lanes = fp.debug_vars()["lanes"]
         log(f"{label} ({smi}): {mode} mesh daemon ({MESH_SHARDS} shards from "
@@ -4131,7 +4263,8 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
             f"decisions/s; per-RPC p50 {p50:.3f} ms, p99 {p99:.3f} ms (host "
             f"clock); K1 launches {k1}, K2 launches {k2}; engine syncs "
             f"{eng.syncs}; /debug/vars shard_occupancy {occ} (sum = "
-            f"occupancy); fallbacks {fp.fallbacks}; lanes: " + "; ".join(
+            f"occupancy), shard_devices {be.shard_devices}; fallbacks "
+            f"{fp.fallbacks}; lanes: " + "; ".join(
                 f"{lane} {v['drains']} merges, dispatch "
                 f"{v['dispatch_ms_total']:.1f}, fetch "
                 f"{v['fetch_ms_total']:.1f}, waiting for a fetch slot "
@@ -4164,26 +4297,43 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
 
 
 def phase_mesh(dev, smi, name) -> float:
-    """Phase 16: the sharded table on one card at the north star's mesh
-    deployment.  Returns max_abs_err over every replay."""
+    """Phase 16: the sharded table at the north star's mesh deployment,
+    shard s on visible card s % count, each shard on its own stream.
+    Returns max_abs_err over every replay."""
     import torch
 
     from gubernator_tpu_torch.core.clock import Clock
+    from gubernator_tpu_torch.parallel.mesh import make_mesh
 
     t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
+    placement = [str(d) for d in make_mesh(MESH_SHARDS, dev.type)]
+    cards = torch.cuda.device_count()
+    print(json.dumps({
+        "phase": "16", "cards": cards, "shard_devices": placement,
+        "cross_card_transport": ("not exercised" if len(set(placement)) == 1
+                                 else "exercised")}), flush=True)
+
+    def reset_peak():
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
+
+    def peak_gib():
+        return sum(torch.cuda.max_memory_allocated(i)
+                   for i in range(cards)) / 2**30
+
+    reset_peak()
     clock = Clock()
     clock.freeze(T0_NS)
     be, ref, err = phase_mesh_library(dev, smi, name, clock)
-    e, eng = phase_mesh_global(dev, smi, be, ref, clock)
+    e, eng, sync_ms = phase_mesh_global(dev, smi, be, ref, clock)
     err = max(err, e)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = peak_gib()
     del be, ref, eng
     torch.cuda.empty_cache()
-    log(f"phase 16a-b ({smi}): peak device memory {peak:.2f} GiB (the mesh "
-        f"table, the engine's cache, the single table and the replay "
-        f"copies); freed before 16c")
-    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 16a-b ({smi}): peak device memory {peak:.2f} GiB over "
+        f"{cards} card(s) (the mesh tables, the engine's replicas, the "
+        f"single table and the replay copies); freed before 16c")
+    reset_peak()
     for j, (mode, slots, clients, warm) in enumerate((
             ("pipelined", DAEMON_SLOTS, MESH_CLIENTS, True),
             ("megaround", SMALL_SLOTS, MESH_SMALL_CLIENTS, False),
@@ -4191,8 +4341,9 @@ def phase_mesh(dev, smi, name) -> float:
         err = max(err, mesh_mode_run(dev, smi, mode, slots, clients, warm,
                                      SEED + 1610 + j, "phase 16c"))
     log(f"phase 16 ({smi}): {time.perf_counter() - t_phase:.1f} s; peak "
-        f"device memory in 16c {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
+        f"device memory in 16c {peak_gib():.2f} GiB; K1 launches by path "
+        f"{json.dumps(MESH_PATHS['serve_kernel'])}; sync copies "
+        f"{json.dumps(sync_ms)}")
     return err
 
 

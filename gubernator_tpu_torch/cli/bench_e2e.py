@@ -831,8 +831,8 @@ def bench(seconds: float, concurrency: int,
     # on a MESH daemon (--mesh-shards; the production shape: one daemon
     # owning a device mesh with the table sharded over it).  Each line
     # reports per-shard occupancy and — in ring mode — the ring budget
-    # split (slot-wait, per-shard seq).  Here the shards are slices of
-    # one table on one device (parallel/mesh.py).
+    # split (slot-wait, per-shard seq).  The shards spread over the
+    # visible cards, shard s on card s % count (parallel/mesh.py).
     for mode in (serve_sweep if mesh_shards > 1 else ()):
         try:
             mesh_cfg = DeviceConfig(
@@ -1363,8 +1363,8 @@ def main() -> int:
         "--mesh-shards", type=int, default=0,
         help="re-run the serve-mode sweep on an N-shard mesh daemon "
         "(the deployment-mode benchmark: per-shard occupancy + ring "
-        "budget split; 0 disables).  The shards are slices of one table "
-        "on one device.",
+        "budget split; 0 disables).  Shard s runs on visible card "
+        "s % count.",
     )
     args = ap.parse_args()
     sweep = tuple(

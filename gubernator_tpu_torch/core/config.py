@@ -786,8 +786,8 @@ class DeviceConfig:
     batch_tiers: Optional[Tuple[int, ...]] = None
     # The mesh axis: the table's slots split into `num_shards` contiguous
     # shards, each owning the keys whose fingerprint routes to it
-    # (parallel/mesh.shard_of_hash).  On one card the shards are slices
-    # of one table (parallel/sharded.MeshBackend).
+    # (parallel/mesh.shard_of_hash).  Shard s lives on visible card
+    # s % count, each with its own table (parallel/sharded.MeshBackend).
     num_shards: int = 1
     # GLOBAL replicated-serving cache table size (mesh GlobalEngine only).
     # None = num_slots, i.e. the engine DOUBLES the table's device memory;
@@ -1252,9 +1252,9 @@ def mesh_ways_from_env() -> int:
     spelling for "shards mapped onto mesh axes"; GUBER_TPU_NUM_SHARDS
     stays as the geometry-level alias).  Returns 0 when unset so the
     caller can defer to the alias; a SET value must be >= 1 — a zero or
-    negative mesh is a config mistake rejected at startup.  On one card
-    the shards are slices of one table (parallel/sharded.MeshBackend), so
-    any count whose geometry DeviceConfig accepts is served."""
+    negative mesh is a config mistake rejected at startup.  The shards
+    wrap over the visible cards (parallel/sharded.MeshBackend), so any
+    count whose geometry DeviceConfig accepts is served."""
     raw = _env("GUBER_MESH_WAYS")
     if not raw:
         return 0

@@ -278,6 +278,22 @@ __global__ void __launch_bounds__(kGridThreads) grid_walk_kernel(Args a) {
   if (rolled && tid == 0) a.window_start[0] = start;
 }
 
+// Restores the calling thread's current device when it leaves scope.  An
+// entry point selects `device` to query or launch on it; without the guard
+// the caller would stay on that card, and PyTorch's next allocation or
+// stream lookup without an index would land there.
+struct DeviceGuard {
+  int prev = -1;
+  DeviceGuard() {
+    if (cudaGetDevice(&prev) != cudaSuccess) prev = -1;
+  }
+  ~DeviceGuard() {
+    int now = -1;
+    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev)
+      cudaSetDevice(prev);
+  }
+};
+
 struct Device {
   int sms = 0;
   int cluster = 0;  // blocks of the walk's cluster
@@ -339,6 +355,7 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
                    const int64_t* kh, const int32_t* hits, const int32_t* lim,
                    int32_t* packed, long long now, int depth, int log2w, int k,
                    int B) {
+  DeviceGuard guard;
   if (depth < 1 || depth > kMaxDepth || log2w < 0 || log2w > 30 || k < 1 || B < 0)
     return (int)cudaErrorInvalidValue;
   Device d;
@@ -393,6 +410,7 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
 // Blocks in the cluster that walks K2's chunks on `device` (16 or 8), or a
 // negated cudaError_t.
 extern "C" int gub_cms_cluster(int device) {
+  DeviceGuard guard;
   Device d;
   const int err = device_shape(device, &d);
   return err != (int)cudaSuccess ? -err : d.cluster;

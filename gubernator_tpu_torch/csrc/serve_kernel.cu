@@ -627,6 +627,22 @@ __global__ void __launch_bounds__(kWalkThreads) walk_kernel(Args a) {
   }
 }
 
+// Restores the calling thread's current device when it leaves scope.  An
+// entry point selects `device` to query or launch on it; without the guard
+// the caller would stay on that card, and PyTorch's next allocation or
+// stream lookup without an index would land there.
+struct DeviceGuard {
+  int prev = -1;
+  DeviceGuard() {
+    if (cudaGetDevice(&prev) != cudaSuccess) prev = -1;
+  }
+  ~DeviceGuard() {
+    int now = -1;
+    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev)
+      cudaSetDevice(prev);
+  }
+};
+
 // Owners (walk blocks) of `device`: as many as fit on the card at once.
 // Returns a cudaError_t.
 int device_owners(int device, int* G) {
@@ -657,6 +673,7 @@ extern "C" {
 // Number of owner blocks K1 uses on `device` (owner = bucket % G), or a
 // negated cudaError_t.
 int gub_serve_owners(int device) {
+  DeviceGuard guard;
   int G = 0;
   const int err = device_owners(device, &G);
   return err != (int)cudaSuccess ? -err : G;
@@ -665,6 +682,7 @@ int gub_serve_owners(int device) {
 // int32 words of scratch a dispatch of k rounds of B lanes needs on
 // `device`, or a negated cudaError_t.
 long long gub_serve_scratch_words(int device, int k, int B) {
+  DeviceGuard guard;
   int G = 0;
   const int err = device_owners(device, &G);
   if (err != (int)cudaSuccess) return -(long long)err;
@@ -680,6 +698,7 @@ int gub_serve_launch(int device, void* stream, void** cols, long long S,
                      const int64_t* seq_in, int64_t* seq_out, int64_t* resps,
                      int32_t* claim, int32_t* scratch, long long scratch_words,
                      int k, int B) {
+  DeviceGuard guard;
   const long long need = gub_serve_scratch_words(device, k, B);
   if (need < 0) return (int)-need;
   if (k < 1 || ways < 1 || scratch_words < need) return (int)cudaErrorInvalidValue;

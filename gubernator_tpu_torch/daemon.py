@@ -816,6 +816,7 @@ class Daemon:
             shard_occ = getattr(be, "shard_occupancy", None)
             if shard_occ is not None:
                 out["backend"]["shard_occupancy"] = shard_occ()
+                out["backend"]["shard_devices"] = be.shard_devices
             out["inflight_checks"] = s._inflight_checks
             out["global"] = {
                 "async_sends": s.global_mgr.async_sends,

@@ -79,8 +79,9 @@ def entry(device=None):
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
-    """Build an n-shard mesh on one device and run the JAX dry run's
-    steps on it."""
+    """Build an n-shard mesh and run the JAX dry run's steps on it.  Shard
+    s goes on visible card s % (card count), as MeshBackend places it by
+    default; with device="cpu" every shard is on the CPU."""
     import numpy as np
 
     from gubernator_tpu_torch.core import clock as clock_mod
@@ -239,4 +240,4 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
 
     asyncio.run(_svc_path())
     print(f"dryrun_multichip({n_devices}): OK — mesh of {n_devices} shards "
-          f"x {backend.local_slots} slots on {backend.device}")
+          f"x {backend.local_slots} slots on {backend.shard_devices}")

@@ -17,12 +17,24 @@ reference's two RPC loops (sendHits + broadcastPeers):
     hits=0 read         broadcast rows           (global.go:214-217)
     all_gather          rows -> every cache shard (UpdatePeerGlobals)
 
-On one card the collectives are plain tensor ops over a leading shard axis:
-`psum` is a sum over the source axis, `all_to_all` a transpose, `all_gather`
-a concatenation, `axis_index` the shard index.  The owner's apply and its
-hits=0 re-read are ONE two-round K1 dispatch per owner shard (round 0 the
-merged hits, round 1 the same lanes with hits = 0), and the broadcast rows
-come from round 1's responses.
+Each shard keeps its replica of the cache, and its auth shard, on its own
+device (parallel/sharded.py), so the collectives are copies between the
+shards plus int64 adds, each ordered by its streams' events
+(parallel/sharded.carry; on one card the shards' streams wait on each other
+and nothing is copied):
+
+    psum        owner d receives row d of every source's delta grid and
+                sums over the sources (merge_psum on its [n_src, 1, D]
+                slice)
+    all_to_all  the same per-(source, owner) copies, then the sort and
+                segment sum (merge_a2a on the slice)
+    all_gather  every shard receives every owner's broadcast rows, in
+                owner order
+
+The owner's apply and its hits=0 re-read are ONE two-round K1 dispatch per
+owner shard, on its device and stream (round 0 the merged hits, round 1 the
+same lanes with hits = 0), and the broadcast rows come from round 1's
+responses.
 
 The default collective is psum: the host pending dict already merged
 duplicate keys and `_build_chunks` gives each key ONE (owner, lane) slot, so
@@ -55,15 +67,16 @@ from gubernator_tpu_torch.core.types import (
     has_behavior,
 )
 from gubernator_tpu_torch.ops.batch import pack_requests_grid
-from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP
+from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP, SlotTable
 from gubernator_tpu_torch.ops.step import CachedRows, store_cached_rows
-from gubernator_tpu_torch.parallel.mesh import shard_of_hash, shard_view
+from gubernator_tpu_torch.parallel.mesh import ShardedTensor, shard_of_hash
 from gubernator_tpu_torch.parallel.sharded import (
     MeshBackend,
+    carry,
+    host_table,
     packed_grid_rounds_to_host,
 )
 from gubernator_tpu_torch.runtime.backend import (
-    PendingFetch,
     probe_bucket,
     rounds_to_qs,
     unmarshal_responses,
@@ -99,6 +112,7 @@ def zero_delta_grid(n: int, D: int) -> DeltaGrid:
     )
 
 
+_ALGO = DeltaGrid._fields.index("algo")
 _ARRIVAL_SHIFT = 44  # disjoint from owner-routing bits (32..) and bucket bits
 
 
@@ -183,9 +197,10 @@ class _Pending:
 
 class GlobalEngine:
     """Host-side globalManager: replicated serving + periodic collective
-    sync.  Owns the replicated cache table (sharded like the auth table,
-    with its own claim buffer) and the pending hit aggregation; applies
-    authoritative updates to the MeshBackend's auth table in the sync."""
+    sync.  Owns the replicated cache (one replica a shard, on the shard's
+    device, with its own claim words) and the pending hit aggregation;
+    applies authoritative updates to the MeshBackend's auth shards in the
+    sync."""
 
     def __init__(
         self,
@@ -220,10 +235,10 @@ class GlobalEngine:
                 f"global cache buckets per shard ({nb_local}) must be a "
                 "power of two"
             )
-        self.cache_table, self.cache_claim = backend.new_table(
+        self.cache_tables, self.cache_claims = backend.new_table(
             self.cache_slots)
         self._merge = merge_psum if collective == "psum" else merge_a2a
-        self._lock = threading.Lock()  # cache_table + pending + metrics
+        self._lock = threading.Lock()  # cache_tables + pending + metrics
         self.pending: Dict[str, _Pending] = {}
         # Metrics (global.go:48-57 async/broadcast durations + counts).
         self.syncs = 0
@@ -237,13 +252,21 @@ class GlobalEngine:
     def _arrival(self, h64):
         return arrival_dev(h64, self.n)
 
-    def _ingest(self, rounds, now: int) -> torch.Tensor:
-        """Serve use_cached grid rounds from the cache table (one K1
-        dispatch a shard); caller holds `_lock`."""
+    @property
+    def cache_table(self) -> SlotTable:
+        """The whole replicated cache on the host, in shard order (a copy:
+        the JAX engine's `cache_table` read back)."""
+        return host_table(self.b._columns_fetch(
+            SlotTable._fields, tables=self.cache_tables,
+            lock=self._lock).wait())
+
+    def _ingest(self, rounds, now: int) -> ShardedTensor:
+        """Serve use_cached grid rounds from the cache replicas (one K1
+        launch a shard); caller holds `_lock`."""
         qs = rounds_to_qs(rounds, self.b._tiers)
         resps, _ = self.b._launch(
             qs, np.full(len(rounds), now, dtype=np.int64), 0,
-            table=self.cache_table, claim=self.cache_claim)
+            tables=self.cache_tables, claims=self.cache_claims)
         return resps
 
     def _queue(self, req: RateLimitReq, hits: int, src_dev: int) -> None:
@@ -361,7 +384,8 @@ class GlobalEngine:
         keys = list(uniq)
         hashes = [key_hash64(k) for k in keys]
         found, _ = self.b._probe_grid(
-            keys, hashes, now, table=self.cache_table, route=self._arrival)
+            keys, hashes, now, tables=self.cache_tables,
+            route=self._arrival)
         rows: List[dict] = []
         row_hashes: List[int] = []
         for k, h, f in zip(keys, hashes, found):
@@ -374,41 +398,74 @@ class GlobalEngine:
             row_hashes.append(h)
         if rows:
             self.b._bulk_upsert(rows, row_hashes, now)
-            self.b._bulk_upsert_into(self.cache_table, rows, row_hashes,
+            self.b._bulk_upsert_into(self.cache_tables, rows, row_hashes,
                                      now, self._arrival)
 
-    def _stage(self, grid: DeltaGrid) -> DeltaGrid:
-        """Upload a host delta grid in one copy (bools ride as int64)."""
-        with self.b._on_stream():
-            return DeltaGrid(*self.b._upload_cols(
-                [np.asarray(a, dtype=np.int64) if a.dtype == bool else a
-                 for a in grid]))
+    def _stage(self, grid: DeltaGrid) -> List[torch.Tensor]:
+        """Upload a host delta grid: source s's rows go to its device as
+        one int64[9, n_dst, D] copy (DeltaGrid field order; int32 and bool
+        widened)."""
+        packed = np.stack([np.asarray(a, dtype=np.int64) for a in grid],
+                          axis=1)  # [n_src, 9, n_dst, D]
+        return self.b._parts(packed, 0)
 
-    def _sync_step(self, delta: DeltaGrid, now: int) -> None:
+    def _receive(self, staged: List[torch.Tensor]) -> List[torch.Tensor]:
+        """sendHits: owner d receives column d of every source's grid (the
+        psum's or all_to_all's copies) and merges it on its device.
+        Returns owner d's int64[2, 12, L] block on its device: the merged
+        lanes, then the same lanes with hits = 0."""
+        shards = self.b.shards
+        out = []
+        for d, owner in enumerate(shards):
+            recv = [carry(staged[s][:, d], shards[s], owner)
+                    for s in range(self.n)]
+            with owner.on_stream():
+                g = torch.stack(recv)  # [n_src, 9, D]
+                q = self._merge(DeltaGrid(*[
+                    (g[:, i].to(torch.int32) if i == _ALGO else g[:, i])
+                    .unsqueeze(1) for i in range(len(DeltaGrid._fields))
+                ]))[:, 0]  # [12, L]
+                q0 = q.clone()
+                q0[1] = 0
+                out.append(torch.stack([q, q0]))
+        return out
+
+    def _all_gather(self, rows: List[torch.Tensor]) -> List[torch.Tensor]:
+        """UpdatePeerGlobals: every replica receives every owner's
+        int64[6, L] broadcast rows, concatenated in owner order into
+        int64[6, n*L] on its device."""
+        shards = self.b.shards
+        out = []
+        for c, place in enumerate(shards):
+            got = [carry(rows[d], shards[d], place) for d in range(self.n)]
+            with place.on_stream():
+                out.append(torch.cat(got, dim=1))
+        return out
+
+    def _sync_step(self, staged: List[torch.Tensor], now: int) -> None:
         """One collective sync of a staged chunk; caller holds b._lock then
-        self._lock.  Each owner shard runs its merged row as one two-round
-        K1 dispatch on its auth shard (hits, then hits = 0), and the round-1
-        broadcast rows of every shard, concatenated in shard order (the
-        all_gather), upsert into every cache shard."""
-        n, ways = self.n, self.b.cfg.ways
-        with self.b._on_stream():
-            q = self._merge(delta)  # [12, n, L]
-            q0 = q.clone()
-            q0[1] = 0
-            resps, _ = self.b._launch(
-                torch.stack([q, q0]), np.full(2, now, dtype=np.int64), 0)
-            r1 = resps[1]  # [n, 9, L]
-            rows = CachedRows(
-                key_hash=torch.where(q[10] != 0, q[0], 0).reshape(-1),
-                algo=q[4].to(torch.int32).reshape(-1),
-                limit=r1[:, 1].reshape(-1),
-                remaining=r1[:, 2].reshape(-1),
-                status=r1[:, 0].to(torch.int32).reshape(-1),
-                reset_time=r1[:, 3].reshape(-1),
-            )
-            for s in range(n):
-                store_cached_rows(shard_view(self.cache_table, s, n), rows,
-                                  now, ways)
+        self._lock.  The owners receive and merge (`_receive`); each runs
+        its merged lanes as one two-round K1 dispatch on its auth shard
+        (hits, then hits = 0); every replica receives the owners' round-1
+        broadcast rows (`_all_gather`) and upserts them."""
+        shards = self.b.shards
+        qs = self._receive(staged)
+        resps, _ = self.b._launch(
+            ShardedTensor(qs, [p.stream for p in shards], 2),
+            np.full(2, now, dtype=np.int64), 0)
+        rows = []
+        for d, owner in enumerate(shards):
+            with owner.on_stream():
+                q, r1 = qs[d][0], resps.parts[d][1]  # [12, L], [9, L]
+                rows.append(torch.stack([
+                    torch.where(q[10] != 0, q[0], 0), q[4], r1[1], r1[2],
+                    r1[0], r1[3]]))  # CachedRows order
+        for c, r in enumerate(self._all_gather(rows)):
+            with shards[c].on_stream():
+                store_cached_rows(self.cache_tables[c], CachedRows(
+                    key_hash=r[0], algo=r[1].to(torch.int32), limit=r[2],
+                    remaining=r[3], status=r[4].to(torch.int32),
+                    reset_time=r[5]), now, self.b.cfg.ways)
 
     def sync(self) -> int:
         """Run the collective hits->owner->broadcast step; returns #keys."""
@@ -539,30 +596,31 @@ class GlobalEngine:
                 self.b._launch(
                     np.zeros((1, 12, self.n, t), dtype=np.int64),
                     np.full(1, now, dtype=np.int64), 0,
-                    table=self.cache_table, claim=self.cache_claim)
+                    tables=self.cache_tables, claims=self.cache_claims)
 
     # -- point reads (tests / HealthCheck) -------------------------------
     def _cache_bucket_offset(self, key: str, shard: int) -> int:
-        """Row index of `key`'s bucket within the CACHE table (its geometry
-        may differ from the auth table's via global_cache_slots)."""
+        """Row index of `key`'s bucket in the whole cache (shard-major; its
+        geometry may differ from the auth table's via
+        global_cache_slots)."""
         nb_local = self.cache_local // self.b.cfg.ways
         bucket = key_hash64(key) & (nb_local - 1)
         return shard * self.cache_local + bucket * self.b.cfg.ways
 
     def get_cached(self, key: str):
-        """Read this key's row from its serving shard's cache."""
+        """Read this key's row from its serving shard's replica."""
         ways = self.b.cfg.ways
         lo = self._cache_bucket_offset(key, self._arrival(key_hash64(key)))
         now = self.clock.millisecond_now()
-        with self._lock, self.b._on_stream():
-            rows = PendingFetch(
-                [c[lo:lo + ways].clone() for c in self.cache_table],
-                self.b.stream).wait()
+        rows = self.b._columns_fetch(SlotTable._fields, lo, ways,
+                                     tables=self.cache_tables,
+                                     lock=self._lock).wait()
         return probe_bucket(
-            dict(zip(self.cache_table._fields, rows)), ways, key, now)
+            dict(zip(SlotTable._fields, rows)), ways, key, now)
 
     def cache_occupancy(self) -> int:
-        """Live rows in the replicated serving table (exported as
+        """Live rows in the replicated serving tables (exported as
         gubernator_global_cache_size)."""
-        with self._lock, self.b._on_stream():
-            return int(self.cache_table.occupancy())
+        with self._lock:
+            pending = self.b._occupancy_dispatch(self.cache_tables)
+        return int(pending.wait()[0].sum())

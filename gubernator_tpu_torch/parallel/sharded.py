@@ -1,16 +1,18 @@
-"""The sharded slot table on one card: the mesh engine.
+"""The sharded slot table over one card or more: the mesh engine.
 
 The JAX package shards the slot table's slot axis over a device mesh; each
 device owns `num_slots / n` slots and is the single writer for the keys that
 hash to it — the single-writer-by-placement discipline of the reference
 worker pool (workers.go:19-37) and peer ring (architecture.md:13-17).  Here
-the `shard` axis is a leading index over contiguous column slices of ONE
-table (parallel/mesh.shard_view), so the layout is the JAX mesh's word for
-word and `snapshot()` equals its `table_to_host`.
+shard s keeps its own table, claim-word buffer, stream and K1 scratch on its
+device (parallel/mesh.make_mesh: `devices[s % len(devices)]`, by default
+every visible card), so four shards take four cards, or four streams of
+one.  A snapshot concatenates the shards in shard order, so it equals the
+JAX `table_to_host` word for word.
 
 The JAX lifts (`shard_map` of one single-table body) become plain functions
 that loop over the shards and call the port's single-table function on that
-shard's views:
+shard's table, on its stream:
 
     JAX lift                          here                  on the card
     make_sharded_step_packed,
@@ -25,13 +27,18 @@ shard's views:
 
 (megaround's r x s rounds go out as one mesh_ring_step of r*s rounds, as
 the single-table backend's do).  Every single-table op updates its table in
-place, so a call on a shard's
-views writes the base columns.  The hot path needs no collective: routing
-already placed every request on its owner shard.  A dispatch of `n` shards
-is `n` launches of K1 on the backend's one stream.
+place.  The hot path needs no collective: routing already placed every
+request on its owner shard.  A dispatch of `n` shards is one host-side
+split of the request block, then for each shard an upload of its part, a
+K1 launch and (for the caller) a fetch, all on that shard's stream: the
+cards, or the streams of one card, run them concurrently.  Results stay
+where they were made (`ShardedTensor`) and travel to the host behind each
+stream's own event (`MeshFetch`).
 """
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,10 +56,12 @@ from gubernator_tpu_torch.ops.batch import (
 from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.ops.kernels.serve_kernel import new_claim_buffer
 from gubernator_tpu_torch.ops.state import (
+    COLUMN_DTYPES,
     SlotTable,
     TableStats,
     demote_extract,
     init_table,
+    table_from_host,
     table_stats,
 )
 from gubernator_tpu_torch.ops.step import (
@@ -65,17 +74,19 @@ from gubernator_tpu_torch.ops.step import (
     store_cached_rows,
 )
 from gubernator_tpu_torch.parallel.mesh import (
-    claim_view,
+    ShardedTensor,
+    make_mesh,
     shard_of_hash,
-    shard_view,
 )
 from gubernator_tpu_torch.runtime.backend import (
     _ROW_DTYPES,
+    DevicePlace,
     PendingFetch,
     TorchDeviceHost,
     _h64s,
     packed_rounds_to_host,
     resolve_tiers,
+    upload_cols,
 )
 
 
@@ -137,100 +148,191 @@ def _hash_grid(h64: np.ndarray, shards: np.ndarray, n: int, B: int):
         yield hv, jv
 
 
+# -- moving data between shards -------------------------------------------
+def _record(streams) -> List["torch.cuda.Event"]:
+    """One event at the current end of each distinct stream (none on the
+    CPU)."""
+    out, seen = [], []
+    for st in streams:
+        if st is None or any(st == x for x in seen):
+            continue
+        seen.append(st)
+        ev = torch.cuda.Event()
+        ev.record(st)
+        out.append(ev)
+    return out
+
+
+def carry(t: torch.Tensor, src: DevicePlace, dst: DevicePlace) -> torch.Tensor:
+    """`t`, made on `src`'s stream, for use on `dst`'s: ordered after the
+    work on src that made it and before dst's work queued later.
+
+    On one card nothing is copied: dst's stream waits on src's, and `t` is
+    marked in use on dst's stream, so the allocator keeps it until that
+    work is done.  Between cards PyTorch runs the copy on the SOURCE card's
+    current stream with a two-way barrier against the destination card's
+    current stream, so both are made current here: the copy follows src's
+    work and dst's later work follows the copy."""
+    if dst.stream is None:
+        return t.to(dst.device)
+    if src.device == dst.device:
+        if src.stream != dst.stream:
+            dst.stream.wait_stream(src.stream)
+            t.record_stream(dst.stream)
+        return t
+    with src.on_stream(), dst.on_stream():
+        return t.to(dst.device, non_blocking=True)
+
+
+class MeshFetch(PendingFetch):
+    """Copies to the host queued on the shards' streams, each stream's
+    behind its own event: `wait()` waits on those events alone, then
+    `finish()` gives the host arrays."""
+
+    __slots__ = ("_events", "_finish")
+
+    def __init__(self, events, finish: Callable[[], List[np.ndarray]]):
+        self._events, self._finish = events, finish
+
+    def wait(self) -> List[np.ndarray]:
+        for ev in self._events:
+            ev.synchronize()
+        return self._finish()
+
+
+def fetch_sharded(items: Sequence[ShardedTensor]) -> MeshFetch:
+    """Start copying shard results to the host: each part into pinned
+    memory on its shard's stream, right behind the work that made it.  The
+    fetch gives each ShardedTensor whole (its parts stacked on its axis).
+    On the CPU the parts are the host arrays already."""
+    host, streams = [], []
+    for it in items:
+        if it.streams[0] is None:
+            host.append(([p.numpy() for p in it.parts], it.axis))
+            continue
+        h = torch.empty((len(it.parts),) + tuple(it.parts[0].shape),
+                        dtype=it.parts[0].dtype, pin_memory=True)
+        for s, (p, st) in enumerate(zip(it.parts, it.streams)):
+            with torch.cuda.stream(st):
+                h[s].copy_(p, non_blocking=True)
+        host.append((h, it.axis))
+        streams.extend(it.streams)
+    return MeshFetch(_record(streams), lambda: [
+        np.stack(h, axis=ax) if isinstance(h, list)
+        else np.moveaxis(h.numpy(), 0, ax) for h, ax in host])
+
+
 # -- the lifts ------------------------------------------------------------
 def mesh_ring_step(
-    table: SlotTable,
-    qs: torch.Tensor,    # int64[k, 12, n, B]
-    nows: torch.Tensor,  # int64[k]
-    seq: torch.Tensor,   # int64[n] per-shard sequence words
-    n: int,
+    shards: Sequence[DevicePlace],
+    tables: Sequence[SlotTable],
+    qs: Sequence[torch.Tensor],    # shard s: int64[k, 12, B] on its device
+    nows: Sequence[torch.Tensor],  # shard s: int64[k]
+    seq: Sequence[torch.Tensor],   # shard s: its int64 sequence word
     ways: int = 8,
-    claim: Optional[torch.Tensor] = None,
-    scratch: Optional[torch.Tensor] = None,
-):
-    """k packed rounds on every shard: (table, int64[k, n, 9, B], seq + k).
+    claims: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> Tuple[ShardedTensor, ShardedTensor]:
+    """k packed rounds on every shard: (int64[k, n, 9, B], seq + k [n]).
 
     Shard s runs the serve kernel (ops/kernels/serve_kernel.py; its plain
-    `ring_step` on the CPU) on its own views and its [k, 12, B] block, so a
-    mesh step is one single-table step per shard by construction.  The
-    block is made shard-major with one device copy, so each shard's block
-    is contiguous.  `scratch` is reused shard after shard in stream
-    order."""
-    q = qs.permute(2, 0, 1, 3).contiguous()
+    `ring_step` on the CPU) on its own table with its own parts, already on
+    its device, on its stream, with its claim words and its place's
+    scratch: a mesh step is one single-table step per shard by
+    construction, and the n launches go out on n streams."""
     resps, seqs = [], []
-    for s in range(n):
-        _, r, sq = serve_kernel.persistent_serve_step(
-            shard_view(table, s, n), q[s], nows, seq[s:s + 1], ways,
-            claim=claim_view(claim, s, n), scratch=scratch,
-        )
+    for s, place in enumerate(shards):
+        with place.on_stream():
+            k, _, B = qs[s].shape
+            scratch = (place.scratch_for(k, B)
+                       if place.stream is not None and k else None)
+            _, r, sq = serve_kernel.persistent_serve_step(
+                tables[s], qs[s], nows[s], seq[s], ways,
+                claim=claims[s] if claims is not None else None,
+                scratch=scratch)
         resps.append(r)
         seqs.append(sq)
-    return table, torch.stack(resps, dim=1), torch.cat(seqs)
+    streams = [p.stream for p in shards]
+    return ShardedTensor(resps, streams, 1), ShardedTensor(seqs, streams, 0)
 
 
-def sharded_row_op(op: Callable, table: SlotTable, rows, now, n: int,
-                   ways: int = 8) -> SlotTable:
+def sharded_row_op(op: Callable, shards: Sequence[DevicePlace],
+                   tables: Sequence[SlotTable], rows: Sequence, now,
+                   ways: int = 8) -> None:
     """Row upserts on every shard: `op` (ops/step.load_rows — Loader
     restore, Store seeding — or store_cached_rows — the GLOBAL broadcast
-    receive) on shard s's views with the [B] rows `rows[...][s]` of an
-    [n, B] grid."""
-    for s in range(n):
-        op(shard_view(table, s, n), type(rows)(*[a[s] for a in rows]),
-           now, ways)
-    return table
+    receive) on shard s's table, on its stream, with its rows `rows[s]`
+    (a row tuple of [B] tensors on its device)."""
+    for s, place in enumerate(shards):
+        with place.on_stream():
+            op(tables[s], rows[s], now, ways)
 
 
-def sharded_probe(table: SlotTable, h: torch.Tensor, now, n: int,
-                  ways: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Read-only lookup of an [n, B] fingerprint grid: (found bool[n, B],
-    shard-local slot int64[n, B])."""
-    out = [probe_batch(shard_view(table, s, n), h[s], now, ways)
-           for s in range(n)]
-    return (torch.stack([f for f, _ in out]),
-            torch.stack([sl for _, sl in out]))
+def _each(shards, fn) -> list:
+    """fn(s) for every shard, on its stream."""
+    out = []
+    for s, place in enumerate(shards):
+        with place.on_stream():
+            out.append(fn(s))
+    return out
 
 
-def sharded_gather(table: SlotTable, h: torch.Tensor, now, n: int,
-                   ways: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+def _sharded(parts: list, shards, axis: int = 0) -> ShardedTensor:
+    return ShardedTensor(parts, [p.stream for p in shards], axis)
+
+
+def sharded_probe(shards, tables, h: Sequence[torch.Tensor], now,
+                  ways: int = 8) -> Tuple[ShardedTensor, ShardedTensor]:
+    """Read-only lookup of an [n, B] fingerprint grid (`h[s]` on shard s):
+    (found bool[n, B], shard-local slot int64[n, B])."""
+    out = _each(shards, lambda s: probe_batch(tables[s], h[s], now, ways))
+    return (_sharded([f for f, _ in out], shards),
+            _sharded([sl for _, sl in out], shards))
+
+
+def sharded_gather(shards, tables, h: Sequence[torch.Tensor], now,
+                   ways: int = 8) -> Tuple[ShardedTensor, ShardedTensor]:
     """Row read-back of an [n, B] fingerprint grid: (int64[n, 10, B] in
     GATHER_ROW_FIELDS order, float64[n, B] remaining_f)."""
-    out = [gather_rows(shard_view(table, s, n), h[s], now, ways)
-           for s in range(n)]
-    return (torch.stack([p for p, _ in out]),
-            torch.stack([rf for _, rf in out]))
+    out = _each(shards, lambda s: gather_rows(tables[s], h[s], now, ways))
+    return (_sharded([p for p, _ in out], shards),
+            _sharded([rf for _, rf in out], shards))
 
 
-def sharded_demote_extract(table: SlotTable, protect: torch.Tensor, now,
-                           n: int, ways: int = 8, batch: int = 64):
+def sharded_demote_extract(shards, tables, protect: Sequence[torch.Tensor],
+                           now, ways: int = 8, batch: int = 64):
     """Tier demotion on every shard: each picks its own `batch` coldest
-    unprotected rows on its slice (victim choice is slice-local, as the
+    unprotected rows on its table (victim choice is shard-local, as the
     bucket-local pseudo-LRU is bucket-local) and clears them.  The protect
-    list is shared: a shadow key only matches on its home shard.  Returns
-    (table, int64[n, 10, batch], float64[n, batch])."""
-    out = [demote_extract(shard_view(table, s, n), protect, now, ways, batch)
-           [1:] for s in range(n)]
-    return (table, torch.stack([p for p, _ in out]),
-            torch.stack([rf for _, rf in out]))
+    list is shared (`protect[s]`, a copy on each device): a shadow key only
+    matches on its home shard.  Returns (int64[n, 10, batch],
+    float64[n, batch])."""
+    out = _each(shards, lambda s: demote_extract(
+        tables[s], protect[s], now, ways, batch)[1:])
+    return (_sharded([p for p, _ in out], shards),
+            _sharded([rf for _, rf in out], shards))
 
 
-def sharded_table_stats(table: SlotTable, shadow_fps: torch.Tensor, now,
-                        n: int, ways: int = 8) -> TableStats:
-    """The gubstat census on every shard, each leaf stacked on a leading
-    [n] axis: per-shard occupancy for free, sums for totals.  A derived key
+def sharded_table_stats(shards, tables, shadow_fps: Sequence[torch.Tensor],
+                        now, ways: int = 8) -> TableStats:
+    """The gubstat census on every shard, each leaf with a leading [n]
+    axis: per-shard occupancy for free, sums for totals.  A derived key
     only matches on its home shard, so per-class sums are exact."""
-    out = [table_stats(shard_view(table, s, n), shadow_fps, now, ways)
-           for s in range(n)]
-    return TableStats(*[torch.stack(leaf) for leaf in zip(*out)])
+    out = _each(shards, lambda s: table_stats(tables[s], shadow_fps[s], now,
+                                              ways))
+    return TableStats(*[_sharded(list(leaf), shards) for leaf in zip(*out)])
 
 
 class MeshBackend(TorchDeviceHost):
-    """The JAX package's MeshBackend on one torch device: the table split
-    into `cfg.num_shards` shards, each served through K1 on its views."""
+    """The JAX package's MeshBackend: the table split into
+    `cfg.num_shards` shards, shard s on `devices[s % len(devices)]` (by
+    default every visible card; the CPU for DeviceConfig(platform="cpu")),
+    each with its own table, claim words, stream and K1 scratch."""
 
     def __init__(
         self,
         cfg: DeviceConfig,
         clock=None,
+        devices=None,
         metrics=None,
         store=None,
         track_keys: bool = False,
@@ -245,54 +347,103 @@ class MeshBackend(TorchDeviceHost):
             {} if (store is not None or track_keys) else None
         )
         self._init_write_through()
-        self._init_device()
+        self.last_copy_lock_s = 0.0
+        self._lock = threading.Lock()
         self.n = cfg.num_shards
+        self.shards = [
+            DevicePlace(d, torch.cuda.Stream(d) if d.type == "cuda" else None)
+            for d in make_mesh(self.n, cfg.device, devices,
+                               type(self).__name__)
+        ]
+        # The first shard's device and its current stream: what the
+        # sketch lane runs on (runtime/service.py); no shard op uses it.
+        self.device = self.shards[0].device
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         self.local_slots = cfg.num_slots // self.n
         nb_local = self.local_slots // cfg.ways
         if nb_local & (nb_local - 1):
             raise ValueError(
                 f"buckets per shard ({nb_local}) must be a power of two"
             )
-        self.table, self.claim = self.new_table(cfg.num_slots)
+        self.tables, self.claims = self.new_table(cfg.num_slots)
         self._tiers = resolve_tiers(cfg)
         self.checks = 0
         self.over_limit = 0
         self.not_persisted = 0
 
+    @property
+    def shard_devices(self) -> List[str]:
+        """Shard s's device, by shard (/debug/vars `shard_devices`)."""
+        return [str(p.device) for p in self.shards]
+
     def new_table(self, num_slots: int):
-        """(an empty table of `num_slots` slots on the backend's device, its
-        claim-word buffer — None on the CPU).  The GlobalEngine's cache
-        table is made here too: each table owns one claim buffer, sliced
-        per shard."""
-        with self._on_stream():
-            return (init_table(num_slots, self.device),
-                    new_claim_buffer(num_slots, self.device)
-                    if self.stream is not None else None)
+        """(one empty table of num_slots / n slots a shard, on its device;
+        each shard's claim-word buffer — None on the CPU).  The
+        GlobalEngine's cache replicas are made here too."""
+        L = num_slots // self.n
+        tables = _each(self.shards, lambda s: init_table(
+            L, self.shards[s].device))
+        claims = _each(self.shards, lambda s: new_claim_buffer(
+            L, self.shards[s].device)
+            if self.shards[s].stream is not None else None)
+        return tables, claims
+
+    @property
+    def table(self) -> SlotTable:
+        """The whole auth table on the host, in shard order (a copy, as
+        `np.asarray` of the JAX mesh's sharded table is)."""
+        return host_table(self._columns_fetch(SlotTable._fields).wait())
 
     def _pack(self, reqs, use_cached=None):
         return pack_requests_sharded(
             reqs, self.cfg.batch_size, self.n, self.clock, use_cached)
 
-    def _launch(self, qs, nows, seq, table: Optional[SlotTable] = None,
-                claim: Optional[torch.Tensor] = None):
-        """One mesh dispatch of `qs` int64[k, 12, n, B] (one upload): K1
-        once per shard, on `table` (the auth table by default) and its
-        claim buffer.  Caller holds the table's lock.  Returns the
-        un-synced (int64[k, n, 9, B], seq + k per shard)."""
-        if table is None:
-            table, claim = self.table, self.claim
-        with self._on_stream():
-            qs = self._upload(qs)
-            nows = self._upload(nows).contiguous()
-            if not isinstance(seq, torch.Tensor):
-                seq = np.full(self.n, seq, dtype=np.int64)
-            seq = self._upload(seq)
-            scratch = None
-            if self.stream is not None and qs.shape[0]:
-                scratch = self._scratch_for(qs.shape[0], qs.shape[3])
-            _, resps, seq = mesh_ring_step(
-                table, qs, nows, seq, self.n, self.cfg.ways, claim, scratch)
-        return resps, seq
+    # -- moving requests to the shards -----------------------------------
+    def _parts(self, a, axis: Optional[int]) -> List[torch.Tensor]:
+        """Shard s's part of `a` on its device, queued on its stream:
+        `a` taken at index s of `axis` (all of it when axis is None).
+        `a` is a host array (uploaded pinned, one copy a shard), a
+        ShardedTensor (its parts, already in place) or a tensor made on
+        its device's current stream."""
+        if isinstance(a, ShardedTensor):
+            return a.parts
+        if not isinstance(a, torch.Tensor) or a.device.type == "cpu":
+            a = np.asarray(a)
+
+            def up(s):
+                part = a if axis is None else np.moveaxis(a, axis, 0)[s]
+                return self.shards[s].upload(part)
+
+            return _each(self.shards, up)
+        src = DevicePlace(a.device, torch.cuda.current_stream(a.device))
+        out = []
+        for s, place in enumerate(self.shards):
+            part = carry(a if axis is None else a.select(axis, s), src, place)
+            with place.on_stream():
+                out.append(part.contiguous())
+        return out
+
+    def _launch(self, qs, nows, seq, tables=None, claims=None):
+        """One mesh dispatch of `qs` int64[k, 12, n, B]: K1 once per shard
+        on `tables` (the auth tables by default) and their claim words,
+        each shard's [k, 12, B] part uploaded to its device.  Caller holds
+        the tables' lock.  Returns the un-synced (int64[k, n, 9, B],
+        seq + k per shard), both ShardedTensors."""
+        if tables is None:
+            tables, claims = self.tables, self.claims
+        if not isinstance(seq, (torch.Tensor, ShardedTensor)):
+            seq = np.asarray(seq, dtype=np.int64)
+            seq = np.broadcast_to(seq, (self.n,) + seq.shape[1:])
+        return mesh_ring_step(
+            self.shards, tables, self._parts(qs, 2), self._parts(nows, None),
+            self._parts(seq, 0), self.cfg.ways, claims)
+
+    def _fetch_later(self, *items: ShardedTensor) -> MeshFetch:
+        """Start copying shard results to the host, each part behind its
+        own stream's event; caller holds the lock, right after the
+        dispatch that made them."""
+        return fetch_sharded(items)
 
     # -- ring drain discipline (runtime/ring.py) -------------------------
     def ring_q_shape(self, tb: int) -> tuple:
@@ -300,10 +451,11 @@ class MeshBackend(TorchDeviceHost):
         [12, n_shards, tb]."""
         return (12, self.n, tb)
 
-    def ring_seq_init(self) -> torch.Tensor:
-        """Fresh per-shard sequence words (int64[n])."""
-        with self._on_stream():
-            return torch.zeros(self.n, dtype=torch.int64, device=self.device)
+    def ring_seq_init(self) -> ShardedTensor:
+        """Fresh per-shard sequence words ([n], one on each shard)."""
+        return _sharded(_each(self.shards, lambda s: torch.zeros(
+            (), dtype=torch.int64, device=self.shards[s].device)),
+            self.shards)
 
     def persistent_serve_supported(self):
         """The JAX package's persistent kernel owns ONE table block and
@@ -334,18 +486,22 @@ class MeshBackend(TorchDeviceHost):
                 self._launch(np.zeros((1, 12, n, t), dtype=np.int64),
                              np.full(1, now, dtype=np.int64), 0)
             self._dispatch_rounds_locked(packed.rounds)
-            with self._on_stream():
-                h = self._upload(zeros)
-                sharded_probe(self.table, h, now, n, self.cfg.ways)
-                sharded_gather(self.table, h, now, n, self.cfg.ways)
-                rows = BucketRows(*self._upload_cols([
-                    np.zeros((n, B), dtype=_ROW_DTYPES[f])
-                    for f in BucketRows._fields]))
-                sharded_row_op(load_rows, self.table, rows, now, n,
-                               self.cfg.ways)
+            h = self._parts(zeros, 0)
+            sharded_probe(self.shards, self.tables, h, now, self.cfg.ways)
+            sharded_gather(self.shards, self.tables, h, now, self.cfg.ways)
+            rows = self._upload_grid([
+                np.zeros((n, B), dtype=_ROW_DTYPES[f])
+                for f in BucketRows._fields], BucketRows)
+            sharded_row_op(load_rows, self.shards, self.tables, rows, now,
+                           self.cfg.ways)
         self.table_stats_dispatch(np.zeros((5, 8), dtype=np.int64))()
-        if self.stream is not None:
-            self.stream.synchronize()
+        self.synchronize()
+
+    def synchronize(self) -> None:
+        """Wait for every shard's stream."""
+        for p in self.shards:
+            if p.stream is not None:
+                p.stream.synchronize()
 
     # -- GLOBAL broadcast receive ----------------------------------------
     def apply_cached_rows(self, rows: Sequence[tuple]) -> None:
@@ -362,43 +518,47 @@ class MeshBackend(TorchDeviceHost):
         ]
         now = self.clock.millisecond_now()
         with self._lock:
-            self._upsert_grid(self.table, store_cached_rows, CachedRows,
+            self._upsert_grid(self.tables, store_cached_rows, CachedRows,
                               cols, shard_of_hash(h64, self.n), now)
 
-    def _upsert_grid(self, table, op, row_type, cols, shards, now):
+    def _upload_grid(self, grid: Sequence[np.ndarray], row_type) -> list:
+        """[n, B] host columns -> shard s's `row_type` of [B] tensors on
+        its device, one pinned copy a shard (backend.upload_cols)."""
+        return _each(self.shards, lambda s: row_type(*upload_cols(
+            self.shards[s], [np.ascontiguousarray(g[s]) for g in grid])))
+
+    def _upsert_grid(self, tables, op, row_type, cols, shards, now):
         """`op` over `row_type` rows given as host columns, drained into
-        [n, B] grids by `shards`; caller holds the table's lock."""
+        [n, B] grids by `shards`; caller holds the tables' lock."""
         n, B = self.n, self.cfg.batch_size
-        with self._on_stream():
-            for sel, s, lane in drain_to_grids(shards, n, B):
-                grid = []
-                for c in cols:
-                    g = np.zeros((n, B), dtype=c.dtype)
-                    g[s, lane] = c[sel]
-                    grid.append(g)
-                sharded_row_op(op, table, row_type(*self._upload_cols(grid)),
-                               now, n, self.cfg.ways)
-        return table
+        for sel, s, lane in drain_to_grids(shards, n, B):
+            grid = []
+            for c in cols:
+                g = np.zeros((n, B), dtype=c.dtype)
+                g[s, lane] = c[sel]
+                grid.append(g)
+            sharded_row_op(op, self.shards, tables,
+                           self._upload_grid(grid, row_type), now,
+                           self.cfg.ways)
 
     # -- point reads / persistence ---------------------------------------
     def bucket_offset(self, key: str) -> int:
-        """Row index of `key`'s bucket within its owner shard's block."""
+        """Row index of `key`'s bucket in the whole table (shard-major)."""
         h = key_hash64(key)
         nb_local = self.local_slots // self.cfg.ways
         shard = int(shard_of_hash(h, self.n))
         return shard * self.local_slots + (h & (nb_local - 1)) * self.cfg.ways
 
-    def _probe_grid(self, keys, hashes, now: int,
-                    table: Optional[SlotTable] = None, route=None):
+    def _probe_grid(self, keys, hashes, now: int, tables=None, route=None):
         """Shard-routed batched probes: (found, global slot) per key, in
-        key order, one fetch for every chunk (lock held).  `table`/`route`
-        default to the auth table with owner routing; the GlobalEngine
-        passes its cache table with arrival routing.  The table's geometry
-        may differ from the auth table's (global_cache_slots)."""
-        if table is None:
-            table = self.table
+        key order, one fetch for every chunk (lock held).  `tables`/`route`
+        default to the auth tables with owner routing; the GlobalEngine
+        passes its cache replicas with arrival routing.  Their geometry
+        may differ from the auth tables' (global_cache_slots)."""
+        if tables is None:
+            tables = self.tables
         n = self.n
-        local = table.key.shape[0] // n
+        local = tables[0].key.shape[0]
         h64 = _h64s(hashes)
         shards = (route or (lambda h: shard_of_hash(h, n)))(h64)
         found = np.zeros(len(keys), dtype=bool)
@@ -406,12 +566,12 @@ class MeshBackend(TorchDeviceHost):
         grids = list(_hash_grid(h64, shards, n, self.cfg.batch_size))
         if not grids:
             return found, gslot
-        outs: List[torch.Tensor] = []
-        with self._on_stream():
-            for hv, _ in grids:
-                outs.extend(sharded_probe(table, self._upload(hv), now, n,
-                                          self.cfg.ways))
-            host = PendingFetch(outs, self.stream).wait()
+        outs: List[ShardedTensor] = []
+        for hv, _ in grids:
+            outs.extend(sharded_probe(self.shards, tables,
+                                      self._parts(hv, 0), now,
+                                      self.cfg.ways))
+        host = fetch_sharded(outs).wait()
         for i, (_, jv) in enumerate(grids):
             f, sl = host[2 * i], host[2 * i + 1]
             at = jv >= 0
@@ -430,12 +590,11 @@ class MeshBackend(TorchDeviceHost):
         h64 = np.asarray(h64, dtype=np.int64)
         grids = list(_hash_grid(h64, shard_of_hash(h64, self.n), self.n,
                                 self.cfg.batch_size))
-        parts: List[torch.Tensor] = []
-        with self._on_stream():
-            for hv, _ in grids:
-                parts.extend(sharded_gather(
-                    self.table, self._upload(hv), now, self.n,
-                    self.cfg.ways))
+        parts: List[ShardedTensor] = []
+        for hv, _ in grids:
+            parts.extend(sharded_gather(self.shards, self.tables,
+                                        self._parts(hv, 0), now,
+                                        self.cfg.ways))
         return (self._fetch_later(*parts) if parts else None,
                 [jv for _, jv in grids])
 
@@ -459,32 +618,93 @@ class MeshBackend(TorchDeviceHost):
                      now: int) -> None:
         """Route row dicts to their shards and upsert them with load_rows
         (lock held)."""
-        self.table = self._bulk_upsert_into(self.table, rows, hashes, now)
+        self._bulk_upsert_into(self.tables, rows, hashes, now)
 
-    def _bulk_upsert_into(self, table: SlotTable, rows: List[dict],
-                          hashes: List[int], now: int,
-                          route=None) -> SlotTable:
-        """Upsert row dicts into `table` with `route` (owner routing by
-        default; the GlobalEngine seeds its cache table with arrival
-        routing).  Caller holds the table's lock."""
+    def _bulk_upsert_into(self, tables, rows: List[dict],
+                          hashes: List[int], now: int, route=None) -> None:
+        """Upsert row dicts into `tables` with `route` (owner routing by
+        default; the GlobalEngine seeds its cache replicas with arrival
+        routing).  Caller holds the tables' lock."""
         if not rows:
-            return table
+            return
         h64 = _h64s(hashes)
         cols = [h64] + [
             np.array([r[f] for r in rows], dtype=_ROW_DTYPES[f])
             for f in BucketRows._fields[1:]
         ]
         shards = (route or (lambda h: shard_of_hash(h, self.n)))(h64)
-        return self._upsert_grid(table, load_rows, BucketRows, cols, shards,
-                                 now)
+        self._upsert_grid(tables, load_rows, BucketRows, cols, shards, now)
+
+    # -- state -----------------------------------------------------------
+    def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
+                       n: Optional[int] = None, tables=None,
+                       lock=None) -> MeshFetch:
+        """Start copying columns [lo, lo + n) of the whole table (shard
+        order) to the host: each shard copies its stretch on its stream.
+        The host buffers (pinned on the card) are allocated before `lock`
+        (the auth tables' by default) is taken, so it is held only while
+        the copies are queued."""
+        if tables is None:
+            tables, lock = self.tables, self._lock
+        L = tables[0].key.shape[0]
+        n = L * self.n - lo if n is None else n
+        pin = self.shards[0].stream is not None
+        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
+                for f in fields]
+        t0 = time.monotonic()
+        with lock:
+            streams = []
+            for s, place in enumerate(self.shards):
+                a, b = max(lo, s * L), min(lo + n, (s + 1) * L)
+                if a >= b:
+                    continue
+                with place.on_stream():
+                    for h, f in zip(host, fields):
+                        h[a - lo:b - lo].copy_(
+                            getattr(tables[s], f)[a - s * L:b - s * L],
+                            non_blocking=pin)
+                streams.append(place.stream)
+            pending = MeshFetch(_record(streams),
+                                lambda: [h.numpy() for h in host])
+        if tables is self.tables:
+            self.last_copy_lock_s = time.monotonic() - t0
+        return pending
+
+    def _install_table(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Replace the live tables from host arrays (snapshot format):
+        shard s takes its stretch, on its device."""
+        if arrays["key"].shape[0] != self.cfg.num_slots:
+            raise ValueError(
+                f"snapshot has {arrays['key'].shape[0]} slots, backend "
+                f"expects {self.cfg.num_slots}"
+            )
+        L = self.local_slots
+        with self._lock:
+            self.tables = _each(self.shards, lambda s: table_from_host(
+                {f: a[s * L:(s + 1) * L] for f, a in arrays.items()},
+                self.shards[s].device))
+
+    def _occupancy_dispatch(self, tables) -> MeshFetch:
+        """Live rows of each shard of `tables` (caller holds their lock)."""
+        return fetch_sharded([_sharded(_each(
+            self.shards, lambda s: tables[s].occupancy()), self.shards)])
+
+    def occupancy(self) -> int:
+        return sum(self.shard_occupancy())
+
+    def occupancy_dispatch(self):
+        """Dispatch the resident-slot count under the lock; the returned
+        closure fetches it (the tier manager's watermark read)."""
+        with self._lock:
+            pending = self._occupancy_dispatch(self.tables)
+        return lambda: int(pending.wait()[0].sum())
 
     def shard_occupancy(self) -> List[int]:
         """Live rows PER SHARD: the skew view the aggregate occupancy()
         hides (/debug/vars `shard_occupancy`, gubernator_shard_occupancy)."""
-        with self._lock, self._on_stream():
-            counts = (self.table.key.view(self.n, self.local_slots) != 0
-                      ).sum(dim=1)
-            return [int(c) for c in counts.cpu()]
+        with self._lock:
+            pending = self._occupancy_dispatch(self.tables)
+        return [int(c) for c in pending.wait()[0]]
 
     # -- the state plane's dispatches (gubstat, the cold tier) -----------
     def table_stats_dispatch(self, shadow_fps: np.ndarray):
@@ -492,10 +712,11 @@ class MeshBackend(TorchDeviceHost):
         fetches a TableStats whose every leaf has one row per shard."""
         now = self.clock.millisecond_now()
         fps = np.asarray(shadow_fps, dtype=np.int64)
-        with self._lock, self._on_stream():
-            st = sharded_table_stats(self.table, self._upload(fps), now,
-                                     self.n, self.cfg.ways)
-            pending = PendingFetch(list(st), self.stream)
+        with self._lock:
+            st = sharded_table_stats(self.shards, self.tables,
+                                     self._parts(fps, None), now,
+                                     self.cfg.ways)
+            pending = fetch_sharded(list(st))
         return lambda: TableStats(*pending.wait())
 
     def demote_extract_dispatch(self, protect_fps: np.ndarray, batch: int):
@@ -505,11 +726,11 @@ class MeshBackend(TorchDeviceHost):
         (int64[10, n*batch], float64[n*batch])."""
         now = self.clock.millisecond_now()
         fps = np.asarray(protect_fps, dtype=np.int64)
-        with self._lock, self._on_stream():
-            _, packed, rf = sharded_demote_extract(
-                self.table, self._upload(fps), now, self.n, self.cfg.ways,
-                batch)
-            pending = PendingFetch([packed, rf], self.stream)
+        with self._lock:
+            packed, rf = sharded_demote_extract(
+                self.shards, self.tables, self._parts(fps, None), now,
+                self.cfg.ways, batch)
+            pending = fetch_sharded([packed, rf])
 
         def fetch():
             p, r = pending.wait()
@@ -523,3 +744,8 @@ class MeshBackend(TorchDeviceHost):
         merge runs inside the returned fetch closure."""
         return lambda: self.migrate_inject_rows(cols)
 
+
+def host_table(cols: Sequence[np.ndarray]) -> SlotTable:
+    """Host column arrays in SlotTable field order -> a SlotTable of CPU
+    tensors."""
+    return SlotTable(*[torch.from_numpy(c) for c in cols])

@@ -47,7 +47,7 @@ from gubernator_tpu_torch.core.types import (
     Status,
 )
 from gubernator_tpu_torch.ops.batch import DeviceBatch, pack_batch_q, pack_requests
-from gubernator_tpu_torch.ops.kernels import serve_kernel
+from gubernator_tpu_torch.ops.kernels import resolve_device, serve_kernel
 from gubernator_tpu_torch.ops.kernels.serve_kernel import (
     new_claim_buffer,
     persistent_serve_step,
@@ -584,6 +584,84 @@ class PersistenceHost:
         return out
 
 
+class DevicePlace:
+    """A device and the stream its work goes on (None on the CPU), with
+    K1's lane-list scratch, reused in that stream's order: the per-device
+    plumbing of one table.  A TorchBackend has one; a MeshBackend one a
+    shard (parallel/sharded.py)."""
+
+    __slots__ = ("device", "stream", "_scratch")
+
+    def __init__(self, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"] = None) -> None:
+        self.device = device
+        self.stream = stream
+        self._scratch: Optional[torch.Tensor] = None
+
+    def on_stream(self):
+        """Run the caller's device work on this place's stream (which
+        also makes its card the current device)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def upload(self, a) -> torch.Tensor:
+        """Host array -> device tensor: numpy is copied once into pinned
+        memory (a strided view, such as one shard's part of a block,
+        included) and sent with a non-blocking copy on this place's stream
+        (call it inside `on_stream`)."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        a = np.asarray(a)
+        if self.stream is None:
+            return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
+        dtype = torch.from_numpy(np.empty(0, dtype=a.dtype)).dtype
+        pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+        pinned.numpy()[...] = a
+        return pinned.to(self.device, non_blocking=True)
+
+    def scratch_for(self, k: int, B: int) -> torch.Tensor:
+        """K1's scratch for a dispatch of k rounds of B lanes.  Grows the
+        kept buffer when a larger dispatch needs it.  The buffer returned
+        is the one checked or made here, so two threads that dispatch on
+        different tables of this place (a mesh shard's auth table and its
+        engine's cache) each get one large enough; launches on the one
+        stream use it in turn."""
+        words = serve_kernel.scratch_words(self.device, k, B)
+        buf = self._scratch
+        if buf is None or buf.numel() < words:
+            self._scratch = buf = None
+            try:
+                buf = torch.empty(
+                    max(words, 1), dtype=torch.int32, device=self.device)
+            except torch.OutOfMemoryError as e:
+                raise ValueError(
+                    f"K1 scratch for {k} rounds of {B} lanes needs "
+                    f"{4 * words} bytes on {self.device}; lower "
+                    "GUBER_RING_SLOTS x GUBER_RING_ROUNDS or the batch "
+                    "size"
+                ) from e
+            self._scratch = buf
+        return buf
+
+
+def upload_cols(place: DevicePlace,
+                parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    """Host arrays of one shape (int64, int32 or float64) -> tensors of
+    their dtypes on `place`, in one pinned copy: they travel as the rows of
+    one int64 array (int32 widened, float64 as its bits) and are split and
+    narrowed back on the device (call it inside `place.on_stream()`)."""
+    packed = np.empty((len(parts),) + np.shape(parts[0]), dtype=np.int64)
+    for i, a in enumerate(parts):
+        packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
+    dev = place.upload(packed)
+    return [
+        dev[i].view(torch.float64) if a.dtype == np.float64
+        else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
+        for i, a in enumerate(parts)
+    ]
+
+
 class TorchDeviceHost(PersistenceHost):
     """The device plumbing every torch engine shares: the table's device
     and stream, pinned uploads, fetches behind their own events, the
@@ -592,33 +670,21 @@ class TorchDeviceHost(PersistenceHost):
 
     def _init_device(self) -> None:
         """The table's device and the one stream every launch, copy and
-        event goes on; raises on a CUDA device without a card."""
+        event goes on (the card's current stream); raises on a CUDA device
+        without a card."""
         # Seconds the last bulk table copy (snapshot, key column) held
         # `_lock`: serving waits that long.
         self.last_copy_lock_s = 0.0
-        self.device = torch.device(self.cfg.device)
-        self.stream: Optional[torch.cuda.Stream] = None
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"{type(self).__name__}: no CUDA device; pass "
-                    "DeviceConfig(platform='cpu') to run on the CPU"
-                )
-            if self.device.index is None:
-                self.device = torch.device(
-                    "cuda", torch.cuda.current_device()
-                )
-            self.stream = torch.cuda.current_stream(self.device)
+        self.device = resolve_device(self.cfg.device, type(self).__name__)
+        self.stream: Optional[torch.cuda.Stream] = (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None)
+        self.place = DevicePlace(self.device, self.stream)
         self._lock = threading.Lock()
-        # K1's lane-list scratch, reused in stream order and grown to the
-        # largest dispatch seen (warmup launches every serving shape).
-        self._scratch: Optional[torch.Tensor] = None
 
     def _on_stream(self):
         """Run the caller's device work on the backend's stream."""
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        return self.place.on_stream()
 
     def _add_tally(self, tally: Tally) -> None:
         with self._lock:
@@ -644,39 +710,13 @@ class TorchDeviceHost(PersistenceHost):
             )
 
     def _upload(self, a) -> torch.Tensor:
-        """Host array -> device tensor: numpy goes through pinned memory
-        and a non-blocking copy on the backend's stream (call it inside
-        `_on_stream`)."""
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.stream is None:
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """Host array -> device tensor on the backend's stream (call it
+        inside `_on_stream`)."""
+        return self.place.upload(a)
 
     def _scratch_for(self, k: int, B: int) -> torch.Tensor:
-        """K1's scratch for a dispatch of k rounds of B lanes.  Grows the
-        kept buffer when a larger dispatch needs it.  The buffer returned
-        is the one checked or made here, so two threads that dispatch on
-        different tables (the mesh's auth table and its engine's cache)
-        each get one large enough; launches on the one stream use it in
-        turn."""
-        words = serve_kernel.scratch_words(self.device, k, B)
-        buf = self._scratch
-        if buf is None or buf.numel() < words:
-            self._scratch = buf = None
-            try:
-                buf = torch.empty(
-                    max(words, 1), dtype=torch.int32, device=self.device)
-            except torch.OutOfMemoryError as e:
-                raise ValueError(
-                    f"K1 scratch for {k} rounds of {B} lanes needs "
-                    f"{4 * words} bytes on {self.device}; lower "
-                    "GUBER_RING_SLOTS x GUBER_RING_ROUNDS or the batch "
-                    "size"
-                ) from e
-            self._scratch = buf
-        return buf
+        """K1's scratch for a dispatch of k rounds of B lanes."""
+        return self.place.scratch_for(k, B)
 
     def _fetch_later(self, *tensors: torch.Tensor) -> PendingFetch:
         """Start copying `tensors` to the host behind their own event;
@@ -732,19 +772,9 @@ class TorchDeviceHost(PersistenceHost):
             return int(self.table.occupancy())
 
     def _upload_cols(self, parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
-        """Host arrays of one shape (int64, int32 or float64) -> device
-        tensors of their dtypes, in one pinned copy: they travel as the
-        rows of one int64 array (int32 widened, float64 as its bits) and
-        are split and narrowed back on the device."""
-        packed = np.empty((len(parts),) + np.shape(parts[0]), dtype=np.int64)
-        for i, a in enumerate(parts):
-            packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
-        dev = self._upload(packed)
-        return [
-            dev[i].view(torch.float64) if a.dtype == np.float64
-            else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
-            for i, a in enumerate(parts)
-        ]
+        """Host arrays of one shape -> device tensors of their dtypes, in
+        one pinned copy (`upload_cols`)."""
+        return upload_cols(self.place, parts)
 
     def occupancy_dispatch(self):
         """Dispatch the resident-slot count under the lock; the returned
@@ -905,7 +935,7 @@ class TorchDeviceHost(PersistenceHost):
             qs.reshape((r * s,) + tuple(qs.shape[2:])), nows.reshape(r * s),
             seq, fetch=fetch)
         if not fetch:
-            out = out.reshape((r, s) + tuple(out.shape[1:]))
+            out = out.unflatten(0, (r, s))
         return out, seq
 
     def read_items_bulk(

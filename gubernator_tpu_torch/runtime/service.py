@@ -138,9 +138,10 @@ class Service:
         if backend is not None:
             self.backend = backend
         elif self.cfg.device.num_shards > 1:
-            # A sharded table: one shard a contiguous slice of the table,
-            # each served through the serve kernel on its views (full
-            # Store/Loader SPI, as the single-table backend).
+            # A sharded table: shard s on visible card s % count (the
+            # default placement), each with its own table and stream and
+            # served through the serve kernel (full Store/Loader SPI, as
+            # the single-table backend).
             from gubernator_tpu_torch.parallel.sharded import MeshBackend
 
             self.backend = MeshBackend(

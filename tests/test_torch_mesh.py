@@ -8,7 +8,7 @@ word; the ring and megaround dispatches; the GLOBAL broadcast receive; the
 state plane's per-shard ops on shards other than 0; the per-shard census;
 and the persistent mode's decline.  Ints compare exactly, and the float64
 `remaining_f` column compares exactly too.  The K1 launch on one shard's
-views is held against the plain `ring_step` on a CUDA card only; the JAX
+own table is held against the plain `ring_step` on a CUDA card only; the JAX
 package is imported inside the tests that compare with it, so that test
 runs alone on the card's machine:
     python -m pytest --noconftest -m cuda tests/test_torch_mesh.py"""
@@ -27,7 +27,7 @@ from gubernator_tpu_torch.core.types import RateLimitReq
 from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.ops.state import SHADOW_PLANES
 from gubernator_tpu_torch.parallel.global_sync import arrival_dev
-from gubernator_tpu_torch.parallel.mesh import shard_of_hash, shard_view
+from gubernator_tpu_torch.parallel.mesh import shard_of_hash
 from gubernator_tpu_torch.parallel.sharded import (
     MeshBackend,
     pack_grid_batch,
@@ -276,48 +276,51 @@ def test_persistent_mode_declines_as_in_jax(frozen_clock):
 
 @pytest.mark.cuda
 def test_k1_on_shard_views_matches_plain_on_cuda():
-    """K1 launched on shard 2's column and claim views (S = L) equals the
-    plain ring_step on a clone of the same views, bit for bit, and the
-    other shards are untouched."""
+    """K1 launched on shard 2's own table and claim words of a 4-shard
+    MeshBackend (S = L), on its stream, equals the plain ring_step on a
+    clone of that table, bit for bit; the other shards are untouched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
     from gubernator_tpu_torch.ops.ring import ring_step
-    from gubernator_tpu_torch.ops.state import clone_table, table_from_host
-    from gubernator_tpu_torch.parallel.mesh import claim_view
+    from gubernator_tpu_torch.ops.state import clone_table
     from gubernator_tpu_torch.testing import (
         KeySpace,
         random_rounds,
         random_table,
     )
 
-    dev = torch.device("cuda")
     n, S, now = 4, 1 << 16, 1_700_000_000_000
     rng = np.random.default_rng(2)
     L = S // n
     ks = KeySpace(rng, L, 8, hot_buckets=16)
     parts = [random_table(rng, ks, now) for _ in range(n)]
-    host = {f: np.concatenate([p[f] for p in parts]) for f in parts[0]}
+    be = MeshBackend(DeviceConfig(num_slots=S, ways=8, batch_size=2048,
+                                  num_shards=n),
+                     devices=[torch.device("cuda", 0)])
+    be._install_table({f: np.concatenate([p[f] for p in parts])
+                       for f in parts[0]})
+    place, kt, claim = be.shards[2], be.tables[2], be.claims[2]
+    dev = place.device
     qs = torch.from_numpy(
-        random_rounds(rng, ks, host["key"][2 * L:3 * L], 3, 2048, now)
-    ).to(dev)
+        random_rounds(rng, ks, parts[2]["key"], 3, 2048, now)).to(dev)
     nows = torch.tensor([now, now + 5, now + 9], device=dev)
     seq = torch.zeros(1, dtype=torch.int64, device=dev)
-    kt = table_from_host(host, dev)
-    before_rest = [c.clone() for c in kt]
-    pt = clone_table(shard_view(kt, 2, n))
-    claim = serve_kernel.new_claim_buffer(S, dev)
+    before_rest = {s: [c.clone() for c in be.tables[s]] for s in (0, 1, 3)}
+    pt = clone_table(kt)
+    torch.cuda.synchronize()
     launches = serve_kernel.launches
-    _, kr, _ = serve_kernel.persistent_serve_step(
-        shard_view(kt, 2, n), qs, nows, seq, 8, claim_view(claim, 2, n))
+    with place.on_stream():
+        _, kr, _ = serve_kernel.persistent_serve_step(
+            kt, qs, nows, seq, 8, claim)
     _, pr, _ = ring_step(pt, qs, nows, seq, 8)
     torch.cuda.synchronize()
     assert serve_kernel.launches == launches + 1
     assert torch.equal(kr, pr)
-    for x, y in zip(shard_view(kt, 2, n), pt):
+    for x, y in zip(kt, pt):
         if x.dtype == torch.float64:
             x, y = x.view(torch.int64), y.view(torch.int64)
         assert torch.equal(x, y)
-    for x, b in zip(kt, before_rest):
-        assert torch.equal(x[:2 * L], b[:2 * L])
-        assert torch.equal(x[3 * L:], b[3 * L:])
+    for s, before in before_rest.items():
+        for x, b in zip(be.tables[s], before):
+            assert torch.equal(x, b)
     assert bool((claim == serve_kernel.INT32_MAX).all())
