@@ -853,6 +853,7 @@ def k2_path(dev, name: str, smi: str) -> dict:
         def d(a):
             return torch.from_numpy(a).to(dev)
 
+        plain._advance_window(now)  # as SketchBackend._dispatch does
         plain.state, packed = multi_step(plain.state, d(kh), d(hc), d(lc),
                                          now)
         plain_packed.append(packed)

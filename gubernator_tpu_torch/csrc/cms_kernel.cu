@@ -30,13 +30,13 @@
 // scatter-add, as in `cms_step_scatter_impl`, in two launches on one
 // stream:
 //
-// - roll_kernel: every chunk shares `now`, so only the first can roll the
+// - k2_roll_kernel: every chunk shares `now`, so only the first can roll the
 //   window (ops/sketch.py _rotate_cond).  Every block reads the two window
 //   words; only a merge that rolls sweeps the tables, with the whole grid.
 //   The stream order to the next launch is the merge's one device-wide
 //   barrier; a merge that does not roll sweeps nothing.  It leaves
 //   window_start as it found it.
-// - walk_kernel, for chunks of at most 1024 lanes (the tier's chunks,
+// - k2_walk_kernel, for chunks of at most 1024 lanes (the tier's chunks,
 //   SketchTierConfig.batch_size = 1024): ONE thread block cluster of 16
 //   blocks (8 where the card refuses clusters that large), 1024 threads in
 //   all, walks the chunks, a thread per lane.  Two cluster barriers a chunk
@@ -48,7 +48,7 @@
 //   run, each thread loads its next lane's prev values (prev does not
 //   change during the walk), brings its next cur cells into L2, and loads
 //   the lane after that: only the read of cur, at L2, stays on the chain.
-// - grid_walk_kernel, for wider chunks (a warm-up's 32768): a cooperative
+// - k2_grid_walk_kernel, for wider chunks (a warm-up's 32768): a cooperative
 //   grid walks each chunk with a grid-stride loop and grid barriers in the
 //   same two places.
 // Either walk takes the roll decision again from the unchanged window
@@ -196,7 +196,7 @@ __device__ __forceinline__ bool rolls(const Args& a, int64_t* start) {
 }
 
 // Launch 1: the roll's table sweep (ops/sketch.py _rotate_cond).
-__global__ void __launch_bounds__(kSweepThreads) roll_kernel(Args a) {
+__global__ void __launch_bounds__(kSweepThreads) k2_roll_kernel(Args a) {
   int64_t unused;
   if (!rolls(a, &unused)) return;
   const bool one_behind =
@@ -221,7 +221,7 @@ __device__ __forceinline__ float overlap_of(const Args& a, int64_t start) {
 // of the cluster.  Chunk c + 1's prev values and lane inputs, and chunk
 // c + 2's lane inputs, are loaded (and c + 1's cur cells brought into L2)
 // while chunk c's barriers and adds run.
-__global__ void __launch_bounds__(kLanes / 8) walk_kernel(Args a) {
+__global__ void __launch_bounds__(kLanes / 8) k2_walk_kernel(Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   int64_t start;
   const bool rolled = rolls(a, &start);
@@ -257,7 +257,7 @@ __global__ void __launch_bounds__(kLanes / 8) walk_kernel(Args a) {
 // Launch 2, B > kLanes (wider chunks, such as a warm-up's): a cooperative
 // grid walks each chunk with a grid-stride loop, grid barriers in the same
 // two places.
-__global__ void __launch_bounds__(kGridThreads) grid_walk_kernel(Args a) {
+__global__ void __launch_bounds__(kGridThreads) k2_grid_walk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   int64_t start;
   const bool rolled = rolls(a, &start);
@@ -297,7 +297,7 @@ struct DeviceGuard {
 struct Device {
   int sms = 0;
   int cluster = 0;  // blocks of the walk's cluster
-  int grid_cap = 0; // co-resident blocks of grid_walk_kernel
+  int grid_cap = 0; // co-resident blocks of k2_grid_walk_kernel
 };
 
 // Sweep grid and walk cluster size of `device`.  Returns a cudaError_t.
@@ -311,7 +311,7 @@ int device_shape(int device, Device* out) {
     err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
     // 16 blocks a cluster is beyond the portable 8: take it where it fits.
-    err = cudaFuncSetAttribute(walk_kernel,
+    err = cudaFuncSetAttribute(k2_walk_kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     int fits = 0;
     if (err == cudaSuccess) {
@@ -325,7 +325,7 @@ int device_shape(int device, Device* out) {
       cfg.blockDim = dim3(kLanes / 16);
       cfg.attrs = attr;
       cfg.numAttrs = 1;
-      if (cudaOccupancyMaxActiveClusters(&fits, walk_kernel, &cfg) != cudaSuccess)
+      if (cudaOccupancyMaxActiveClusters(&fits, k2_walk_kernel, &cfg) != cudaSuccess)
         fits = 0;
     }
     cudaGetLastError();  // a refused probe is not this launch's error
@@ -334,8 +334,8 @@ int device_shape(int device, Device* out) {
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (err != cudaSuccess) return (int)err;
     if (!coop) return (int)cudaErrorNotSupported;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, grid_walk_kernel,
-                                                        kGridThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k2_grid_walk_kernel, kGridThreads, 0);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
     d.grid_cap = d.sms * per_sm;
@@ -348,8 +348,8 @@ int device_shape(int device, Device* out) {
 
 extern "C" {
 
-// Dispatch K2 on `stream`: roll_kernel, then walk_kernel (grid_walk_kernel
-// for chunks wider than kLanes).  Returns a cudaError_t.
+// Dispatch K2 on `stream`: k2_roll_kernel, then k2_walk_kernel
+// (k2_grid_walk_kernel for chunks wider than kLanes).  Returns a cudaError_t.
 int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
                    int64_t* window_start, const int64_t* window_ms,
                    const int64_t* kh, const int32_t* hits, const int32_t* lim,
@@ -376,14 +376,14 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
   a.k = k;
   a.B = B;
   cudaStream_t st = (cudaStream_t)stream;
-  roll_kernel<<<d.sms, kSweepThreads, 0, st>>>(a);
+  k2_roll_kernel<<<d.sms, kSweepThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (B > kLanes) {
     int grid = (B + kGridThreads - 1) / kGridThreads;
     if (grid > d.grid_cap) grid = d.grid_cap;
     void* params[] = {&a};
-    e = cudaLaunchCooperativeKernel((const void*)grid_walk_kernel, dim3(grid),
+    e = cudaLaunchCooperativeKernel((const void*)k2_grid_walk_kernel, dim3(grid),
                                     dim3(kGridThreads), params, 0, st);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
@@ -400,7 +400,7 @@ int gub_cms_launch(int device, void* stream, int32_t* cur, int32_t* prev,
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, walk_kernel, a);
+  e = cudaLaunchKernelEx(&cfg, k2_walk_kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

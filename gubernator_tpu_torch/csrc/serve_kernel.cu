@@ -35,7 +35,7 @@
 // every lane of every round whose bucket it owns can drain all k rounds
 // with __syncthreads() alone.  The dispatch is two launches on one stream:
 //
-// 1. bin_kernel, a block per (part of 1024 lanes, round): inactive lanes
+// 1. k1_bin_kernel, a block per (part of 1024 lanes, round): inactive lanes
 //    answer zero here (resps is not zeroed beforehand).  Each active lane
 //    takes a rank in its owner's count (shared-memory atomics; the counts
 //    are zeroed inside the launch), the block scans the counts into
@@ -43,7 +43,7 @@
 //    scatters the lane ids into its part of `list`, grouped by owner.  The
 //    lists hold every active lane exactly once, in room of exactly B a
 //    round.
-// 2. walk_kernel, G blocks: block g drains rounds 0..k-1 over its own
+// 2. k1_walk_kernel, G blocks: block g drains rounds 0..k-1 over its own
 //    lanes only, the concatenation of its sub-lists of the round's parts:
 //
 //      probe | (choose | claim) x <= 3 | decide     (__syncthreads between)
@@ -200,7 +200,7 @@ __device__ __forceinline__ int owner_of(int64_t h, int64_t nbm, int G) {
 }
 
 // Launch 1: bin part blockIdx.x of round blockIdx.y by owner.
-__global__ void __launch_bounds__(kPartLanes) bin_kernel(Args a) {
+__global__ void __launch_bounds__(kPartLanes) k1_bin_kernel(Args a) {
   __shared__ int cnt[kMaxOwners];
   __shared__ int off[kMaxOwners];
   __shared__ int warp_sums[32];
@@ -561,7 +561,7 @@ __device__ __forceinline__ int64_t entry_of(const OwnList& l, int P, int j) {
 }
 
 // Launch 2: block g drains every round over the lanes whose bucket it owns.
-__global__ void __launch_bounds__(kWalkThreads) walk_kernel(Args a) {
+__global__ void __launch_bounds__(kWalkThreads) k1_walk_kernel(Args a) {
   __shared__ OwnList l;
   __shared__ int warp_sums[32];
   const int g = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
@@ -654,8 +654,8 @@ int device_owners(int device, int* G) {
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk_kernel,
-                                                        kWalkThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k1_walk_kernel, kWalkThreads, 0);
     if (err != cudaSuccess) return (int)err;
     const int g = sms * (per_sm < 1 ? 1 : per_sm);
     owners_of[device] = g < kMaxOwners ? g : kMaxOwners;
@@ -690,7 +690,7 @@ long long gub_serve_scratch_words(int device, int k, int B) {
   return 4LL * k * B + 2LL * k * parts_of(B) * G;
 }
 
-// Dispatch K1 on `stream`: bin_kernel, then walk_kernel.  cols: the 12
+// Dispatch K1 on `stream`: k1_bin_kernel, then k1_walk_kernel.  cols: the 12
 // table column pointers in SlotTable field order.  scratch: int32 words,
 // gub_serve_scratch_words(device, k, B) of them.  Returns a cudaError_t.
 int gub_serve_launch(int device, void* stream, void** cols, long long S,
@@ -736,10 +736,10 @@ int gub_serve_launch(int device, void* stream, void** cols, long long S,
   a.G = G;
   a.P = parts_of(B);
   cudaStream_t st = (cudaStream_t)stream;
-  bin_kernel<<<dim3(a.P, k), kPartLanes, 0, st>>>(a);
+  k1_bin_kernel<<<dim3(a.P, k), kPartLanes, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  walk_kernel<<<G, kWalkThreads, 0, st>>>(a);
+  k1_walk_kernel<<<G, kWalkThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -74,6 +74,7 @@ from gubernator_tpu_torch.ops.step import (
     probe_batch,
     store_cached_rows,
 )
+from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
 def resolve_tiers(cfg: DeviceConfig) -> Tuple[int, ...]:
@@ -668,6 +669,10 @@ class TorchDeviceHost(PersistenceHost):
     tallies and whole-table copies.  The single-table TorchBackend and the
     sharded parallel/sharded.MeshBackend build on it."""
 
+    # The sequence number of the latest dispatch (`_lock` held): the
+    # `call` of its stages (runtime/tracing.py), which its fetch reuses.
+    _call = 0
+
     def _init_device(self) -> None:
         """The table's device and the one stream every launch, copy and
         event goes on (the card's current stream); raises on a CUDA device
@@ -862,15 +867,23 @@ class TorchDeviceHost(PersistenceHost):
         go out (the pipelined drain)."""
         t_start = time.monotonic()
         pending = None
+        call = 0
         if rounds:
             with self._lock:
-                pending = self._fetch_later(
-                    self._dispatch_rounds_locked(rounds))
+                resps = self._dispatch_rounds_locked(rounds)
+                call = self._call
+                t = stage_begin()
+                pending = self._fetch_later(resps)
+                stage_end("exact.stage", call, t)
 
         def fetch() -> List[Dict[str, np.ndarray]]:
             if pending is None:
                 return []
-            host = packed_rounds_to_host(pending)
+            t = stage_begin()
+            block = pending.wait()[0]
+            stage_end("exact.wait", call, t)
+            t = stage_begin()
+            host = [_packed_resp_dict(a) for a in block]
             if add_tally:
                 tally = tally_from_rounds(rounds, host)
                 self._add_tally(tally)
@@ -880,18 +893,29 @@ class TorchDeviceHost(PersistenceHost):
                         tally.checks, (time.monotonic() - t_start) * 1e3,
                         over_limit=tally.over_limit,
                     )
+            stage_end("exact.tally", call, t)
             return host
 
         return fetch
 
     def _dispatch_rounds_locked(self, rounds) -> torch.Tensor:
         """Launch the serve kernel once for all `rounds` (once a shard on a
-        shard grid); caller holds `_lock`.  Returns the un-synced
-        int64[k, 9, t] responses (int64[k, n, 9, t] on a grid)."""
+        shard grid) as the next call (`_call`); caller holds `_lock`.
+        Returns the un-synced int64[k, 9, t] responses (int64[k, n, 9, t]
+        on a grid)."""
         t_start = time.monotonic()
         now = self.clock.millisecond_now()
+        self._call += 1
+        t = stage_begin()
         qs = rounds_to_qs(rounds, self._tiers)
         nows = np.full(len(rounds), now, dtype=np.int64)
+        if t:
+            # Lanes shipped (k rounds at the tier, shards included) and
+            # lanes that carry a request.
+            stage_end("exact.pack", self._call, t, {
+                "lanes": qs.size // qs.shape[1],
+                "active": sum(int(np.count_nonzero(db.active))
+                              for db in rounds)})
         resps, _ = self._launch(qs, nows, 0)
         self._observe_step(t_start)
         return resps
@@ -919,6 +943,7 @@ class TorchDeviceHost(PersistenceHost):
         it as input."""
         t_start = time.monotonic()
         with self._lock:
+            self._call += 1
             resps, seq = self._launch(qs, nows, seq)
             out = self._fetch_later(resps, seq) if fetch else resps
         self._observe_step(t_start)
@@ -1023,11 +1048,14 @@ class TorchBackend(TorchDeviceHost):
         """One serve-kernel dispatch on the backend's stream; caller holds
         `_lock`.  Returns the un-synced (int64[k, 9, B], seq + k)."""
         with self._on_stream():
+            t = stage_begin()
             qs = self._upload(qs).contiguous()
             nows = self._upload(nows).contiguous()
             if not isinstance(seq, torch.Tensor):
                 seq = np.asarray(seq, dtype=np.int64)
             seq = self._upload(seq)
+            stage_end("exact.stage", self._call, t)
+            t = stage_begin()
             scratch = None
             if self.stream is not None and qs.shape[0]:
                 scratch = self._scratch_for(qs.shape[0], qs.shape[2])
@@ -1035,6 +1063,7 @@ class TorchBackend(TorchDeviceHost):
                 self.table, qs, nows, seq,
                 ways=self.cfg.ways, claim=self.claim, scratch=scratch,
             )
+            stage_end("exact.launch", self._call, t)
         return resps, seq
 
     def _pack(self, reqs, use_cached=None):

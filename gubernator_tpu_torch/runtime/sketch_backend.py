@@ -31,6 +31,7 @@ Semantics differences from the exact tier, by design:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -44,6 +45,7 @@ from gubernator_tpu_torch.core.hashing import bulk_key_hash64
 from gubernator_tpu_torch.core.types import RateLimitReq, RateLimitResp, Status
 from gubernator_tpu_torch.ops.kernels import cms_kernel
 from gubernator_tpu_torch.ops.sketch import init_sketch
+from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
 class HostCMS:
@@ -144,6 +146,10 @@ class SketchBackend:
             device=self.device,
         )
         self._lock = threading.Lock()
+        # Numbers each merge: the `call` of its stages (runtime/tracing.py);
+        # `_call` is the dispatching merge's (`_lock` held).
+        self._calls = itertools.count(1)
+        self._call = 0
         self.batch = cfg.batch_size
         # Dynamic spillover state (cfg.spill_inserts/spill_transients):
         # names the exact tier degraded here at runtime, plus the
@@ -332,17 +338,26 @@ class SketchBackend:
 
     def _dispatch(self, kh: np.ndarray, hc: np.ndarray, lc: np.ndarray,
                   now: int) -> torch.Tensor:
-        """One K2 launch for a padded merge (the plain step on the CPU);
-        caller holds `_lock` and is on the backend's stream.  Returns the
-        un-synced int32[k, 2, B]."""
+        """Roll the host mirror of the window to `now` and launch K2 once
+        for a padded merge (the plain step on the CPU); caller holds
+        `_lock` and is on the backend's stream.  Returns the un-synced
+        int32[k, 2, B]."""
+        call = self._call
+
         def dev(a: np.ndarray) -> torch.Tensor:
             t = torch.from_numpy(a)
             if self.stream is None:
                 return t
             return t.pin_memory().to(self.device, non_blocking=True)
 
+        t = stage_begin()
+        kh, hc, lc = dev(kh), dev(hc), dev(lc)
+        stage_end("sketch.stage", call, t)
+        t = stage_begin()
+        self._advance_window(now)
         self.state, packed = cms_kernel.cms_multi_step(
-            self.state, dev(kh), dev(hc), dev(lc), now)
+            self.state, kh, hc, lc, now)
+        stage_end("sketch.launch", call, t)
         return packed
 
     def check_cols(
@@ -369,6 +384,8 @@ class SketchBackend:
         this merge's own output only, so the pipelined fast lane runs it
         on its fetch stage while the next merge dispatches."""
         n = len(key_hash)
+        call = next(self._calls)
+        t = stage_begin()
         # Sketch cells are int32; clamp limits/hits into range ONCE so
         # the device decision and the host-side `remaining` agree (an
         # unclamped int64 limit would wrap in the int32 cast below and
@@ -392,11 +409,13 @@ class SketchBackend:
         lc = np.concatenate(
             [limits, np.zeros(pad, dtype=np.int64)]
         ).astype(np.int32).reshape(k, B)
+        stage_end("sketch.prep", call, t)
         with self._lock, self._on_stream():
             now = int(self.clock.millisecond_now())
-            self._advance_window(now)
-            reset_val = self._win_start + self.cfg.window_ms
+            self._call = call
             packed = self._dispatch(kh, hc, lc, now)
+            reset_val = self._win_start + self.cfg.window_ms
+            t = stage_begin()
             done = None
             if packed.is_cuda:
                 # This merge's own responses, copied behind its own event.
@@ -407,16 +426,21 @@ class SketchBackend:
                 done.record(self.stream)
             else:
                 host = packed
+            stage_end("sketch.stage", call, t)
 
         def fetch() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+            t = stage_begin()
             if done is not None:
                 done.synchronize()
+            stage_end("sketch.wait", call, t)
+            t = stage_begin()
             out = host.numpy()
             over = out[:, 0, :].reshape(-1)[:n]
             est = out[:, 1, :].reshape(-1)[:n].astype(np.int64)
             status = over.astype(np.int64)
             remaining = np.maximum(0, limits - est - np.maximum(hits, 0))
             reset = np.full(n, reset_val, dtype=np.int64)
+            stage_end("sketch.answer", call, t)
             return status, remaining, reset
 
         return fetch

@@ -37,7 +37,9 @@ arms the plane (tests/test_tracing.py pins this).
 `device_step_annotation` additionally marks device steps with
 `torch.profiler.record_function` (an NVTX range too, under a profiler
 that emits them) so host spans line up with device kernels in profiler
-traces (the classic dispatch path and the ring runner both use it).
+traces; the ring runner (runtime/ring.py) uses it.  The engines' stages
+(`stage_begin` / `stage_end`) are the program's own records on the
+profiler's clock, kept off its device timeline.
 """
 from __future__ import annotations
 
@@ -146,10 +148,6 @@ class Span:
 
     def set_attribute(self, key: str, value) -> None:
         self.attributes[key] = value
-
-    def add_link(self, ctx: Optional[SpanContext]) -> None:
-        if ctx is not None:
-            self.links.append(ctx)
 
     def duration_ms(self) -> float:
         end = self.end_ns if self.end_ns is not None else time.time_ns()
@@ -477,16 +475,144 @@ def wrap(fn, name: str, parent: Optional[SpanContext], **attrs):
     return _traced
 
 
+class _ProfilerUnbound:
+    """Stands in for `torch.autograd.profiler` until the first stage or
+    annotation binds it (importing this module loads no torch: the peer
+    client and the load generator import it too).  Its flag reads True,
+    so the first use takes the slow path, which binds the real module."""
+
+    _is_profiler_enabled = True
+
+
+# `torch.autograd.profiler`, whose `_is_profiler_enabled` is True, in every
+# thread, only while a torch.profiler records (not in its warm-up).
+_tprof = _ProfilerUnbound
+
+
+def _profiler_recording() -> bool:
+    """Whether a torch.profiler is recording now."""
+    global _tprof
+    if _tprof is _ProfilerUnbound:
+        import torch.autograd.profiler as tprof
+
+        _tprof = tprof
+    return bool(_tprof._is_profiler_enabled)
+
+
 @contextlib.contextmanager
 def device_step_annotation(name: str = "gubernator_device_step"):
     """Profiler-visible annotation around a device step, nested in the
     current trace context when tracing is armed — host spans and the
-    torch.profiler range then line up in a capture."""
-    import torch
-
+    torch.profiler range then line up in a capture.  The range is entered
+    only while a profiler records: outside one it costs every use and
+    records nothing."""
     with span(name, require_parent=True):
-        with torch.profiler.record_function(name):
+        if _profiler_recording():
+            import torch
+
+            with torch.profiler.record_function(name):
+                yield
+        else:
             yield
+
+
+# -- engine stages ---------------------------------------------------------
+#
+# A stage is one step inside an engine call (runtime/backend.py,
+# runtime/sketch_backend.py): `t = stage_begin()` before it,
+# `stage_end(name, call, t)` after.  `call` is the engine's sequence number
+# of the call, so a call's dispatch and fetch stages pair up.  A stage goes
+# to two sinks:
+#
+#   * the stage log, while a torch.profiler records: (name, call, start_ns,
+#     end_ns, counts) on `time.time_ns()`, which is the profiler's own host
+#     clock (CLOCK_REALTIME; an event's offset is from `trace_start_ns()`).
+#     The log is the program's record, never a profiler range: a range
+#     would be copied onto the device's timeline, where a trace reader
+#     counts it as device work.  It holds the latest recording only: it
+#     starts afresh at the first stage that finds the profiler recording
+#     after one that found it not recording;
+#   * gubscope, when it is armed and a context is bound: a child Span.
+#
+# With neither on, a stage costs one module-global check and the profiler
+# flag's read, and allocates nothing.
+
+STAGE_LOG_CAP = 16384
+_stage_log: deque = deque(maxlen=STAGE_LOG_CAP)
+# `_log_open`: the last stage found the profiler recording, so the log is
+# this recording's.  `_stages_live`: that, or gubscope is armed; while it is
+# False a stage reads it and the profiler's flag and returns.
+_log_open = False
+_stages_live = False
+
+
+def stage_begin() -> int:
+    """The stage's start on the profiler's clock, or 0 where it goes to
+    no sink."""
+    if not _stages_live and not _tprof._is_profiler_enabled:
+        return 0
+    return _stage_begin_live()
+
+
+def _stage_begin_live() -> int:
+    global _log_open, _stages_live
+    recording = _profiler_recording()
+    if recording and not _log_open:
+        _stage_log.clear()
+    _log_open = recording
+    _stages_live = recording or _state is not None
+    if recording or (_state is not None and _current.get() is not None):
+        return time.time_ns()
+    return 0
+
+
+def stage_end(name: str, call: int, t0: int,
+              counts: Optional[Dict[str, int]] = None) -> None:
+    """Close the stage begun at `t0` (`stage_begin()`'s value); `counts`
+    are counters taken at the same boundary."""
+    if not t0:
+        return
+    t1 = time.time_ns()
+    if _log_open:
+        _stage_log.append((name, call, t0, t1, counts))
+    st = _state
+    if st is None:
+        return
+    parent = _current.get()
+    if parent is None or not parent.sampled:
+        return
+    sp, _ctx = _begin(st, name, parent, (), dict(counts or {}, call=call))
+    sp.start_ns = t0
+    sp.end()
+
+
+def stage_records() -> List[tuple]:
+    """The stage log of the latest recording: (name, call, start_ns,
+    end_ns, counts) in the order the stages ended."""
+    return list(_stage_log)
+
+
+def stage_totals() -> Dict[str, Dict]:
+    """Per stage name over the stage log: `count` (records), `calls`
+    (distinct calls), `total_ns`, `durations_ns` (for percentiles) and
+    `counts` (each counter summed)."""
+    out: Dict[str, Dict] = {}
+    calls: Dict[str, set] = {}
+    for name, call, t0, t1, counts in stage_records():
+        t = out.get(name)
+        if t is None:
+            t = out[name] = {"count": 0, "calls": 0, "total_ns": 0,
+                             "durations_ns": [], "counts": {}}
+            calls[name] = set()
+        t["count"] += 1
+        t["total_ns"] += t1 - t0
+        t["durations_ns"].append(t1 - t0)
+        calls[name].add(call)
+        for k, v in (counts or {}).items():
+            t["counts"][k] = t["counts"].get(k, 0) + v
+    for name, t in out.items():
+        t["calls"] = len(calls[name])
+    return out
 
 
 # -- lifecycle / introspection -------------------------------------------
@@ -539,7 +665,7 @@ def init_tracing(
     breach dumps — instead of silently vanishing).  Disabled outcomes
     (no OTEL_* configuration at all, or sampler `always_off`/`off`)
     leave the hot path span-free; the status says which."""
-    global _state
+    global _state, _stages_live
     service_name = (
         service_name
         or os.environ.get("OTEL_SERVICE_NAME")
@@ -591,6 +717,7 @@ def init_tracing(
         service_name, sampler_name, ratio, exporters,
         exporter_kind, exporter_error,
     )
+    _stages_live = True
     return TracingStatus(
         True, service_name, sampler_name, ratio,
         exporter=exporter_kind, exporter_error=exporter_error,
