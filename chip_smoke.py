@@ -574,10 +574,12 @@ def k1_path(dev, name: str, smi: str) -> dict:
     else:
         log("phase 5: torch.profiler recorded no device time: device busy "
             "share not measured")
-    first_rounds = [first_qs[0]] + [
+    # First rounds of batches 0-7, each at its tier, for k=1 and k=8
+    # launches of one width.
+    first_rounds = [
         torch.from_numpy(rounds_to_qs(
             pack_requests(b, BATCH, clock).rounds[:1], be._tiers)[0]
-        ).to(dev) for b in batches[1:8]]
+        ).to(dev) for b in batches[:8]]
     for k in (1, 8):
         qs = torch.stack(first_rounds[:k]).contiguous()
         ms, p_ms, bound = timed(qs, 20, 3)

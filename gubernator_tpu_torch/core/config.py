@@ -775,8 +775,11 @@ class DeviceConfig:
     buckets of `ways` slots; the bucket count must be a power of two.
     `batch_size` is the widest round; a round whose active lanes fit a
     smaller entry of `batch_tiers` (None = (128, batch_size)) ships that
-    narrower shape.  `platform` names the torch device type the table lives
-    on: None means "cuda"; "cpu" must be asked for explicitly.
+    narrower shape on a shard grid, the ring and the GLOBAL ingest.  The
+    single-table engine sends and launches only the lanes a round occupies
+    (runtime/backend.occupied_q).  `platform` names the torch device type
+    the table lives on: None means "cuda"; "cpu" must be asked for
+    explicitly.
     """
 
     num_slots: int = 65_536

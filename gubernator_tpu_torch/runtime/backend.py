@@ -105,6 +105,32 @@ def rounds_to_qs(
     return np.stack([pack_batch_q(db)[..., :t] for db in rounds])
 
 
+# Occupied lanes cross to the card in whole multiples of this many.
+SEND_ALIGN = 128
+
+
+def occupied_q(
+    rounds: Sequence[DeviceBatch], tiers: Sequence[int]
+) -> np.ndarray:
+    """Stack the lanes of [B] rounds that carry requests into one
+    int64[k, 12, a] block: a is the highest active lane + 1 over the
+    rounds, rounded up to a multiple of SEND_ALIGN and never wider than
+    the tier `rounds_to_qs` stacks at.  Each column is written once,
+    straight into the block."""
+    t = max(tier_of(db.active, tiers) for db in rounds)
+    hi = 0
+    for db in rounds:
+        lanes = np.flatnonzero(db.active)
+        if lanes.size:
+            hi = max(hi, int(lanes[-1]) + 1)
+    a = min(t, max(1, -(-hi // SEND_ALIGN)) * SEND_ALIGN)
+    q = np.empty((len(rounds), len(rounds[0]), a), dtype=np.int64)
+    for j, db in enumerate(rounds):
+        for i, col in enumerate(db):
+            q[j, i] = col[:a]
+    return q
+
+
 class Tally(NamedTuple):
     """Per-call metric increments (gubernator.go:59-113 counters)."""
 
@@ -725,7 +751,9 @@ class TorchDeviceHost(PersistenceHost):
 
     def _fetch_later(self, *tensors: torch.Tensor) -> PendingFetch:
         """Start copying `tensors` to the host behind their own event;
-        caller holds `_lock`, right after the dispatch that made them."""
+        caller holds `_lock`, right after the dispatch that made them.
+        Only what `tensors` hold is copied: a TorchBackend dispatch's
+        responses are its occupied lanes alone (`occupied_q`)."""
         with self._on_stream():
             return PendingFetch(tensors, self.stream)
 
@@ -854,8 +882,9 @@ class TorchDeviceHost(PersistenceHost):
         self, rounds: Sequence[DeviceBatch], add_tally: bool = True
     ) -> List[Dict[str, np.ndarray]]:
         """Columnar hot path: apply pre-packed rounds ([B], or [n, B] on a
-        shard grid); returns host response dicts per round (at the
-        launch's tier width)."""
+        shard grid); returns host response dicts per round, as wide as
+        the lanes the rounds occupy, rounded up to 128 and at most the
+        tier (`occupied_q`; a shard grid's at the launch's tier width)."""
         return self.step_rounds_begin(rounds, add_tally)()
 
     def step_rounds_begin(
@@ -898,20 +927,25 @@ class TorchDeviceHost(PersistenceHost):
 
         return fetch
 
+    def _pack_rounds(self, rounds) -> np.ndarray:
+        """The request block of `rounds` as it crosses to the card: here
+        the whole tier (`rounds_to_qs`)."""
+        return rounds_to_qs(rounds, self._tiers)
+
     def _dispatch_rounds_locked(self, rounds) -> torch.Tensor:
         """Launch the serve kernel once for all `rounds` (once a shard on a
         shard grid) as the next call (`_call`); caller holds `_lock`.
-        Returns the un-synced int64[k, 9, t] responses (int64[k, n, 9, t]
-        on a grid)."""
+        Returns the un-synced int64[k, 9, w] responses (int64[k, n, 9, w]
+        on a grid), w the width of `_pack_rounds`' block."""
         t_start = time.monotonic()
         now = self.clock.millisecond_now()
         self._call += 1
         t = stage_begin()
-        qs = rounds_to_qs(rounds, self._tiers)
+        qs = self._pack_rounds(rounds)
         nows = np.full(len(rounds), now, dtype=np.int64)
         if t:
-            # Lanes shipped (k rounds at the tier, shards included) and
-            # lanes that carry a request.
+            # Lanes shipped (k rounds at the block's width, shards
+            # included) and lanes that carry a request.
             stage_end("exact.pack", self._call, t, {
                 "lanes": qs.size // qs.shape[1],
                 "active": sum(int(np.count_nonzero(db.active))
@@ -1065,6 +1099,11 @@ class TorchBackend(TorchDeviceHost):
             )
             stage_end("exact.launch", self._call, t)
         return resps, seq
+
+    def _pack_rounds(self, rounds) -> np.ndarray:
+        """Only the lanes the rounds occupy (`occupied_q`): K1 takes any
+        width and compiles nothing per shape, so it walks those alone."""
+        return occupied_q(rounds, self._tiers)
 
     def _pack(self, reqs, use_cached=None):
         return pack_requests(reqs, self.cfg.batch_size, self.clock, use_cached)

@@ -182,10 +182,29 @@ def test_lane_counter_of_1000_lanes_at_tier_32768():
     be = exact_engine(batch_size=32768, num_slots=1 << 15)
     _, recs, _ = recorded(lambda: exact_call(be, exact_round(1000, 32768)))
     (pack,) = [r for r in recs if r[0] == "exact.pack"]
-    assert pack[4] == {"lanes": 32768, "active": 1000}
+    assert pack[4] == {"lanes": 1024, "active": 1000}
     assert tracing.stage_totals()["exact.pack"]["counts"] == pack[4]
-    assert lane_fill({"engine": "exact"}, "exact") == 100.0 * 1000 / 32768
+    assert lane_fill({"engine": "exact"}, "exact") == 100.0 * 1000 / 1024
     assert lane_fill({"engine": "sketch"}, "exact") is None
+
+
+def test_lane_counter_of_full_rounds_and_of_a_second_round():
+    from benchmark.stages import lane_fill
+
+    be = exact_engine()
+    _, recs, _ = recorded(lambda: exact_call(be, exact_round(256)))
+    assert [r[4] for r in recs if r[4]] == [{"lanes": 256, "active": 256}]
+    assert lane_fill({"engine": "exact"}, "exact") == 100.0
+    # A key met twice goes to a second round, which walks as wide as the
+    # first: two rounds of 300 and 100 requests, 384 lanes each.
+    be = exact_engine(batch_size=1024)
+    rounds = exact_round(300, 1024)
+    again = exact_round(300, 1024)
+    again.active[100:] = False
+    _, recs, _ = recorded(lambda: be.step_rounds([rounds, again]))
+    (pack,) = [r for r in recs if r[0] == "exact.pack"]
+    assert pack[4] == {"lanes": 768, "active": 400}
+    assert lane_fill({"engine": "exact"}, "exact") == 100.0 * 400 / 768
 
 
 def test_stages_are_children_of_the_bound_span():

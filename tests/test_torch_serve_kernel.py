@@ -303,3 +303,48 @@ def test_kernel_matches_plain_on_cuda():
                 x, y = x.view(torch.int64), y.view(torch.int64)
             assert torch.equal(x, y), n
         assert bool((claim == serve_kernel.INT32_MAX).all()), n
+
+
+@pytest.mark.cuda
+def test_engine_narrow_send_on_cuda_matches_the_cpu_engine():
+    """K1 behind TorchBackend's narrow send: calls of 1 to 4096 occupied
+    lanes (two rounds each, the second meeting keys of the first again),
+    sent and launched at their occupied width, answer and leave the table
+    as the plain version does on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
+    from gubernator_tpu_torch.core.clock import Clock
+    from gubernator_tpu_torch.core.config import DeviceConfig
+    from gubernator_tpu_torch.ops.batch import empty_batch
+    from gubernator_tpu_torch.runtime.backend import TorchBackend
+
+    clock = Clock()
+    clock.freeze(1_700_000_000_000 * 10**6)
+    engines = [TorchBackend(DeviceConfig(num_slots=1 << 14, ways=8,
+                                         batch_size=4096, platform=p),
+                            clock=clock) for p in ("cuda", "cpu")]
+    rng = np.random.default_rng(18)
+    pool = rng.integers(1, 2**62, size=6000)
+    for step, n in enumerate([1, 129, 1000, 4096, 1000, 127]):
+        clock.freeze((1_700_000_000_000 + 150 * step) * 10**6)
+        keys = rng.choice(pool, size=n, replace=False)
+        rounds = []
+        for ks in (keys, keys[: max(1, n // 3)]):
+            m = len(ks)
+            db = empty_batch(4096)
+            db.key_hash[:m] = ks
+            db.hits[:m] = rng.integers(0, 3, m)
+            db.limit[:m] = db.burst[:m] = rng.integers(1, 6, m)
+            db.duration[:m] = rng.choice([50, 200, 60_000], m)
+            db.algo[:m] = rng.integers(0, 2, m)
+            db.active[:m] = True
+            rounds.append(db)
+        got, want = (be.step_rounds(rounds) for be in engines)
+        for r, (g, w) in enumerate(zip(got, want)):
+            for col in w:
+                np.testing.assert_array_equal(
+                    g[col], w[col], err_msg=f"{step} {r} {col}")
+    got, want = (be.snapshot() for be in engines)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert bool((engines[0].claim == serve_kernel.INT32_MAX).all())
