@@ -46,6 +46,13 @@ One deliberate deviation from the reference, kept from the JAX package: the
 owner shard also serves GLOBAL reads from its replicated cache rather than
 answering authoritatively (gubernator.go:272-283), so hot keys are not
 re-concentrated on their owner.
+
+While a torch.profiler records, the engine logs its stages
+(runtime/tracing.py `stage_begin` / `stage_end`): `global.serve` (the ingest
+and the queue, with its lanes shipped and active), `global.fetch` (the
+responses' wait and unpack), and for a sync `global.build` (with its keys
+and chunks), `global.stage`, then a chunk's `global.collect`,
+`global.apply` and `global.broadcast`.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from gubernator_tpu_torch.runtime.backend import (
     rounds_to_qs,
     unmarshal_responses,
 )
+from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
 class DeltaGrid(NamedTuple):
@@ -244,6 +252,10 @@ class GlobalEngine:
         self.syncs = 0
         self.sync_keys = 0
         self.dropped = 0
+        # Serving calls so far (check and serve_packed): the call number
+        # of the stage log (runtime/tracing.py); a sync takes the number
+        # of the call it precedes.
+        self.calls = 0
         # Post-sync hook, called with the synced pending dict (possibly on
         # a device-executor thread).  The service bridges collective syncs
         # to the RPC tier with it (cross-NODE broadcasts).
@@ -260,14 +272,15 @@ class GlobalEngine:
             SlotTable._fields, tables=self.cache_tables,
             lock=self._lock).wait())
 
-    def _ingest(self, rounds, now: int) -> ShardedTensor:
+    def _ingest(self, rounds, now: int):
         """Serve use_cached grid rounds from the cache replicas (one K1
-        launch a shard); caller holds `_lock`."""
+        launch a shard); caller holds `_lock`.  Returns the responses and
+        the lanes shipped (rounds x shards x the block's tier)."""
         qs = rounds_to_qs(rounds, self.b._tiers)
         resps, _ = self.b._launch(
             qs, np.full(len(rounds), now, dtype=np.int64), 0,
             tables=self.cache_tables, claims=self.cache_claims)
-        return resps
+        return resps, qs.size // qs.shape[1]
 
     def _queue(self, req: RateLimitReq, hits: int, src_dev: int) -> None:
         """Queue one key's hits (caller holds `_lock`)."""
@@ -325,22 +338,14 @@ class GlobalEngine:
             with self.b._lock, self._lock:
                 self._seed_uniq_from_store(uniq, now)
 
-        pending = None
         with self._lock:
-            if packed.rounds:
-                pending = self.b._fetch_later(
-                    self._ingest(packed.rounds, now))
-            # Queue hits AFTER preparing the response (the deferred
-            # QueueHit, gubernator.go:429-432).
-            for r in ok:
-                self._queue(r, r.hits, self._arrival(key_hash64(r.hash_key())))
-            want_sync = len(self.pending) >= self.batch_limit
+            pending, want_sync = self._serve_locked(packed.rounds, [
+                (r, r.hits, self._arrival(key_hash64(r.hash_key())))
+                for r in ok], now)
 
         agg_out, tally = unmarshal_responses(
             len(agg_reqs), packed.errors, packed.positions,
-            packed_grid_rounds_to_host(pending) if pending is not None
-            else [],
-        )
+            self.fetch_packed(pending))
         self.b._add_tally(tally)
         if want_sync:
             self.sync()
@@ -352,7 +357,9 @@ class GlobalEngine:
         hold with check()'s ordering (serve, then queue).  `pend_items` is
         [(req, summed_hits, src_dev)], one per unique key.  Returns (a
         PendingFetch of the int64[k, n, 9, B] responses, want_sync); the
-        caller fetches outside the lock and calls sync() when want_sync."""
+        caller fetches outside the lock (`fetch_packed`) and calls sync()
+        when want_sync.  Stage `global.serve` (the ingest and the queue)
+        counts the lanes shipped and those that carry a request."""
         now = self.clock.millisecond_now()
         if self.b._keymap is not None:
             self.b._note_keys([req.hash_key() for req, _h, _s in pend_items])
@@ -364,12 +371,38 @@ class GlobalEngine:
             with self.b._lock, self._lock:
                 self._seed_uniq_from_store(uniq, now)
         with self._lock:
-            resps = (self.b._fetch_later(self._ingest(rounds, now))
-                     if rounds else None)
-            for req, hits, src_dev in pend_items:
-                self._queue(req, hits, src_dev)
-            want_sync = len(self.pending) >= self.batch_limit
-        return resps, want_sync
+            return self._serve_locked(rounds, pend_items, now)
+
+    def _serve_locked(self, rounds, pend_items, now: int):
+        """Serve `rounds` from the replicas at `now` and queue `pend_items`
+        [(req, hits, src_dev)] after it (the deferred QueueHit,
+        gubernator.go:429-432), as the next call; caller holds `_lock`.
+        Returns (a PendingFetch of the responses or None, want_sync)."""
+        self.calls += 1
+        t = stage_begin()
+        resps, lanes = None, 0
+        if rounds:
+            resps, lanes = self._ingest(rounds, now)
+            resps = self.b._fetch_later(resps)
+        for req, hits, src_dev in pend_items:
+            self._queue(req, hits, src_dev)
+        if t:
+            stage_end("global.serve", self.calls, t, {
+                "lanes": lanes,
+                "active": sum(int(np.count_nonzero(db.active))
+                              for db in rounds)})
+        return resps, len(self.pending) >= self.batch_limit
+
+    def fetch_packed(self, resps, call=None):
+        """serve_packed's responses on the host, one dict of [n, B]
+        columns a round (`[]` for None): the wait on the shards' own
+        events and the unpack, as stage `global.fetch` of `call` (the
+        latest serving call by default)."""
+        t = stage_begin()
+        host = (packed_grid_rounds_to_host(resps) if resps is not None
+                else [])
+        stage_end("global.fetch", self.calls if call is None else call, t)
+        return host
 
     # -- sync path -------------------------------------------------------
     def _seed_uniq_from_store(self, uniq: Dict[str, RateLimitReq],
@@ -442,14 +475,20 @@ class GlobalEngine:
                 out.append(torch.cat(got, dim=1))
         return out
 
-    def _sync_step(self, staged: List[torch.Tensor], now: int) -> None:
+    def _sync_step(self, staged: List[torch.Tensor], now: int,
+                   call: int = 0) -> None:
         """One collective sync of a staged chunk; caller holds b._lock then
-        self._lock.  The owners receive and merge (`_receive`); each runs
-        its merged lanes as one two-round K1 dispatch on its auth shard
-        (hits, then hits = 0); every replica receives the owners' round-1
-        broadcast rows (`_all_gather`) and upserts them."""
+        self._lock.  The owners receive and merge (`_receive`, stage
+        `global.collect`); each runs its merged lanes as one two-round K1
+        dispatch on its auth shard (hits, then hits = 0) and takes its
+        broadcast rows from round 1 (`global.apply`); every replica
+        receives the owners' rows (`_all_gather`) and upserts them
+        (`global.broadcast`)."""
         shards = self.b.shards
+        t = stage_begin()
         qs = self._receive(staged)
+        stage_end("global.collect", call, t)
+        t = stage_begin()
         resps, _ = self.b._launch(
             ShardedTensor(qs, [p.stream for p in shards], 2),
             np.full(2, now, dtype=np.int64), 0)
@@ -460,29 +499,41 @@ class GlobalEngine:
                 rows.append(torch.stack([
                     torch.where(q[10] != 0, q[0], 0), q[4], r1[1], r1[2],
                     r1[0], r1[3]]))  # CachedRows order
+        stage_end("global.apply", call, t)
+        t = stage_begin()
         for c, r in enumerate(self._all_gather(rows)):
             with shards[c].on_stream():
                 store_cached_rows(self.cache_tables[c], CachedRows(
                     key_hash=r[0], algo=r[1].to(torch.int32), limit=r[2],
                     remaining=r[3], status=r[4].to(torch.int32),
                     reset_time=r[5]), now, self.b.cfg.ways)
+        stage_end("global.broadcast", call, t)
 
     def sync(self) -> int:
-        """Run the collective hits->owner->broadcast step; returns #keys."""
+        """Run the collective hits->owner->broadcast step; returns #keys.
+        Its stages carry the number of the serve_packed call it precedes;
+        `global.build` counts the keys packed and their chunks."""
         with self._lock:
             pending, self.pending = self.pending, {}
+            call = self.calls + 1
         if not pending:
             return 0
+        t = stage_begin()
         chunks = self._build_chunks(pending, self.clock.now())
+        if t:
+            stage_end("global.build", call, t, {"keys": len(pending),
+                                                "chunks": len(chunks)})
         now = self.clock.millisecond_now()
         # Uploads read no table state: stage them BEFORE taking the locks,
         # so concurrent checks block only for the sync steps.
+        t = stage_begin()
         staged = [self._stage(grid) for grid in chunks]
+        stage_end("global.stage", call, t)
         cap_keys = cap_token = wt_seq = None
         # Lock order: auth (backend) before cache (self).
         with self.b._lock, self._lock:
             for delta in staged:
-                self._sync_step(delta, now)
+                self._sync_step(delta, now, call)
             if self.b.store is not None:
                 # Post-sync auth rows -> Store.on_change (the write-through
                 # of algorithms.go:154-158, batch-granular at the sync

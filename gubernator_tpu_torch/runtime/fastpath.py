@@ -1171,9 +1171,6 @@ class FastPath:
         rounds — so a drain of N entries is semantically N sequential
         engine calls, amortized into one round-trip."""
         from gubernator_tpu_torch.parallel.global_sync import arrival_dev
-        from gubernator_tpu_torch.parallel.sharded import (
-            packed_grid_rounds_to_host,
-        )
         from gubernator_tpu_torch.runtime.backend import (
             Tally,
             tally_from_rounds,
@@ -1243,10 +1240,10 @@ class FastPath:
                     (req, int(hits_sum[j]), int(sh[off + j]))
                 )
         resps, want_sync = engine.serve_packed(rounds, pend)
+        call = engine.calls
 
         def fetch_body() -> List[Tuple[np.ndarray, ...]]:
-            host = (packed_grid_rounds_to_host(resps)
-                    if resps is not None else [])
+            host = engine.fetch_packed(resps, call)
 
             mt = len(h_all)
             st_u = np.zeros(mt, dtype=np.int64)
