@@ -21,6 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
   5. time K1 and the plain version with CUDA events (L2 flushed before
      each call), split check()'s host time, trace one check() with
      torch.profiler for the device's busy time;
+ 5b. the store kernel (the GLOBAL replica upsert, serve_kernel.store_rows)
+     at the GLOBAL cell's shape: 1024 lanes of broadcast rows (a third
+     inactive, a quarter of the keys already in the table, four or more
+     fresh keys in each full bucket, half the rows expired) into a 2^19-slot replica at 48% load,
+     bit-exact against the plain store_cached_rows with the claim words
+     restored, then timed from the same starting table (L2 flushed) beside
+     its byte bound and the plain version's time;
   6. run K2, the sketch merge kernel, and its plain version
      (ops/sketch.multi_step) on seeded sketches and merges from
      gubernator_tpu_torch/testing.py (W from 2^10 to 2^20, k = 1 and 32,
@@ -596,6 +603,143 @@ def k1_path(dev, name: str, smi: str) -> dict:
         "ms": main_ms,
         "plain_ms": main_plain,
         "bound_ms": main_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+STORE_SLOTS = 1 << 19        # phase 5b: a global-mesh4-zipf replica
+STORE_LOAD = 0.48
+STORE_LANES = 1024           # four owners' 256-lane broadcast rows
+STORE_ITERS = 20
+
+
+def store_bytes(rows, after, ways: int) -> int:
+    """Bytes the store must move for this block, each read or written once:
+    every lane's key (8 B); each active lane's other five row words (40 B)
+    and the key/expire_at/touched words of its bucket (24 B a way); and
+    each row written (84 B), counted as an active lane whose key its
+    bucket holds afterwards."""
+    import torch
+
+    key = rows[0]
+    active = key != 0
+    nb = after.key.shape[0] // ways
+    bucket = (key & (nb - 1))[:, None] * ways + torch.arange(
+        ways, device=key.device)[None, :]
+    written = int(((after.key[bucket] == key[:, None]).any(dim=1)
+                   & active).sum())
+    return (key.numel() * 8 + int(active.sum()) * (40 + 24 * ways)
+            + written * 84)
+
+
+def store_path(dev, name: str, smi: str) -> dict:
+    """Phase 5b: the store kernel against its plain version at the GLOBAL
+    cell's shape, timed.  Returns its entry of the kernel line."""
+    import torch
+
+    from gubernator_tpu_torch.ops.kernels import serve_kernel
+    from gubernator_tpu_torch.ops.state import clone_table, table_from_host
+    from gubernator_tpu_torch.ops.step import (
+        store_cached_rows,
+        unpack_cached_rows,
+    )
+    from gubernator_tpu_torch.testing import (
+        KeySpace,
+        random_cached_block,
+        random_table,
+    )
+
+    rng = np.random.default_rng(SEED + 500)
+    now = T0_NS // 1_000_000
+    ks = KeySpace(rng, STORE_SLOTS, WAYS, hot_buckets=64)
+    host = random_table(rng, ks, now)
+    # random_table fills 70% of the slots; keep STORE_LOAD of them.
+    host["key"] = np.where(rng.random(STORE_SLOTS) < STORE_LOAD / 0.7,
+                           host["key"], 0)
+    for b in ks.hot:  # hot buckets stay full, so their lanes contend
+        lo = b * WAYS
+        host["key"][lo:lo + WAYS] = rng.choice(
+            ks.hot_keys[(ks.hot_keys & (ks.nb - 1)) == b], WAYS,
+            replace=False)
+    block = random_cached_block(rng, ks, host["key"], STORE_LANES, now)
+    block[0, rng.random(STORE_LANES) < 0.25] = 0  # a third inactive
+    rows = torch.from_numpy(block).to(dev)
+    start = table_from_host(host, dev)
+    live = clone_table(start)
+    claim = serve_kernel.new_claim_buffer(STORE_SLOTS, dev)
+    scratch = torch.empty(serve_kernel.scratch_words(dev, 1, STORE_LANES),
+                          dtype=torch.int32, device=dev)
+    serve_kernel.store_launches = 0
+    serve_kernel.store_rows(live, rows, now, WAYS, claim, scratch)
+    plain = store_cached_rows(clone_table(start), unpack_cached_rows(rows),
+                              now, WAYS)
+    torch.cuda.synchronize()
+    if not tables_equal(live, plain):
+        raise AssertionError("phase 5b: the store kernel's table differs "
+                             "from the plain store_cached_rows'")
+    if not bool((claim == serve_kernel.INT32_MAX).all()):
+        raise AssertionError("phase 5b: claim words not restored")
+    active = int((rows[0] != 0).sum())
+    fresh = int((~torch.isin(rows[0], start.key) & (rows[0] != 0)).sum())
+    dropped = active - int(
+        (torch.isin(rows[0], live.key) & (rows[0] != 0)).sum())
+    bound = (store_bytes(rows, live, WAYS) / hbm_bytes_per_s(name) * 1e3)
+
+    l2_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def timed(fn, iters) -> float:
+        """Mean ms of fn() on the starting table, restored and the L2
+        flushed before each call."""
+        pairs = []
+        for _ in range(iters):
+            for c, c0 in zip(live, start):
+                c.copy_(c0)
+            l2_buf.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(x.elapsed_time(y) for x, y in pairs) / iters
+
+    ms = timed(lambda: serve_kernel.store_rows(live, rows, now, WAYS, claim,
+                                               scratch), STORE_ITERS)
+    plain_ms = timed(lambda: store_cached_rows(
+        live, unpack_cached_rows(rows), now, WAYS), STORE_ITERS)
+    for c, c0 in zip(live, start):
+        c.copy_(c0)
+    l2_buf.zero_()
+    _, busy_ms, by_name = profile_device(lambda: serve_kernel.store_rows(
+        live, rows, now, WAYS, claim, scratch))
+    launches = serve_kernel.store_launches
+    if launches != 2 + STORE_ITERS:
+        raise AssertionError(f"phase 5b: {launches} store dispatches for "
+                             f"{2 + STORE_ITERS} calls")
+    del l2_buf, start, live, plain
+    log(f"phase 5b ({smi}): the store kernel, {STORE_LANES} lanes "
+        f"({active} active, {fresh} new keys, {dropped} dropped) into "
+        f"{STORE_SLOTS} slots at {STORE_LOAD:.0%} load: table bit-exact vs "
+        f"the plain store_cached_rows, claim words restored; {ms:.4f} "
+        f"ms/dispatch (events around the call, its host enqueue included), "
+        f"plain {plain_ms:.4f} ms, bound {bound:.6f} ms (bytes); one "
+        f"dispatch traced: device busy {busy_ms:.4f} ms ("
+        + "; ".join(f"{n} {t:.4f} ms" for n, t in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:3])
+        + f"); {launches} dispatches")
+    return {
+        "name": "store_kernel",
+        "route": "cuda",
+        "source": "gubernator_tpu_torch/csrc/serve_kernel.cu",
+        "replaces": "none (gubernator_tpu/ops/step.py:634 is plain XLA)",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "device_ms": busy_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": None,
     }
@@ -3579,7 +3723,8 @@ MESH_DAEMON_GLOBAL_KEYS = 1024
 MESH_CLIENTS = DAEMON_CLIENTS
 MESH_RPCS = 3
 MESH_SMALL_CLIENTS = SMALL_CLIENTS
-MESH_PATHS = {"serve_kernel": {}, "cms_kernel": {}}  # path -> launches
+MESH_PATHS = {"serve_kernel": {}, "cms_kernel": {},  # path -> launches
+              "store_kernel": {}}
 
 
 def sync_all() -> None:
@@ -3642,13 +3787,13 @@ class MeshRecorder:
     """Keeps, in table order, every per-shard K1 launch of a mesh backend
     and its GlobalEngine (the wrapper `serve_kernel.persistent_serve_step`,
     which parallel/sharded.mesh_ring_step calls once a shard, on the
-    shard's own table), every broadcast upsert of a sync into a cache
-    replica, and every K2 dispatch of a sketch backend.  Nothing is copied:
-    each input is a fresh tensor per dispatch."""
+    shard's own table), every broadcast upsert into a cache replica or an
+    auth shard (the store kernel, `serve_kernel.store_rows`), and every K2
+    dispatch of a sketch backend.  Nothing is copied: each input is a fresh
+    tensor per dispatch."""
 
     def __init__(self, be, eng=None, sb=None):
         from gubernator_tpu_torch.ops.kernels import serve_kernel
-        from gubernator_tpu_torch.parallel import global_sync
 
         self.be, self.eng, self.sb = be, eng, sb
         self.n = be.n
@@ -3660,7 +3805,7 @@ class MeshRecorder:
                  for s, t in enumerate(ts)}
         self.events, self.k2 = [], []
         self._k1, self._bcast = (serve_kernel.persistent_serve_step,
-                                 global_sync.store_cached_rows)
+                                 serve_kernel.store_rows)
 
         def k1(table, qs, nows, seq, ways=8, claim=None, scratch=None):
             out = self._k1(table, qs, nows, seq, ways, claim=claim,
@@ -3669,13 +3814,14 @@ class MeshRecorder:
             self.events.append(("k1", label, s, qs, nows, seq, out[1]))
             return out
 
-        def bcast(table, rows, now, ways=8):
+        def bcast(table, rows, now, ways=8, claim=None, scratch=None):
             label, s = where[table.key.data_ptr()]
             self.events.append(("bcast", label, s, rows, now))
-            return self._bcast(table, rows, now, ways)
+            return self._bcast(table, rows, now, ways, claim=claim,
+                               scratch=scratch)
 
         serve_kernel.persistent_serve_step = k1
-        global_sync.store_cached_rows = bcast
+        serve_kernel.store_rows = bcast
         if sb is not None:
             self._dispatch = sb._dispatch
 
@@ -3688,10 +3834,9 @@ class MeshRecorder:
 
     def close(self):
         from gubernator_tpu_torch.ops.kernels import serve_kernel
-        from gubernator_tpu_torch.parallel import global_sync
 
         serve_kernel.persistent_serve_step = self._k1
-        global_sync.store_cached_rows = self._bcast
+        serve_kernel.store_rows = self._bcast
         if self.sb is not None:
             del self.sb._dispatch
 
@@ -3699,12 +3844,17 @@ class MeshRecorder:
         return sum(1 for ev in self.events if ev[0] == "k1"
                    and label in (None, ev[1]))
 
+    def store_launches(self, label=None) -> int:
+        return sum(1 for ev in self.events if ev[0] == "bcast"
+                   and label in (None, ev[1]))
+
     def replay(self, dev, starts, sketch=None) -> float:
         """Every recorded event again, in order, on copies of the starting
         tables (`starts`: label -> per-shard tables, clone_shards): each K1
         launch through the plain ring_step on the copy of the same shard's
-        own table, each broadcast upsert through the same torch op; the K2
-        dispatches through the plain multi_step on a copy of the sketch.
+        own table, each broadcast upsert through the plain
+        store_cached_rows; the K2 dispatches through the plain multi_step
+        on a copy of the sketch.
         Requires every output, the final tables and sketch and the claim
         words equal."""
         import torch
@@ -3712,14 +3862,20 @@ class MeshRecorder:
         from gubernator_tpu_torch.ops.kernels import cms_kernel, serve_kernel
         from gubernator_tpu_torch.ops.ring import ring_step
         from gubernator_tpu_torch.ops.sketch import multi_step
+        from gubernator_tpu_torch.ops.step import (
+            store_cached_rows,
+            unpack_cached_rows,
+        )
 
-        before = serve_kernel.launches, cms_kernel.launches
+        before = (serve_kernel.launches, serve_kernel.store_launches,
+                  cms_kernel.launches)
         err = 0.0
         sync_all()
         for j, ev in enumerate(self.events):
             view = starts[ev[1]][ev[2]]
             if ev[0] == "bcast":
-                self._bcast(view, ev[3], ev[4], WAYS)
+                store_cached_rows(view, unpack_cached_rows(ev[3]), ev[4],
+                                  WAYS)
                 continue
             _, _, s, qs, nows, seq, resps = ev
             _, pr, _ = ring_step(view, qs, nows, seq, WAYS)
@@ -3738,7 +3894,8 @@ class MeshRecorder:
                                      "from the plain version's")
             err = max(err, max_abs_err(pp, packed))
         sync_all()
-        if (serve_kernel.launches, cms_kernel.launches) != before:
+        if (serve_kernel.launches, serve_kernel.store_launches,
+                cms_kernel.launches) != before:
             raise AssertionError("the plain replay launched a kernel")
         for label, live in self.tables.items():
             for s, (t, want) in enumerate(zip(live, starts[label])):
@@ -4097,8 +4254,9 @@ def phase_mesh_global(dev, smi, be, ref, clock):
     finally:
         rec.close()
     MESH_PATHS["serve_kernel"]["phase 16b"] = eng_launches
-    if not stats or eng_launches == 0:
-        raise AssertionError("16b: no sync or no K1 launch")
+    MESH_PATHS["store_kernel"]["phase 16b"] = rec.store_launches()
+    if not stats or eng_launches == 0 or rec.store_launches() == 0:
+        raise AssertionError("16b: no sync, K1 launch or store dispatch")
     t0 = time.perf_counter()
     err = rec.replay(dev, starts)
     ms = [s[0] for s in stats]
@@ -4248,6 +4406,8 @@ def mesh_mode_run(dev, smi, mode, slots, clients, warm, seed, label):
                                  f"answers, K1 launches {k1}, K2 {k2}")
         MESH_PATHS["serve_kernel"][f"phase 16c {mode}"] = k1
         MESH_PATHS["cms_kernel"][f"phase 16c {mode}"] = k2
+        MESH_PATHS["store_kernel"][f"phase 16c {mode}"] = \
+            rec.store_launches()
         dvars = http_json(d.http_address, "/debug/vars")
         occ = dvars["backend"].get("shard_occupancy")
         if (not occ or len(occ) != MESH_SHARDS
@@ -4345,7 +4505,8 @@ def phase_mesh(dev, smi, name) -> float:
                                      SEED + 1610 + j, "phase 16c"))
     log(f"phase 16 ({smi}): {time.perf_counter() - t_phase:.1f} s; peak "
         f"device memory in 16c {peak_gib():.2f} GiB; K1 launches by path "
-        f"{json.dumps(MESH_PATHS['serve_kernel'])}; sync copies "
+        f"{json.dumps(MESH_PATHS['serve_kernel'])}, store dispatches "
+        f"{json.dumps(MESH_PATHS['store_kernel'])}; sync copies "
         f"{json.dumps(sync_ms)}")
     return err
 
@@ -4862,6 +5023,7 @@ def main() -> int:
         raise RuntimeError("the native host runtime (native/gubtpu.cpp) "
                            "did not build: the compiled fast lane is off")
     k1 = k1_path(dev, name, smi)
+    store = store_path(dev, name, smi)
     k2 = k2_path(dev, name, smi)
     clock_mod.freeze(T0_NS)  # the daemons' clock, frozen
     state, times = StateOpRecorder(), {}
@@ -4882,9 +5044,11 @@ def main() -> int:
         k["launches_by_path"] = {"main path": k["launches"],
                                  **MESH_PATHS[k["name"]],
                                  **BENCH_PATHS[k["name"]]}
+    store["launches_by_path"] = {"phase 5b": store["launches"],
+                                 **MESH_PATHS["store_kernel"]}
     # The result lines carry no time prefix: they are parsed as JSON.
     print(json.dumps(state_ops_line(times)), flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, store]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -75,6 +75,23 @@
 // saturating helpers clamp, then add; float64 math keeps the JAX evaluation
 // order with explicit _rn intrinsics (and the build passes -fmad=false), so
 // no multiply-add is contracted.
+//
+// The store: the GLOBAL replica upsert.  gub_store_launch writes one block
+// of owner-broadcast rows (int64[6, L]: key hash, algo, limit, remaining,
+// status, reset time; key 0 = inactive) into a replica as KIND_CACHED_RESP
+// rows, the plain form being ops/step.py `store_cached_rows`.  It replaces
+// no Pallas kernel: the JAX form, gubernator_tpu/ops/step.py:634
+// `store_cached_rows_impl`, is plain XLA, and its torch port's three
+// sort-based claim rounds and host sync (the nonzero() of its scatter)
+// set the GLOBAL sync's broadcast stage.  It is K1's dispatch with a
+// write in place of the algebra: k1_bin_kernel<true> bins the lanes by
+// owner (a lane is active where its key is nonzero), then k1_store_kernel
+// runs the same probe and (choose | claim) x <= 3 on the same claim words
+// and stores each found or winning lane's row; a lane that wins no slot
+// writes nothing, as the plain form drops it.  What bounds it on this
+// card: a probe of W ways (3 x 8 B a way) and a 12-column row write a
+// lane, a few KB at L = 1024, so it is set by its chain of dependent
+// steps and its two launches, like a small K1 round.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,6 +107,7 @@ constexpr int kRespRows = 9;
 constexpr int32_t kFree = INT32_MAX;   // claim word: nobody claimed
 constexpr int32_t kReserved = -1;      // claim word: a found lane's slot
 constexpr int64_t kInf = int64_t(1) << 62;
+constexpr int32_t kKindCachedResp = 1;  // ops/state.py KIND_CACHED_RESP
 
 // Lane state flags (scratch `lflag`).
 constexpr int32_t kFound = 2;
@@ -130,6 +148,7 @@ struct Args {
   int B;
   int G;
   int P;
+  int64_t now;           // the store's clock (K1 reads nows[b])
 };
 
 __device__ __forceinline__ int64_t wsub(int64_t a, int64_t b) {
@@ -199,13 +218,18 @@ __device__ __forceinline__ int owner_of(int64_t h, int64_t nbm, int G) {
   return (int)((uint64_t)(h & nbm) % (uint64_t)G);
 }
 
-// Launch 1: bin part blockIdx.x of round blockIdx.y by owner.
+// Launch 1: bin part blockIdx.x of round blockIdx.y by owner.  K1's lanes
+// are active by their active word (row 10); the store's (kStore) by a
+// nonzero key (row 0), and it has no responses or sequence word.
+template <bool kStore>
 __global__ void __launch_bounds__(kPartLanes) k1_bin_kernel(Args a) {
   __shared__ int cnt[kMaxOwners];
   __shared__ int off[kMaxOwners];
   __shared__ int warp_sums[32];
   const int p = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  if (p == 0 && b == 0 && t == 0) a.seq_out[0] = a.seq_in[0] + a.k;
+  if constexpr (!kStore) {
+    if (p == 0 && b == 0 && t == 0) a.seq_out[0] = a.seq_in[0] + a.k;
+  }
   for (int g = t; g < a.G; g += blockDim.x) cnt[g] = 0;
   __syncthreads();
 
@@ -215,10 +239,10 @@ __global__ void __launch_bounds__(kPartLanes) k1_bin_kernel(Args a) {
   const int64_t nbm = a.S / a.ways - 1;
   int owner = -1, rank = 0;
   if (i < a.B) {
-    if (__ldg(q + 10 * B + i) != 0) {
+    if (__ldg(q + (kStore ? 0 : 10) * B + i) != 0) {
       owner = owner_of(__ldg(q + i), nbm, a.G);
       rank = atomicAdd(&cnt[owner], 1);
-    } else {
+    } else if constexpr (!kStore) {
       // An inactive lane reads nothing but its active word; it answers zero.
       int64_t* resp = a.resps + (int64_t)b * kRespRows * B;
       for (int r = 0; r < kRespRows; ++r) resp[r * B + i] = 0;
@@ -542,6 +566,32 @@ __device__ void decide(const Args& a, const int64_t* q, int64_t now,
   if (persist) a.claim[slot] = kFree;
 }
 
+// Store: settle the last claim, then write lane i's cached row into its
+// found or won slot and restore the claim word; a lane with no slot writes
+// nothing.  One lane of ops/step.py store_cached_rows.
+__device__ void store_row(const Args& a, const int64_t* q, int64_t now,
+                          int i, int64_t e) {
+  int32_t flag = a.lflag[e];
+  settle(a, i, e, flag);
+  if (!(flag & (kFound | kWon))) return;
+  const int64_t B = a.B;
+  const Table& t = a.t;
+  const int64_t slot = a.lslot[e];
+  t.key[slot] = __ldg(q + i);
+  t.algo[slot] = (int32_t)__ldg(q + 1 * B + i);
+  t.kind[slot] = kKindCachedResp;
+  t.limit[slot] = __ldg(q + 2 * B + i);
+  t.duration[slot] = 0;
+  t.remaining[slot] = __ldg(q + 3 * B + i);
+  t.remaining_f[slot] = 0.0;
+  t.t0[slot] = 0;
+  t.status[slot] = (int32_t)__ldg(q + 4 * B + i);
+  t.burst[slot] = 0;
+  t.expire_at[slot] = __ldg(q + 5 * B + i);
+  t.touched[slot] = now;
+  a.claim[slot] = kFree;
+}
+
 // The block's round-b list, the concatenation of its sub-lists of the
 // round's P parts: entry j lies at pos[p] + (j - pre[p]) of `list` (and of
 // the per-entry scratch) for the largest p with pre[p] <= j.
@@ -560,8 +610,11 @@ __device__ __forceinline__ int64_t entry_of(const OwnList& l, int P, int j) {
   return l.pos[lo] + (j - l.pre[lo]);
 }
 
-// Launch 2: block g drains every round over the lanes whose bucket it owns.
-__global__ void __launch_bounds__(kWalkThreads) k1_walk_kernel(Args a) {
+// Block g drains every round over the lanes whose bucket it owns: K1's
+// walk, or with kStore the store's (its one round, a store in place of
+// decide).
+template <bool kStore>
+__device__ __forceinline__ void walk(const Args& a) {
   __shared__ OwnList l;
   __shared__ int warp_sums[32];
   const int g = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
@@ -570,8 +623,8 @@ __global__ void __launch_bounds__(kWalkThreads) k1_walk_kernel(Args a) {
   const int E = (a.P + nt - 1) / nt;  // parts per thread in the scan
   for (int b = 0; b < a.k; ++b) {
     const int64_t* q = a.qs + (int64_t)b * kQRows * B;
-    int64_t* resp = a.resps + (int64_t)b * kRespRows * B;
-    const int64_t now = __ldg(a.nows + b);
+    int64_t* resp = kStore ? nullptr : a.resps + (int64_t)b * kRespRows * B;
+    const int64_t now = kStore ? a.now : __ldg(a.nows + b);
 
     // This round's list: each part's sub-list (offset, count); the counts
     // sit in pre[] until the scan turns them into its exclusive prefix.
@@ -621,10 +674,24 @@ __global__ void __launch_bounds__(kWalkThreads) k1_walk_kernel(Args a) {
     }
     for (int j = t; j < n; j += nt) {
       const int64_t e = entry_of(l, a.P, j);
-      decide(a, q, now, resp, __ldg(a.list + e), e);
+      if constexpr (kStore) {
+        store_row(a, q, now, __ldg(a.list + e), e);
+      } else {
+        decide(a, q, now, resp, __ldg(a.list + e), e);
+      }
     }
     __syncthreads();  // round b + 1 sees round b's rows and claim words
   }
+}
+
+// Launch 2: K1's walk.
+__global__ void __launch_bounds__(kWalkThreads) k1_walk_kernel(Args a) {
+  walk<false>(a);
+}
+
+// The store's launch 2: the walk over its one round of rows.
+__global__ void __launch_bounds__(kWalkThreads) k1_store_kernel(Args a) {
+  walk<true>(a);
 }
 
 // Restores the calling thread's current device when it leaves scope.  An
@@ -666,6 +733,57 @@ int device_owners(int device, int* G) {
 
 int parts_of(int B) { return B <= 0 ? 1 : (B + kPartLanes - 1) / kPartLanes; }
 
+// int32 words of scratch a dispatch of k rounds of B lanes needs on
+// `device` (the caller selects and restores the device), or a negated
+// cudaError_t.
+long long scratch_words_of(int device, int k, int B) {
+  int G = 0;
+  const int err = device_owners(device, &G);
+  if (err != (int)cudaSuccess) return -(long long)err;
+  if (k < 0 || B < 0 || parts_of(B) > kMaxParts) return -(long long)cudaErrorInvalidValue;
+  return 4LL * k * B + 2LL * k * parts_of(B) * G;
+}
+
+// Args of a dispatch of k rounds of B lanes on `device`: the 12 table
+// columns (SlotTable field order), the claim words and the scratch (checked
+// against what the dispatch needs).  Returns a cudaError_t.
+int dispatch_args(Args& a, int device, void** cols, long long S, int ways,
+                  int32_t* claim, int32_t* scratch, long long scratch_words,
+                  int k, int B) {
+  const long long need = scratch_words_of(device, k, B);
+  if (need < 0) return (int)-need;
+  if (k < 1 || ways < 1 || scratch_words < need) return (int)cudaErrorInvalidValue;
+  int G = 0;
+  device_owners(device, &G);
+  a = Args{};
+  a.t.key = (int64_t*)cols[0];
+  a.t.algo = (int32_t*)cols[1];
+  a.t.kind = (int32_t*)cols[2];
+  a.t.limit = (int64_t*)cols[3];
+  a.t.duration = (int64_t*)cols[4];
+  a.t.remaining = (int64_t*)cols[5];
+  a.t.remaining_f = (double*)cols[6];
+  a.t.t0 = (int64_t*)cols[7];
+  a.t.status = (int32_t*)cols[8];
+  a.t.burst = (int64_t*)cols[9];
+  a.t.expire_at = (int64_t*)cols[10];
+  a.t.touched = (int64_t*)cols[11];
+  a.claim = claim;
+  const int64_t kB = (int64_t)k * B;
+  a.list = scratch;
+  a.lflag = scratch + kB;
+  a.lslot = scratch + 2 * kB;
+  a.lvslot = scratch + 3 * kB;
+  a.sub = scratch + 4 * kB;
+  a.S = S;
+  a.ways = ways;
+  a.k = k;
+  a.B = B;
+  a.G = G;
+  a.P = parts_of(B);
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -683,11 +801,7 @@ int gub_serve_owners(int device) {
 // `device`, or a negated cudaError_t.
 long long gub_serve_scratch_words(int device, int k, int B) {
   DeviceGuard guard;
-  int G = 0;
-  const int err = device_owners(device, &G);
-  if (err != (int)cudaSuccess) return -(long long)err;
-  if (k < 0 || B < 0 || parts_of(B) > kMaxParts) return -(long long)cudaErrorInvalidValue;
-  return 4LL * k * B + 2LL * k * parts_of(B) * G;
+  return scratch_words_of(device, k, B);
 }
 
 // Dispatch K1 on `stream`: k1_bin_kernel, then k1_walk_kernel.  cols: the 12
@@ -699,47 +813,44 @@ int gub_serve_launch(int device, void* stream, void** cols, long long S,
                      int32_t* claim, int32_t* scratch, long long scratch_words,
                      int k, int B) {
   DeviceGuard guard;
-  const long long need = gub_serve_scratch_words(device, k, B);
-  if (need < 0) return (int)-need;
-  if (k < 1 || ways < 1 || scratch_words < need) return (int)cudaErrorInvalidValue;
-  int G = 0;
-  device_owners(device, &G);
   Args a;
-  a.t.key = (int64_t*)cols[0];
-  a.t.algo = (int32_t*)cols[1];
-  a.t.kind = (int32_t*)cols[2];
-  a.t.limit = (int64_t*)cols[3];
-  a.t.duration = (int64_t*)cols[4];
-  a.t.remaining = (int64_t*)cols[5];
-  a.t.remaining_f = (double*)cols[6];
-  a.t.t0 = (int64_t*)cols[7];
-  a.t.status = (int32_t*)cols[8];
-  a.t.burst = (int64_t*)cols[9];
-  a.t.expire_at = (int64_t*)cols[10];
-  a.t.touched = (int64_t*)cols[11];
+  const int err = dispatch_args(a, device, cols, S, ways, claim, scratch,
+                                scratch_words, k, B);
+  if (err != (int)cudaSuccess) return err;
   a.qs = qs;
   a.nows = nows;
   a.seq_in = seq_in;
   a.seq_out = seq_out;
   a.resps = resps;
-  a.claim = claim;
-  const int64_t kB = (int64_t)k * B;
-  a.list = scratch;
-  a.lflag = scratch + kB;
-  a.lslot = scratch + 2 * kB;
-  a.lvslot = scratch + 3 * kB;
-  a.sub = scratch + 4 * kB;
-  a.S = S;
-  a.ways = ways;
-  a.k = k;
-  a.B = B;
-  a.G = G;
-  a.P = parts_of(B);
   cudaStream_t st = (cudaStream_t)stream;
-  k1_bin_kernel<<<dim3(a.P, k), kPartLanes, 0, st>>>(a);
+  k1_bin_kernel<false><<<dim3(a.P, k), kPartLanes, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  k1_walk_kernel<<<G, kWalkThreads, 0, st>>>(a);
+  k1_walk_kernel<<<a.G, kWalkThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Dispatch the store on `stream`: k1_bin_kernel<true>, then k1_store_kernel.
+// rows: int64[6, B] (key hash, algo, limit, remaining, status, reset time;
+// key 0 = inactive), keys unique; they become KIND_CACHED_RESP rows touched
+// at `now`.  scratch: gub_serve_scratch_words(device, 1, B) words.  Returns
+// a cudaError_t.
+int gub_store_launch(int device, void* stream, void** cols, long long S,
+                     int ways, const int64_t* rows, long long now,
+                     int32_t* claim, int32_t* scratch,
+                     long long scratch_words, int B) {
+  DeviceGuard guard;
+  Args a;
+  const int err = dispatch_args(a, device, cols, S, ways, claim, scratch,
+                                scratch_words, 1, B);
+  if (err != (int)cudaSuccess) return err;
+  a.qs = rows;
+  a.now = now;
+  cudaStream_t st = (cudaStream_t)stream;
+  k1_bin_kernel<true><<<dim3(a.P, 1), kPartLanes, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  k1_store_kernel<<<a.G, kWalkThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

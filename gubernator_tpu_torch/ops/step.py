@@ -594,6 +594,16 @@ class CachedRows(NamedTuple):
     reset_time: torch.Tensor  # int64[B]
 
 
+def unpack_cached_rows(block: torch.Tensor) -> CachedRows:
+    """The store kernel's int64[6, B] block (CachedRows field order,
+    ops/kernels/serve_kernel.store_rows) -> CachedRows, algo and status
+    narrowed."""
+    return CachedRows(
+        key_hash=block[0], algo=block[1].to(torch.int32), limit=block[2],
+        remaining=block[3], status=block[4].to(torch.int32),
+        reset_time=block[5])
+
+
 def store_cached_rows(
     table: SlotTable,
     rows: CachedRows,
@@ -606,7 +616,9 @@ def store_cached_rows(
     The analog of UpdatePeerGlobals -> AddCacheItem (gubernator.go:464-479):
     the stored item IS the response, with ExpireAt = status.ResetTime.
     Keys must be unique within the batch.  Lanes that claim no slot are
-    dropped, as the JAX form's scatter with mode="drop" drops them."""
+    dropped, as the JAX form's scatter with mode="drop" drops them.  The
+    plain version of the store kernel (ops/kernels/serve_kernel.store_rows),
+    and its path on the CPU."""
     h = rows.key_hash
     now = _device_i64(now, h.device)
     active = h != 0

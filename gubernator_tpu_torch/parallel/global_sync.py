@@ -34,7 +34,11 @@ and nothing is copied):
 The owner's apply and its hits=0 re-read are ONE two-round K1 dispatch per
 owner shard, on its device and stream (round 0 the merged hits, round 1 the
 same lanes with hits = 0), and the broadcast rows come from round 1's
-responses.
+responses.  Each replica upserts the gathered rows with ONE store-kernel
+dispatch (ops/kernels/serve_kernel.store_rows: K1's bin, probe and claim
+rounds on the replica's claim words, then a row write), on its card's
+stream: nothing in the broadcast waits on the host, so the four replicas'
+upserts queue back to back and run at once on their cards.
 
 The default collective is psum: the host pending dict already merged
 duplicate keys and `_build_chunks` gives each key ONE (owner, lane) slot, so
@@ -52,7 +56,8 @@ While a torch.profiler records, the engine logs its stages
 and the queue, with its lanes shipped and active), `global.fetch` (the
 responses' wait and unpack), and for a sync `global.build` (with its keys
 and chunks), `global.stage`, then a chunk's `global.collect`,
-`global.apply` and `global.broadcast`.
+`global.apply` and `global.broadcast` (with the rows offered to the
+replicas and the store dispatches).
 """
 from __future__ import annotations
 
@@ -74,8 +79,8 @@ from gubernator_tpu_torch.core.types import (
     has_behavior,
 )
 from gubernator_tpu_torch.ops.batch import pack_requests_grid
+from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP, SlotTable
-from gubernator_tpu_torch.ops.step import CachedRows, store_cached_rows
 from gubernator_tpu_torch.parallel.mesh import ShardedTensor, shard_of_hash
 from gubernator_tpu_torch.parallel.sharded import (
     MeshBackend,
@@ -476,14 +481,16 @@ class GlobalEngine:
         return out
 
     def _sync_step(self, staged: List[torch.Tensor], now: int,
-                   call: int = 0) -> None:
-        """One collective sync of a staged chunk; caller holds b._lock then
-        self._lock.  The owners receive and merge (`_receive`, stage
-        `global.collect`); each runs its merged lanes as one two-round K1
-        dispatch on its auth shard (hits, then hits = 0) and takes its
-        broadcast rows from round 1 (`global.apply`); every replica
-        receives the owners' rows (`_all_gather`) and upserts them
-        (`global.broadcast`)."""
+                   call: int = 0, keys: int = 0) -> None:
+        """One collective sync of a staged chunk of `keys` keys; caller
+        holds b._lock then self._lock.  The owners receive and merge
+        (`_receive`, stage `global.collect`); each runs its merged lanes as
+        one two-round K1 dispatch on its auth shard (hits, then hits = 0)
+        and takes its broadcast rows from round 1 (`global.apply`); every
+        replica receives the owners' rows (`_all_gather`) and upserts them
+        with one store-kernel dispatch on its stream, with no host wait
+        (`global.broadcast`, counting the rows offered to the replicas,
+        keys x replicas, and the store dispatches)."""
         shards = self.b.shards
         t = stage_begin()
         qs = self._receive(staged)
@@ -501,13 +508,19 @@ class GlobalEngine:
                     r1[0], r1[3]]))  # CachedRows order
         stage_end("global.apply", call, t)
         t = stage_begin()
+        before = serve_kernel.store_launches
         for c, r in enumerate(self._all_gather(rows)):
-            with shards[c].on_stream():
-                store_cached_rows(self.cache_tables[c], CachedRows(
-                    key_hash=r[0], algo=r[1].to(torch.int32), limit=r[2],
-                    remaining=r[3], status=r[4].to(torch.int32),
-                    reset_time=r[5]), now, self.b.cfg.ways)
-        stage_end("global.broadcast", call, t)
+            place = shards[c]
+            with place.on_stream():
+                serve_kernel.store_rows(
+                    self.cache_tables[c], r, now, self.b.cfg.ways,
+                    claim=self.cache_claims[c],
+                    scratch=(place.scratch_for(1, r.shape[1])
+                             if place.stream is not None else None))
+        if t:
+            stage_end("global.broadcast", call, t, {
+                "rows": keys * self.n,
+                "launches": serve_kernel.store_launches - before})
 
     def sync(self) -> int:
         """Run the collective hits->owner->broadcast step; returns #keys.
@@ -520,6 +533,7 @@ class GlobalEngine:
             return 0
         t = stage_begin()
         chunks = self._build_chunks(pending, self.clock.now())
+        chunk_keys = [int(np.count_nonzero(g.key_hash)) for g in chunks]
         if t:
             stage_end("global.build", call, t, {"keys": len(pending),
                                                 "chunks": len(chunks)})
@@ -532,8 +546,8 @@ class GlobalEngine:
         cap_keys = cap_token = wt_seq = None
         # Lock order: auth (backend) before cache (self).
         with self.b._lock, self._lock:
-            for delta in staged:
-                self._sync_step(delta, now, call)
+            for delta, keys in zip(staged, chunk_keys):
+                self._sync_step(delta, now, call, keys)
             if self.b.store is not None:
                 # Post-sync auth rows -> Store.on_change (the write-through
                 # of algorithms.go:154-158, batch-granular at the sync

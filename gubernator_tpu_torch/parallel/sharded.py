@@ -18,8 +18,8 @@ shard's table, on its stream:
     make_sharded_step_packed,
     make_mesh_ring_step,
     make_mesh_mega_ring_step          mesh_ring_step        K1 once a shard
-    make_sharded_row_op               sharded_row_op        load_rows /
-                                                            store_cached_rows
+    make_sharded_row_op               sharded_row_op        load_rows
+    UpdatePeerGlobals' upsert         apply_cached_rows     the store kernel
     make_sharded_probe                sharded_probe         probe_batch
     make_sharded_gather               sharded_gather        gather_rows
     make_sharded_demote_extract       sharded_demote_extract demote_extract
@@ -67,11 +67,9 @@ from gubernator_tpu_torch.ops.state import (
 from gubernator_tpu_torch.ops.step import (
     GATHER_ROW_FIELDS,
     BucketRows,
-    CachedRows,
     gather_rows,
     load_rows,
     probe_batch,
-    store_cached_rows,
 )
 from gubernator_tpu_torch.parallel.mesh import (
     ShardedTensor,
@@ -259,9 +257,8 @@ def sharded_row_op(op: Callable, shards: Sequence[DevicePlace],
                    tables: Sequence[SlotTable], rows: Sequence, now,
                    ways: int = 8) -> None:
     """Row upserts on every shard: `op` (ops/step.load_rows — Loader
-    restore, Store seeding — or store_cached_rows — the GLOBAL broadcast
-    receive) on shard s's table, on its stream, with its rows `rows[s]`
-    (a row tuple of [B] tensors on its device)."""
+    restore, Store seeding) on shard s's table, on its stream, with its
+    rows `rows[s]` (a row tuple of [B] tensors on its device)."""
     for s, place in enumerate(shards):
         with place.on_stream():
             op(tables[s], rows[s], now, ways)
@@ -506,20 +503,29 @@ class MeshBackend(TorchDeviceHost):
     # -- GLOBAL broadcast receive ----------------------------------------
     def apply_cached_rows(self, rows: Sequence[tuple]) -> None:
         """Upsert owner-broadcast statuses, routed to their shards: rows of
-        (hash_key_str, algorithm, limit, remaining, status, reset_time)."""
+        (hash_key_str, algorithm, limit, remaining, status, reset_time).
+        Each [n, B] grid of them is one int64[6, B] block a shard and one
+        store-kernel dispatch on its stream, with its claim words."""
         self._note_keys([c[0] for c in rows])
         if not rows:
             return
         h64 = _h64s([key_hash64(c[0]) for c in rows])
-        cols = [h64] + [
-            np.array([c[i] for c in rows], dtype=dt)
-            for i, dt in ((1, np.int32), (2, np.int64), (3, np.int64),
-                          (4, np.int32), (5, np.int64))
-        ]
+        cols = np.array([c[1:6] for c in rows], dtype=np.int64)
+        n, B = self.n, self.cfg.batch_size
         now = self.clock.millisecond_now()
         with self._lock:
-            self._upsert_grid(self.tables, store_cached_rows, CachedRows,
-                              cols, shard_of_hash(h64, self.n), now)
+            for sel, s, lane in drain_to_grids(shard_of_hash(h64, n), n, B):
+                grid = np.zeros((n, 6, B), dtype=np.int64)
+                grid[s, 0, lane] = h64[sel]
+                grid[s, 1:, lane] = cols[sel]
+                for d, (place, block) in enumerate(
+                        zip(self.shards, self._parts(grid, 0))):
+                    with place.on_stream():
+                        serve_kernel.store_rows(
+                            self.tables[d], block, now, self.cfg.ways,
+                            claim=self.claims[d],
+                            scratch=(place.scratch_for(1, B)
+                                     if place.stream is not None else None))
 
     def _upload_grid(self, grid: Sequence[np.ndarray], row_type) -> list:
         """[n, B] host columns -> shard s's `row_type` of [B] tensors on
@@ -527,8 +533,8 @@ class MeshBackend(TorchDeviceHost):
         return _each(self.shards, lambda s: row_type(*upload_cols(
             self.shards[s], [np.ascontiguousarray(g[s]) for g in grid])))
 
-    def _upsert_grid(self, tables, op, row_type, cols, shards, now):
-        """`op` over `row_type` rows given as host columns, drained into
+    def _upsert_grid(self, tables, cols, shards, now):
+        """load_rows over BucketRows given as host columns, drained into
         [n, B] grids by `shards`; caller holds the tables' lock."""
         n, B = self.n, self.cfg.batch_size
         for sel, s, lane in drain_to_grids(shards, n, B):
@@ -537,8 +543,8 @@ class MeshBackend(TorchDeviceHost):
                 g = np.zeros((n, B), dtype=c.dtype)
                 g[s, lane] = c[sel]
                 grid.append(g)
-            sharded_row_op(op, self.shards, tables,
-                           self._upload_grid(grid, row_type), now,
+            sharded_row_op(load_rows, self.shards, tables,
+                           self._upload_grid(grid, BucketRows), now,
                            self.cfg.ways)
 
     # -- point reads / persistence ---------------------------------------
@@ -633,7 +639,7 @@ class MeshBackend(TorchDeviceHost):
             for f in BucketRows._fields[1:]
         ]
         shards = (route or (lambda h: shard_of_hash(h, self.n)))(h64)
-        self._upsert_grid(tables, load_rows, BucketRows, cols, shards, now)
+        self._upsert_grid(tables, cols, shards, now)
 
     # -- state -----------------------------------------------------------
     def _columns_fetch(self, fields: Sequence[str], lo: int = 0,

@@ -68,11 +68,9 @@ from gubernator_tpu_torch.ops.step import (
     GATHER_ROW_FIELDS,
     RESP_ROWS,
     BucketRows,
-    CachedRows,
     gather_rows,
     load_rows,
     probe_batch,
-    store_cached_rows,
 )
 from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
@@ -1182,30 +1180,25 @@ class TorchBackend(TorchDeviceHost):
     def apply_cached_rows(self, rows: List[tuple]) -> None:
         """Upsert owner-broadcast statuses: rows of
         (hash_key_str, algorithm, limit, remaining, status, reset_time) —
-        the UpdatePeerGlobals receive path (gubernator.go:464-479)."""
+        the UpdatePeerGlobals receive path (gubernator.go:464-479).  Each
+        chunk of `batch_size` rows is one int64[6, B] upload and one
+        store-kernel dispatch (its plain version on the CPU)."""
         self._note_keys([c[0] for c in rows])
         B = self.cfg.batch_size
         now = self.clock.millisecond_now()
         with self._lock, self._on_stream():
             for lo in range(0, max(len(rows), 1), B):
                 chunk = rows[lo:lo + B]
-
-                def col(i, dt):
-                    return self._upload(
-                        np.array([c[i] for c in chunk], dtype=dt))
-
-                cr = CachedRows(
-                    key_hash=self._upload(
-                        bulk_key_hash64([c[0] for c in chunk])
-                        if chunk else np.zeros(0, dtype=np.int64)),
-                    algo=col(1, np.int32),
-                    limit=col(2, np.int64),
-                    remaining=col(3, np.int64),
-                    status=col(4, np.int32),
-                    reset_time=col(5, np.int64),
-                )
-                self.table = store_cached_rows(
-                    self.table, cr, now, ways=self.cfg.ways)
+                block = np.zeros((6, len(chunk)), dtype=np.int64)
+                if chunk:
+                    block[0] = bulk_key_hash64([c[0] for c in chunk])
+                    block[1:] = np.array([c[1:6] for c in chunk],
+                                         dtype=np.int64).T
+                self.table = serve_kernel.store_rows(
+                    self.table, self._upload(block), now, self.cfg.ways,
+                    claim=self.claim,
+                    scratch=(self._scratch_for(1, len(chunk))
+                             if self.stream is not None else None))
 
     # -- persistence device hooks (PersistenceHost) ----------------------
     def _chunks(self, n: int):

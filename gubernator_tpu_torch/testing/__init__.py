@@ -294,3 +294,19 @@ def random_bucket_rows(rng: np.random.Generator, ks: KeySpace,
     off = rng.random(B) < 0.1
     cols["key_hash"][off] = 0
     return cols
+
+
+def random_cached_block(rng: np.random.Generator, ks: KeySpace,
+                        table_keys: np.ndarray, B: int,
+                        now: int) -> np.ndarray:
+    """int64[6, B] owner-broadcast rows in CachedRows order (the store
+    kernel's block) from `random_bucket_rows`' lanes: keys already in the
+    table, four or more fresh keys in each full bucket, ~10% inactive lanes
+    holding garbage; half the reset times already past, so some rows land
+    expired."""
+    c = random_bucket_rows(rng, ks, table_keys, B, now)
+    return np.stack([
+        c["key_hash"], c["algo"].astype(np.int64), c["limit"],
+        c["remaining"], c["status"].astype(np.int64),
+        c["expire_at"] - 60_000,
+    ])
