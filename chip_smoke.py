@@ -1975,7 +1975,7 @@ def bulk_load(be, cols, now):
     rank[order] = np.arange(len(sb)) - np.repeat(
         starts, np.diff(np.r_[starts, len(sb)]))
     wave = rank // INSERT_ROUNDS
-    with be._lock, be._on_stream():
+    with be._lock, be.place.on_stream():
         for w in range(int(wave.max()) + 1 if len(wave) else 0):
             sel = np.flatnonzero(wave == w)
             for lo in range(0, len(sel), be.cfg.batch_size):

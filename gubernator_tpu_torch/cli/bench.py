@@ -49,7 +49,7 @@ import torch
 
 from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.ops.state import SlotTable, clone_table, init_table
-from gubernator_tpu_torch.runtime.backend import PendingFetch
+from gubernator_tpu_torch.runtime.place import DevicePlace
 
 NUM_SLOTS = 1 << 24
 WAYS = 8
@@ -269,7 +269,8 @@ def _fed(table, step, key_pool, staged_idx, fed_batch, fed_budget_s,
     """The FED companion, best-effort: failures and timeouts are reported
     in fed_error (one retry), never raised."""
     dev = step.dev
-    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    place = DevicePlace.resolve(dev, "bench")
+    stream = place.stream
     # Packed at fed_batch width, contiguous and pinned on the card: each
     # step's upload is one non-blocking copy of a fresh request block.
     host_qs = []
@@ -321,7 +322,7 @@ def _fed(table, step, key_pool, staged_idx, fed_batch, fed_budget_s,
             table2 = clone_table(table)
             table2, r = step(table2, host_qs[0].to(dev, non_blocking=True),
                              now1)
-            PendingFetch([r[0]], stream).wait()  # warm the transfer path
+            place.fetch([r[0]]).wait()  # warm the transfer path
             _phase("fed warmup done")
             pending = None
             fed_iters = 0
@@ -333,7 +334,7 @@ def _fed(table, step, key_pool, staged_idx, fed_batch, fed_budget_s,
                     q_dev = host_qs[fed_iters % N_STAGED].to(
                         dev, non_blocking=True)
                     table2, r = step(table2, q_dev, now1)
-                    nxt = PendingFetch([r[0]], stream)
+                    nxt = place.fetch([r[0]])
                     fed_iters += 1
                 if pending is not None:
                     pending.wait()  # previous step's full response

@@ -20,7 +20,7 @@ reference's two RPC loops (sendHits + broadcastPeers):
 Each shard keeps its replica of the cache, and its auth shard, on its own
 device (parallel/sharded.py), so the collectives are copies between the
 shards plus int64 adds, each ordered by its streams' events
-(parallel/sharded.carry; on one card the shards' streams wait on each other
+(runtime/place.carry; on one card the shards' streams wait on each other
 and nothing is copied):
 
     psum        owner d receives row d of every source's delta grid and
@@ -84,7 +84,6 @@ from gubernator_tpu_torch.ops.state import KIND_CACHED_RESP, SlotTable
 from gubernator_tpu_torch.parallel.mesh import ShardedTensor, shard_of_hash
 from gubernator_tpu_torch.parallel.sharded import (
     MeshBackend,
-    carry,
     host_table,
     packed_grid_rounds_to_host,
 )
@@ -93,6 +92,7 @@ from gubernator_tpu_torch.runtime.backend import (
     rounds_to_qs,
     unmarshal_responses,
 )
+from gubernator_tpu_torch.runtime.place import carry
 from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
@@ -515,8 +515,7 @@ class GlobalEngine:
                 serve_kernel.store_rows(
                     self.cache_tables[c], r, now, self.b.cfg.ways,
                     claim=self.cache_claims[c],
-                    scratch=(place.scratch_for(1, r.shape[1])
-                             if place.stream is not None else None))
+                    scratch=place.scratch_for(1, r.shape[1]))
         if t:
             stage_end("global.broadcast", call, t, {
                 "rows": keys * self.n,

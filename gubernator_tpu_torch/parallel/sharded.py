@@ -33,18 +33,17 @@ split of the request block, then for each shard an upload of its part, a
 K1 launch and (for the caller) a fetch, all on that shard's stream: the
 cards, or the streams of one card, run them concurrently.  Results stay
 where they were made (`ShardedTensor`) and travel to the host behind each
-stream's own event (`MeshFetch`).
+stream's own event (runtime/place.py: each shard is a `DevicePlace`, and
+every crossing goes through its members).
 """
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from gubernator_tpu_torch.core import clock as clock_mod
 from gubernator_tpu_torch.core.config import DeviceConfig
 from gubernator_tpu_torch.core.hashing import key_hash64
 from gubernator_tpu_torch.core.types import RateLimitReq
@@ -54,7 +53,6 @@ from gubernator_tpu_torch.ops.batch import (
     pack_requests_grid,
 )
 from gubernator_tpu_torch.ops.kernels import serve_kernel
-from gubernator_tpu_torch.ops.kernels.serve_kernel import new_claim_buffer
 from gubernator_tpu_torch.ops.state import (
     COLUMN_DTYPES,
     SlotTable,
@@ -78,14 +76,11 @@ from gubernator_tpu_torch.parallel.mesh import (
 )
 from gubernator_tpu_torch.runtime.backend import (
     _ROW_DTYPES,
-    DevicePlace,
-    PendingFetch,
     TorchDeviceHost,
     _h64s,
     packed_rounds_to_host,
-    resolve_tiers,
-    upload_cols,
 )
+from gubernator_tpu_torch.runtime.place import DevicePlace, PendingFetch, carry
 
 
 def pack_requests_sharded(
@@ -147,77 +142,33 @@ def _hash_grid(h64: np.ndarray, shards: np.ndarray, n: int, B: int):
 
 
 # -- moving data between shards -------------------------------------------
-def _record(streams) -> List["torch.cuda.Event"]:
-    """One event at the current end of each distinct stream (none on the
-    CPU)."""
-    out, seen = [], []
-    for st in streams:
-        if st is None or any(st == x for x in seen):
-            continue
-        seen.append(st)
-        ev = torch.cuda.Event()
-        ev.record(st)
-        out.append(ev)
-    return out
+def fetch_sharded(items: Sequence[ShardedTensor]) -> PendingFetch:
+    """Start copying shard results (ShardedTensors split over the same
+    shards) to the host, each part on its stream (`fetch_parts`)."""
+    return fetch_parts([DevicePlace(p.device, st) for it in items[:1]
+                        for p, st in zip(it.parts, it.streams)], items)
 
 
-def carry(t: torch.Tensor, src: DevicePlace, dst: DevicePlace) -> torch.Tensor:
-    """`t`, made on `src`'s stream, for use on `dst`'s: ordered after the
-    work on src that made it and before dst's work queued later.
-
-    On one card nothing is copied: dst's stream waits on src's, and `t` is
-    marked in use on dst's stream, so the allocator keeps it until that
-    work is done.  Between cards PyTorch runs the copy on the SOURCE card's
-    current stream with a two-way barrier against the destination card's
-    current stream, so both are made current here: the copy follows src's
-    work and dst's later work follows the copy."""
-    if dst.stream is None:
-        return t.to(dst.device)
-    if src.device == dst.device:
-        if src.stream != dst.stream:
-            dst.stream.wait_stream(src.stream)
-            t.record_stream(dst.stream)
-        return t
-    with src.on_stream(), dst.on_stream():
-        return t.to(dst.device, non_blocking=True)
-
-
-class MeshFetch(PendingFetch):
-    """Copies to the host queued on the shards' streams, each stream's
-    behind its own event: `wait()` waits on those events alone, then
-    `finish()` gives the host arrays."""
-
-    __slots__ = ("_events", "_finish")
-
-    def __init__(self, events, finish: Callable[[], List[np.ndarray]]):
-        self._events, self._finish = events, finish
-
-    def wait(self) -> List[np.ndarray]:
-        for ev in self._events:
-            ev.synchronize()
-        return self._finish()
-
-
-def fetch_sharded(items: Sequence[ShardedTensor]) -> MeshFetch:
-    """Start copying shard results to the host: each part into pinned
-    memory on its shard's stream, right behind the work that made it.  The
-    fetch gives each ShardedTensor whole (its parts stacked on its axis).
-    On the CPU the parts are the host arrays already."""
-    host, streams = [], []
-    for it in items:
-        if it.streams[0] is None:
-            host.append(([p.numpy() for p in it.parts], it.axis))
-            continue
-        h = torch.empty((len(it.parts),) + tuple(it.parts[0].shape),
-                        dtype=it.parts[0].dtype, pin_memory=True)
-        for s, (p, st) in enumerate(zip(it.parts, it.streams)):
-            with torch.cuda.stream(st):
-                h[s].copy_(p, non_blocking=True)
-        host.append((h, it.axis))
-        streams.extend(it.streams)
-    return MeshFetch(_record(streams), lambda: [
-        np.stack(h, axis=ax) if isinstance(h, list)
-        else np.moveaxis(h.numpy(), 0, ax) for h, ax in host])
+def fetch_parts(places: Sequence[DevicePlace],
+                items: Sequence[ShardedTensor]) -> PendingFetch:
+    """Start copying shard results split over `places` to the host: one
+    pinned block an item, and for each shard one `DevicePlace.fetch` of
+    its parts into its stretch of the blocks, on its stream, right behind
+    the work that made them.  The fetch gives each ShardedTensor whole
+    (its parts stacked on its axis)."""
+    if not items:
+        return PendingFetch([], list)
+    blocks = [places[0].host_buffer(
+        (len(it.parts),) + tuple(it.parts[0].shape), it.parts[0].dtype)
+        for it in items]
+    axes = [it.axis for it in items]  # the finish keeps no device tensor
+    fetches = []
+    for s, place in enumerate(places):
+        with place.on_stream():
+            fetches.append(place.fetch([it.parts[s] for it in items],
+                                       [blk[s] for blk in blocks]))
+    return PendingFetch.join(fetches, lambda: [
+        np.moveaxis(blk.numpy(), 0, ax) for blk, ax in zip(blocks, axes)])
 
 
 # -- the lifts ------------------------------------------------------------
@@ -241,12 +192,10 @@ def mesh_ring_step(
     for s, place in enumerate(shards):
         with place.on_stream():
             k, _, B = qs[s].shape
-            scratch = (place.scratch_for(k, B)
-                       if place.stream is not None and k else None)
             _, r, sq = serve_kernel.persistent_serve_step(
                 tables[s], qs[s], nows[s], seq[s], ways,
                 claim=claims[s] if claims is not None else None,
-                scratch=scratch)
+                scratch=place.scratch_for(k, B))
         resps.append(r)
         seqs.append(sq)
     streams = [p.stream for p in shards]
@@ -336,27 +285,12 @@ class MeshBackend(TorchDeviceHost):
     ) -> None:
         if cfg.num_shards < 1:
             raise ValueError("num_shards must be >= 1")
-        self.cfg = cfg
-        self.clock = clock or clock_mod.default_clock()
-        self.metrics = metrics
-        self.store = store
-        self._keymap: Optional[Dict[int, str]] = (
-            {} if (store is not None or track_keys) else None
-        )
-        self._init_write_through()
-        self.last_copy_lock_s = 0.0
-        self._lock = threading.Lock()
+        who = type(self).__name__
         self.n = cfg.num_shards
-        self.shards = [
-            DevicePlace(d, torch.cuda.Stream(d) if d.type == "cuda" else None)
-            for d in make_mesh(self.n, cfg.device, devices,
-                               type(self).__name__)
-        ]
-        # The first shard's device and its current stream: what the
-        # sketch lane runs on (runtime/service.py); no shard op uses it.
-        self.device = self.shards[0].device
-        self.stream = (torch.cuda.current_stream(self.device)
-                       if self.device.type == "cuda" else None)
+        self.shards = [DevicePlace.fresh(d)
+                       for d in make_mesh(self.n, cfg.device, devices, who)]
+        self._init_host(cfg, clock, metrics, store, track_keys,
+                        DevicePlace.resolve(self.shards[0].device, who))
         self.local_slots = cfg.num_slots // self.n
         nb_local = self.local_slots // cfg.ways
         if nb_local & (nb_local - 1):
@@ -364,10 +298,6 @@ class MeshBackend(TorchDeviceHost):
                 f"buckets per shard ({nb_local}) must be a power of two"
             )
         self.tables, self.claims = self.new_table(cfg.num_slots)
-        self._tiers = resolve_tiers(cfg)
-        self.checks = 0
-        self.over_limit = 0
-        self.not_persisted = 0
 
     @property
     def shard_devices(self) -> List[str]:
@@ -381,9 +311,7 @@ class MeshBackend(TorchDeviceHost):
         L = num_slots // self.n
         tables = _each(self.shards, lambda s: init_table(
             L, self.shards[s].device))
-        claims = _each(self.shards, lambda s: new_claim_buffer(
-            L, self.shards[s].device)
-            if self.shards[s].stream is not None else None)
+        claims = [place.claim_words(L) for place in self.shards]
         return tables, claims
 
     @property
@@ -413,7 +341,7 @@ class MeshBackend(TorchDeviceHost):
                 return self.shards[s].upload(part)
 
             return _each(self.shards, up)
-        src = DevicePlace(a.device, torch.cuda.current_stream(a.device))
+        src = DevicePlace.resolve(a.device, type(self).__name__)
         out = []
         for s, place in enumerate(self.shards):
             part = carry(a if axis is None else a.select(axis, s), src, place)
@@ -436,11 +364,11 @@ class MeshBackend(TorchDeviceHost):
             self.shards, tables, self._parts(qs, 2), self._parts(nows, None),
             self._parts(seq, 0), self.cfg.ways, claims)
 
-    def _fetch_later(self, *items: ShardedTensor) -> MeshFetch:
+    def _fetch_later(self, *items: ShardedTensor) -> PendingFetch:
         """Start copying shard results to the host, each part behind its
         own stream's event; caller holds the lock, right after the
         dispatch that made them."""
-        return fetch_sharded(items)
+        return fetch_parts(self.shards, items)
 
     # -- ring drain discipline (runtime/ring.py) -------------------------
     def ring_q_shape(self, tb: int) -> tuple:
@@ -497,8 +425,7 @@ class MeshBackend(TorchDeviceHost):
     def synchronize(self) -> None:
         """Wait for every shard's stream."""
         for p in self.shards:
-            if p.stream is not None:
-                p.stream.synchronize()
+            p.synchronize()
 
     # -- GLOBAL broadcast receive ----------------------------------------
     def apply_cached_rows(self, rows: Sequence[tuple]) -> None:
@@ -524,14 +451,14 @@ class MeshBackend(TorchDeviceHost):
                         serve_kernel.store_rows(
                             self.tables[d], block, now, self.cfg.ways,
                             claim=self.claims[d],
-                            scratch=(place.scratch_for(1, B)
-                                     if place.stream is not None else None))
+                            scratch=place.scratch_for(1, B))
 
     def _upload_grid(self, grid: Sequence[np.ndarray], row_type) -> list:
         """[n, B] host columns -> shard s's `row_type` of [B] tensors on
-        its device, one pinned copy a shard (backend.upload_cols)."""
-        return _each(self.shards, lambda s: row_type(*upload_cols(
-            self.shards[s], [np.ascontiguousarray(g[s]) for g in grid])))
+        its device, one pinned copy a shard (`DevicePlace.upload_cols`)."""
+        return _each(self.shards, lambda s: row_type(
+            *self.shards[s].upload_cols(
+                [np.ascontiguousarray(g[s]) for g in grid])))
 
     def _upsert_grid(self, tables, cols, shards, now):
         """load_rows over BucketRows given as host columns, drained into
@@ -577,7 +504,7 @@ class MeshBackend(TorchDeviceHost):
             outs.extend(sharded_probe(self.shards, tables,
                                       self._parts(hv, 0), now,
                                       self.cfg.ways))
-        host = fetch_sharded(outs).wait()
+        host = self._fetch_later(*outs).wait()
         for i, (_, jv) in enumerate(grids):
             f, sl = host[2 * i], host[2 * i + 1]
             at = jv >= 0
@@ -644,34 +571,32 @@ class MeshBackend(TorchDeviceHost):
     # -- state -----------------------------------------------------------
     def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
                        n: Optional[int] = None, tables=None,
-                       lock=None) -> MeshFetch:
+                       lock=None) -> PendingFetch:
         """Start copying columns [lo, lo + n) of the whole table (shard
-        order) to the host: each shard copies its stretch on its stream.
-        The host buffers (pinned on the card) are allocated before `lock`
-        (the auth tables' by default) is taken, so it is held only while
-        the copies are queued."""
+        order) to the host: each shard's `fetch` of its stretch into its
+        stretch of one set of host buffers, on its stream.  The buffers
+        are allocated before `lock` (the auth tables' by default) is
+        taken, so it is held only while the copies are queued."""
         if tables is None:
             tables, lock = self.tables, self._lock
         L = tables[0].key.shape[0]
         n = L * self.n - lo if n is None else n
-        pin = self.shards[0].stream is not None
-        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
+        host = [self.shards[0].host_buffer(n, COLUMN_DTYPES[f])
                 for f in fields]
         t0 = time.monotonic()
         with lock:
-            streams = []
+            parts = []
             for s, place in enumerate(self.shards):
                 a, b = max(lo, s * L), min(lo + n, (s + 1) * L)
                 if a >= b:
                     continue
                 with place.on_stream():
-                    for h, f in zip(host, fields):
-                        h[a - lo:b - lo].copy_(
-                            getattr(tables[s], f)[a - s * L:b - s * L],
-                            non_blocking=pin)
-                streams.append(place.stream)
-            pending = MeshFetch(_record(streams),
-                                lambda: [h.numpy() for h in host])
+                    parts.append(place.fetch(
+                        [getattr(tables[s], f)[a - s * L:b - s * L]
+                         for f in fields],
+                        [h[a - lo:b - lo] for h in host]))
+            pending = PendingFetch.join(
+                parts, lambda: [h.numpy() for h in host])
         if tables is self.tables:
             self.last_copy_lock_s = time.monotonic() - t0
         return pending
@@ -690,10 +615,10 @@ class MeshBackend(TorchDeviceHost):
                 {f: a[s * L:(s + 1) * L] for f, a in arrays.items()},
                 self.shards[s].device))
 
-    def _occupancy_dispatch(self, tables) -> MeshFetch:
+    def _occupancy_dispatch(self, tables) -> PendingFetch:
         """Live rows of each shard of `tables` (caller holds their lock)."""
-        return fetch_sharded([_sharded(_each(
-            self.shards, lambda s: tables[s].occupancy()), self.shards)])
+        return self._fetch_later(_sharded(_each(
+            self.shards, lambda s: tables[s].occupancy()), self.shards))
 
     def occupancy(self) -> int:
         return sum(self.shard_occupancy())
@@ -722,7 +647,7 @@ class MeshBackend(TorchDeviceHost):
             st = sharded_table_stats(self.shards, self.tables,
                                      self._parts(fps, None), now,
                                      self.cfg.ways)
-            pending = fetch_sharded(list(st))
+            pending = self._fetch_later(*st)
         return lambda: TableStats(*pending.wait())
 
     def demote_extract_dispatch(self, protect_fps: np.ndarray, batch: int):
@@ -736,7 +661,7 @@ class MeshBackend(TorchDeviceHost):
             packed, rf = sharded_demote_extract(
                 self.shards, self.tables, self._parts(fps, None), now,
                 self.cfg.ways, batch)
-            pending = fetch_sharded([packed, rf])
+            pending = self._fetch_later(packed, rf)
 
         def fetch():
             p, r = pending.wait()

@@ -17,18 +17,16 @@ reference's single-writer discipline (workers.go:19-37) at whole-table
 granularity.  Device work is ordered by ONE stream: the backend keeps the
 stream that was current when it was built and issues every kernel, copy and
 event on it, whatever thread calls (the service's device executor, the fast
-lane's pool, the ring runner).  Uploads go through pinned host memory with
-non-blocking copies, and each dispatch that is fetched later copies its
-responses into pinned memory behind an event recorded right after that copy
-(`PendingFetch`), so a fetch waits for its own dispatch only, never for
-launches queued after it.
+lane's pool, the ring runner).  The device, the stream and every crossing
+to and from the card are the backend's `place` (runtime/place.py
+`DevicePlace`): pinned uploads, and fetches behind their own events, so a
+fetch waits for its own dispatch only, never for launches queued after it.
 
 The ring protocol (runtime/ring.py) and the persistent serve mode dispatch
 the same kernel: on the card every serve mode runs K1.
 """
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -47,11 +45,8 @@ from gubernator_tpu_torch.core.types import (
     Status,
 )
 from gubernator_tpu_torch.ops.batch import DeviceBatch, pack_batch_q, pack_requests
-from gubernator_tpu_torch.ops.kernels import resolve_device, serve_kernel
-from gubernator_tpu_torch.ops.kernels.serve_kernel import (
-    new_claim_buffer,
-    persistent_serve_step,
-)
+from gubernator_tpu_torch.ops.kernels import serve_kernel
+from gubernator_tpu_torch.ops.kernels.serve_kernel import persistent_serve_step
 from gubernator_tpu_torch.ops.state import (
     COLUMN_DTYPES,
     KIND_CACHED_RESP,
@@ -72,6 +67,7 @@ from gubernator_tpu_torch.ops.step import (
     load_rows,
     probe_batch,
 )
+from gubernator_tpu_torch.runtime.place import DevicePlace, PendingFetch
 from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
@@ -136,47 +132,6 @@ class Tally(NamedTuple):
     over_limit: int
     not_persisted: int
     cache_hits: int = 0
-
-
-class PendingFetch:
-    """Device tensors on their way to the host.
-
-    On the card: non-blocking copies into pinned host memory, issued on the
-    backend's stream right after the dispatch that produced the tensors,
-    and an event recorded right after the copies; `wait()` waits on that
-    event alone.  On the CPU the tensors are the host arrays already."""
-
-    __slots__ = ("_host", "_event")
-
-    def __init__(self, tensors: Sequence[torch.Tensor],
-                 stream: Optional["torch.cuda.Stream"],
-                 host: Optional[Sequence[torch.Tensor]] = None) -> None:
-        """`host`: preallocated host buffers (pinned on the card) to copy
-        into, so a caller holding a lock only queues the copies.  Without
-        it the CPU path keeps `tensors` themselves, which is right only
-        for fresh tensors (a dispatch's outputs), never for live table
-        columns."""
-        self._event = None
-        if host is not None:
-            for h, t in zip(host, tensors):
-                h.copy_(t, non_blocking=stream is not None)
-            self._host = list(host)
-        elif stream is None:
-            self._host = list(tensors)
-        else:
-            self._host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self._host.append(h)
-        if stream is not None:
-            self._event = torch.cuda.Event()
-            self._event.record(stream)
-
-    def wait(self) -> List[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
-        return [h.numpy() for h in self._host]
 
 
 def _packed_resp_dict(a: np.ndarray) -> Dict[str, np.ndarray]:
@@ -609,111 +564,44 @@ class PersistenceHost:
         return out
 
 
-class DevicePlace:
-    """A device and the stream its work goes on (None on the CPU), with
-    K1's lane-list scratch, reused in that stream's order: the per-device
-    plumbing of one table.  A TorchBackend has one; a MeshBackend one a
-    shard (parallel/sharded.py)."""
-
-    __slots__ = ("device", "stream", "_scratch")
-
-    def __init__(self, device: torch.device,
-                 stream: Optional["torch.cuda.Stream"] = None) -> None:
-        self.device = device
-        self.stream = stream
-        self._scratch: Optional[torch.Tensor] = None
-
-    def on_stream(self):
-        """Run the caller's device work on this place's stream (which
-        also makes its card the current device)."""
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
-
-    def upload(self, a) -> torch.Tensor:
-        """Host array -> device tensor: numpy is copied once into pinned
-        memory (a strided view, such as one shard's part of a block,
-        included) and sent with a non-blocking copy on this place's stream
-        (call it inside `on_stream`)."""
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        a = np.asarray(a)
-        if self.stream is None:
-            return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
-        dtype = torch.from_numpy(np.empty(0, dtype=a.dtype)).dtype
-        pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
-        pinned.numpy()[...] = a
-        return pinned.to(self.device, non_blocking=True)
-
-    def scratch_for(self, k: int, B: int) -> torch.Tensor:
-        """K1's scratch for a dispatch of k rounds of B lanes.  Grows the
-        kept buffer when a larger dispatch needs it.  The buffer returned
-        is the one checked or made here, so two threads that dispatch on
-        different tables of this place (a mesh shard's auth table and its
-        engine's cache) each get one large enough; launches on the one
-        stream use it in turn."""
-        words = serve_kernel.scratch_words(self.device, k, B)
-        buf = self._scratch
-        if buf is None or buf.numel() < words:
-            self._scratch = buf = None
-            try:
-                buf = torch.empty(
-                    max(words, 1), dtype=torch.int32, device=self.device)
-            except torch.OutOfMemoryError as e:
-                raise ValueError(
-                    f"K1 scratch for {k} rounds of {B} lanes needs "
-                    f"{4 * words} bytes on {self.device}; lower "
-                    "GUBER_RING_SLOTS x GUBER_RING_ROUNDS or the batch "
-                    "size"
-                ) from e
-            self._scratch = buf
-        return buf
-
-
-def upload_cols(place: DevicePlace,
-                parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
-    """Host arrays of one shape (int64, int32 or float64) -> tensors of
-    their dtypes on `place`, in one pinned copy: they travel as the rows of
-    one int64 array (int32 widened, float64 as its bits) and are split and
-    narrowed back on the device (call it inside `place.on_stream()`)."""
-    packed = np.empty((len(parts),) + np.shape(parts[0]), dtype=np.int64)
-    for i, a in enumerate(parts):
-        packed[i] = a.view(np.int64) if a.dtype == np.float64 else a
-    dev = place.upload(packed)
-    return [
-        dev[i].view(torch.float64) if a.dtype == np.float64
-        else dev[i].to(torch.int32) if a.dtype == np.int32 else dev[i]
-        for i, a in enumerate(parts)
-    ]
-
-
 class TorchDeviceHost(PersistenceHost):
-    """The device plumbing every torch engine shares: the table's device
-    and stream, pinned uploads, fetches behind their own events, the
-    tallies and whole-table copies.  The single-table TorchBackend and the
-    sharded parallel/sharded.MeshBackend build on it."""
+    """What every torch engine shares: its common state (`_init_host`),
+    the tallies, fetches of a dispatch's results and whole-table copies.
+    The single-table TorchBackend and the sharded
+    parallel/sharded.MeshBackend build on it."""
 
     # The sequence number of the latest dispatch (`_lock` held): the
     # `call` of its stages (runtime/tracing.py), which its fetch reuses.
     _call = 0
 
-    def _init_device(self) -> None:
-        """The table's device and the one stream every launch, copy and
-        event goes on (the card's current stream); raises on a CUDA device
-        without a card."""
+    def _init_host(self, cfg: DeviceConfig, clock, metrics, store,
+                   track_keys: bool, place: DevicePlace) -> None:
+        """The state every torch engine shares: its config, clock and
+        metrics, the Store write-through and the fingerprint -> key map
+        that persistence needs to name device rows, the lock, the
+        counters, the batch tiers, and `place`: the device and the one
+        stream every launch, copy and event of the table goes on (a
+        mesh's: its first shard's device and that card's current stream,
+        which the sketch lane shares; no shard op uses it)."""
+        self.cfg = cfg
+        # Any object with millisecond_now() and now() will do.
+        self.clock = clock or clock_mod.default_clock()
+        self.metrics = metrics
+        self.store = store
+        self._keymap: Optional[Dict[int, str]] = (
+            {} if (store is not None or track_keys) else None
+        )
+        self._init_write_through()
         # Seconds the last bulk table copy (snapshot, key column) held
         # `_lock`: serving waits that long.
         self.last_copy_lock_s = 0.0
-        self.device = resolve_device(self.cfg.device, type(self).__name__)
-        self.stream: Optional[torch.cuda.Stream] = (
-            torch.cuda.current_stream(self.device)
-            if self.device.type == "cuda" else None)
-        self.place = DevicePlace(self.device, self.stream)
         self._lock = threading.Lock()
-
-    def _on_stream(self):
-        """Run the caller's device work on the backend's stream."""
-        return self.place.on_stream()
+        self.place = place
+        self.device, self.stream = place.device, place.stream
+        self._tiers = resolve_tiers(cfg)
+        self.checks = 0
+        self.over_limit = 0
+        self.not_persisted = 0
 
     def _add_tally(self, tally: Tally) -> None:
         with self._lock:
@@ -738,22 +626,13 @@ class TorchDeviceHost(PersistenceHost):
                 time.monotonic() - t_start
             )
 
-    def _upload(self, a) -> torch.Tensor:
-        """Host array -> device tensor on the backend's stream (call it
-        inside `_on_stream`)."""
-        return self.place.upload(a)
-
-    def _scratch_for(self, k: int, B: int) -> torch.Tensor:
-        """K1's scratch for a dispatch of k rounds of B lanes."""
-        return self.place.scratch_for(k, B)
-
     def _fetch_later(self, *tensors: torch.Tensor) -> PendingFetch:
         """Start copying `tensors` to the host behind their own event;
         caller holds `_lock`, right after the dispatch that made them.
         Only what `tensors` hold is copied: a TorchBackend dispatch's
         responses are its occupied lanes alone (`occupied_q`)."""
-        with self._on_stream():
-            return PendingFetch(tensors, self.stream)
+        with self.place.on_stream():
+            return self.place.fetch(tensors)
 
     # -- state -----------------------------------------------------------
     def _columns_fetch(self, fields: Sequence[str], lo: int = 0,
@@ -765,15 +644,11 @@ class TorchDeviceHost(PersistenceHost):
         stream, and launches queued later cannot change what they copy.
         On the CPU the copy itself runs under the lock."""
         n = self.cfg.num_slots - lo if n is None else n
-        pin = self.stream is not None
-        host = [torch.empty(n, dtype=COLUMN_DTYPES[f], pin_memory=pin)
-                for f in fields]
+        host = [self.place.host_buffer(n, COLUMN_DTYPES[f]) for f in fields]
         t0 = time.monotonic()
-        with self._lock, self._on_stream():
-            pending = PendingFetch(
-                [getattr(self.table, f)[lo:lo + n] for f in fields],
-                self.stream, host=host,
-            )
+        with self._lock, self.place.on_stream():
+            pending = self.place.fetch(
+                [getattr(self.table, f)[lo:lo + n] for f in fields], host)
         self.last_copy_lock_s = time.monotonic() - t0
         return pending
 
@@ -795,23 +670,18 @@ class TorchDeviceHost(PersistenceHost):
                 f"snapshot has {arrays['key'].shape[0]} slots, backend "
                 f"expects {self.cfg.num_slots}"
             )
-        with self._lock, self._on_stream():
+        with self._lock, self.place.on_stream():
             self.table = table_from_host(arrays, self.device)
 
     def occupancy(self) -> int:
-        with self._lock, self._on_stream():
+        with self._lock, self.place.on_stream():
             return int(self.table.occupancy())
-
-    def _upload_cols(self, parts: Sequence[np.ndarray]) -> List[torch.Tensor]:
-        """Host arrays of one shape -> device tensors of their dtypes, in
-        one pinned copy (`upload_cols`)."""
-        return upload_cols(self.place, parts)
 
     def occupancy_dispatch(self):
         """Dispatch the resident-slot count under the lock; the returned
         closure fetches it (the tier manager's watermark read)."""
-        with self._lock, self._on_stream():
-            pending = PendingFetch([self.table.occupancy()], self.stream)
+        with self._lock, self.place.on_stream():
+            pending = self.place.fetch([self.table.occupancy()])
         return lambda: int(pending.wait()[0])
 
     # -- hot path --------------------------------------------------------
@@ -1049,51 +919,32 @@ class TorchBackend(TorchDeviceHost):
         store=None,
         track_keys: bool = False,
     ) -> None:
-        self.cfg = cfg or DeviceConfig()
-        # Any object with millisecond_now() and now() will do.
-        self.clock = clock or clock_mod.default_clock()
-        self.metrics = metrics
-        # Store write-through (runtime/store.py) and the fingerprint ->
-        # key map that persistence needs to name device rows.
-        self.store = store
-        self._keymap: Optional[Dict[int, str]] = (
-            {} if (store is not None or track_keys) else None
-        )
-        self._init_write_through()
-        self._init_device()
-        with self._on_stream():
+        cfg = cfg or DeviceConfig()
+        self._init_host(cfg, clock, metrics, store, track_keys,
+                        DevicePlace.resolve(cfg.device, type(self).__name__))
+        with self.place.on_stream():
             self.table: SlotTable = init_table(
                 self.cfg.num_slots, self.device
             )
-            # The serve kernel's claim words: all INT32_MAX between
-            # launches.
-            self.claim = (
-                new_claim_buffer(self.cfg.num_slots, self.device)
-                if self.stream is not None else None
-            )
-        self._tiers = resolve_tiers(self.cfg)
-        self.checks = 0
-        self.over_limit = 0
-        self.not_persisted = 0
+        # The serve kernel's claim words: all INT32_MAX between launches.
+        self.claim = self.place.claim_words(self.cfg.num_slots)
 
     def _launch(self, qs, nows, seq) -> Tuple[torch.Tensor, torch.Tensor]:
         """One serve-kernel dispatch on the backend's stream; caller holds
         `_lock`.  Returns the un-synced (int64[k, 9, B], seq + k)."""
-        with self._on_stream():
+        with self.place.on_stream():
             t = stage_begin()
-            qs = self._upload(qs).contiguous()
-            nows = self._upload(nows).contiguous()
+            qs = self.place.upload(qs).contiguous()
+            nows = self.place.upload(nows).contiguous()
             if not isinstance(seq, torch.Tensor):
                 seq = np.asarray(seq, dtype=np.int64)
-            seq = self._upload(seq)
+            seq = self.place.upload(seq)
             stage_end("exact.stage", self._call, t)
             t = stage_begin()
-            scratch = None
-            if self.stream is not None and qs.shape[0]:
-                scratch = self._scratch_for(qs.shape[0], qs.shape[2])
             self.table, resps, seq = persistent_serve_step(
-                self.table, qs, nows, seq,
-                ways=self.cfg.ways, claim=self.claim, scratch=scratch,
+                self.table, qs, nows, seq, ways=self.cfg.ways,
+                claim=self.claim,
+                scratch=self.place.scratch_for(qs.shape[0], qs.shape[2]),
             )
             stage_end("exact.launch", self._call, t)
         return resps, seq
@@ -1118,7 +969,7 @@ class TorchBackend(TorchDeviceHost):
 
     def ring_seq_init(self) -> torch.Tensor:
         """A fresh device-resident ring sequence word."""
-        with self._on_stream():
+        with self.place.on_stream():
             return torch.zeros((), dtype=torch.int64, device=self.device)
 
     persistent_serve_dispatch = TorchDeviceHost.ring_step_dispatch
@@ -1167,14 +1018,13 @@ class TorchBackend(TorchDeviceHost):
             self._probe_padded(zeros, now)
             self._gather_rows_finish(
                 self._gather_rows_dispatch(zeros, now), len(zeros))
-            with self._on_stream():
+            with self.place.on_stream():
                 load_rows(self.table, self._upload_rows(
                     {f: np.zeros(1) for f in BucketRows._fields},
                     slice(None)), now, self.cfg.ways)
         self.table_stats_dispatch(np.zeros((5, 8), dtype=np.int64))()
         self.apply_cached_rows([])
-        if self.stream is not None:
-            self.stream.synchronize()
+        self.place.synchronize()
 
     # -- GLOBAL broadcast receive ----------------------------------------
     def apply_cached_rows(self, rows: List[tuple]) -> None:
@@ -1186,7 +1036,7 @@ class TorchBackend(TorchDeviceHost):
         self._note_keys([c[0] for c in rows])
         B = self.cfg.batch_size
         now = self.clock.millisecond_now()
-        with self._lock, self._on_stream():
+        with self._lock, self.place.on_stream():
             for lo in range(0, max(len(rows), 1), B):
                 chunk = rows[lo:lo + B]
                 block = np.zeros((6, len(chunk)), dtype=np.int64)
@@ -1195,10 +1045,9 @@ class TorchBackend(TorchDeviceHost):
                     block[1:] = np.array([c[1:6] for c in chunk],
                                          dtype=np.int64).T
                 self.table = serve_kernel.store_rows(
-                    self.table, self._upload(block), now, self.cfg.ways,
+                    self.table, self.place.upload(block), now, self.cfg.ways,
                     claim=self.claim,
-                    scratch=(self._scratch_for(1, len(chunk))
-                             if self.stream is not None else None))
+                    scratch=self.place.scratch_for(1, len(chunk)))
 
     # -- persistence device hooks (PersistenceHost) ----------------------
     def _chunks(self, n: int):
@@ -1208,7 +1057,7 @@ class TorchBackend(TorchDeviceHost):
     def _upload_rows(self, cols: Dict[str, np.ndarray], sel) -> BucketRows:
         """BucketRows of the lanes `sel` of host columns (BucketRows field
         names), uploaded in one pinned copy."""
-        return BucketRows(*self._upload_cols([
+        return BucketRows(*self.place.upload_cols([
             np.asarray(cols[f], dtype=_ROW_DTYPES[f])[sel]
             for f in BucketRows._fields
         ]))
@@ -1218,13 +1067,13 @@ class TorchBackend(TorchDeviceHost):
         (caller holds `_lock`); one fetch for all chunks."""
         if not len(hashes):
             return np.zeros(0, dtype=bool)
-        with self._on_stream():
-            h = self._upload(np.asarray(hashes, dtype=np.int64))
+        with self.place.on_stream():
+            h = self.place.upload(np.asarray(hashes, dtype=np.int64))
             found = torch.cat([
                 probe_batch(self.table, h[lo:hi], now, self.cfg.ways)[0]
                 for lo, hi in self._chunks(len(hashes))
             ])
-            return PendingFetch([found], self.stream).wait()[0]
+            return self.place.fetch([found]).wait()[0]
 
     def _found_mask(self, keys, hashes, now: int) -> np.ndarray:
         return self._probe_padded(_h64s(hashes), now)
@@ -1238,7 +1087,7 @@ class TorchBackend(TorchDeviceHost):
         cols = {f: np.array([r[f] for r in rows], dtype=_ROW_DTYPES[f])
                 for f in BucketRows._fields if f != "key_hash"}
         cols["key_hash"] = _h64s(hashes)
-        with self._on_stream():
+        with self.place.on_stream():
             for lo, hi in self._chunks(len(rows)):
                 load_rows(self.table, self._upload_rows(cols, slice(lo, hi)),
                           now, self.cfg.ways)
@@ -1251,8 +1100,8 @@ class TorchBackend(TorchDeviceHost):
         later launches cannot change what was gathered."""
         parts: List[torch.Tensor] = []
         if len(h64):
-            with self._on_stream():
-                h = self._upload(np.asarray(h64, dtype=np.int64))
+            with self.place.on_stream():
+                h = self.place.upload(np.asarray(h64, dtype=np.int64))
                 for lo, hi in self._chunks(len(h64)):
                     parts.extend(gather_rows(
                         self.table, h[lo:hi], now, self.cfg.ways))
@@ -1280,13 +1129,13 @@ class TorchBackend(TorchDeviceHost):
             return np.zeros((10, 0), dtype=np.int64), np.zeros(0)
         now = self.clock.millisecond_now()
         parts: List[torch.Tensor] = []
-        with self._lock, self._on_stream():
-            h = self._upload(np.asarray(fps, dtype=np.int64))
+        with self._lock, self.place.on_stream():
+            h = self.place.upload(np.asarray(fps, dtype=np.int64))
             for lo, hi in self._chunks(n):
                 self.table, packed, rf = migrate_extract(
                     self.table, h[lo:hi], now, self.cfg.ways)
                 parts += [packed, rf]
-            pending = PendingFetch(parts, self.stream)
+            pending = self.place.fetch(parts)
         host = pending.wait()
         return (np.concatenate(host[0::2], axis=1),
                 np.concatenate(host[1::2]))
@@ -1295,13 +1144,13 @@ class TorchBackend(TorchDeviceHost):
         """migrate_inject over the lane index chunks `chunks` (caller
         holds `_lock`); a fetch of the resident-before masks."""
         masks = []
-        with self._on_stream():
+        with self.place.on_stream():
             for sel in chunks:
                 self.table, resident = migrate_inject(
                     self.table, self._upload_rows(cols, sel), now,
                     self.cfg.ways)
                 masks.append(resident)
-            return PendingFetch(masks, self.stream)
+            return self.place.fetch(masks)
 
     @staticmethod
     def _inject_counts(pending: PendingFetch, chunks, cols):
@@ -1337,10 +1186,10 @@ class TorchBackend(TorchDeviceHost):
         carries a leading shard axis (length 1 here)."""
         now = self.clock.millisecond_now()
         fps = np.asarray(shadow_fps, dtype=np.int64)
-        with self._lock, self._on_stream():
-            st = table_stats(self.table, self._upload(fps), now,
+        with self._lock, self.place.on_stream():
+            st = table_stats(self.table, self.place.upload(fps), now,
                              self.cfg.ways)
-            pending = PendingFetch(list(st), self.stream)
+            pending = self.place.fetch(list(st))
 
         def fetch() -> TableStats:
             return TableStats(*[a[None] for a in pending.wait()])
@@ -1354,10 +1203,10 @@ class TorchBackend(TorchDeviceHost):
         batch] in DEMOTE_ROW_FIELDS order, float64[batch] remaining_f)."""
         now = self.clock.millisecond_now()
         fps = np.asarray(protect_fps, dtype=np.int64)
-        with self._lock, self._on_stream():
+        with self._lock, self.place.on_stream():
             self.table, packed, rf = demote_extract(
-                self.table, self._upload(fps), now, self.cfg.ways, batch)
-            pending = PendingFetch([packed, rf], self.stream)
+                self.table, self.place.upload(fps), now, self.cfg.ways, batch)
+            pending = self.place.fetch([packed, rf])
 
         def fetch():
             packed_h, rf_h = pending.wait()

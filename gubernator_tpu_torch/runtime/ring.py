@@ -19,7 +19,7 @@ discipline moves the fetch off it:
                    iteration N's responses are fetched.
   response ring  — each dispatch copies its responses and its sequence word
                    into pinned host memory behind its own CUDA event
-                   (backend.PendingFetch); the runner waits on that event
+                   (place.PendingFetch); the runner waits on that event
                    only, verifies the word advanced exactly by the
                    consumed slot count, and publishes each round's packed
                    response to its waiting slot.

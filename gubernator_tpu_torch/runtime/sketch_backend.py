@@ -20,7 +20,9 @@ The device is `device` ("cuda" when None).  Without a CUDA device the
 constructor raises unless the caller asked for "cpu", where the kernel's
 plain version serves.  Every launch, copy and event goes on `stream` (the
 exact tier's stream when a service builds both tiers; else the stream
-current at construction), with uploads from pinned memory.
+current at construction): the backend's `place` (runtime/place.py
+`DevicePlace`), which uploads from pinned memory and fetches behind its
+own event.
 
 Semantics differences from the exact tier, by design:
 - `remaining` is an estimate (limit - estimated_count, floored at 0);
@@ -30,7 +32,6 @@ Semantics differences from the exact tier, by design:
 """
 from __future__ import annotations
 
-import contextlib
 import itertools
 import logging
 import threading
@@ -45,6 +46,7 @@ from gubernator_tpu_torch.core.hashing import bulk_key_hash64
 from gubernator_tpu_torch.core.types import RateLimitReq, RateLimitResp, Status
 from gubernator_tpu_torch.ops.kernels import cms_kernel
 from gubernator_tpu_torch.ops.sketch import init_sketch
+from gubernator_tpu_torch.runtime.place import DevicePlace
 from gubernator_tpu_torch.runtime.tracing import stage_begin, stage_end
 
 
@@ -128,19 +130,8 @@ class SketchBackend:
     ) -> None:
         self.cfg = cfg
         self.clock = clock or clock_mod.default_clock()
-        self.device = torch.device(device or "cuda")
-        self.stream = None
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "SketchBackend: no CUDA device; pass device='cpu' to run "
-                    "on the CPU"
-                )
-            if self.device.index is None:
-                self.device = torch.device(
-                    "cuda", torch.cuda.current_device()
-                )
-            self.stream = stream or torch.cuda.current_stream(self.device)
+        self.place = DevicePlace.resolve(device, type(self).__name__, stream)
+        self.device = self.place.device
         self.state = init_sketch(
             depth=cfg.depth, width=cfg.width, window_ms=cfg.window_ms,
             device=self.device,
@@ -310,17 +301,17 @@ class SketchBackend:
         """Build K2's library (nvcc, at first use) and launch it once on a
         throwaway sketch, so that no serving call pays for the compile or
         the module load.  On the CPU there is nothing to build."""
-        if self.device.type != "cuda":
+        if self.place.stream is None:
             return
         cms_kernel.library()
-        with self._on_stream():
+        with self.place.on_stream():
             z64 = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
             z32 = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
             cms_kernel.cms_multi_step(
                 init_sketch(self.cfg.depth, 1, self.cfg.window_ms,
                             self.device),
                 z64, z32, z32, 0)
-        torch.cuda.synchronize(self.device)
+        self.place.synchronize()
 
     def _advance_window(self, now_ms: int) -> None:
         """The kernel's rotation arithmetic on the host mirror (called
@@ -331,11 +322,6 @@ class SketchBackend:
         if elapsed >= w:
             self._win_start = now_ms - (elapsed % w)
 
-    def _on_stream(self):
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
-
     def _dispatch(self, kh: np.ndarray, hc: np.ndarray, lc: np.ndarray,
                   now: int) -> torch.Tensor:
         """Roll the host mirror of the window to `now` and launch K2 once
@@ -343,15 +329,8 @@ class SketchBackend:
         `_lock` and is on the backend's stream.  Returns the un-synced
         int32[k, 2, B]."""
         call = self._call
-
-        def dev(a: np.ndarray) -> torch.Tensor:
-            t = torch.from_numpy(a)
-            if self.stream is None:
-                return t
-            return t.pin_memory().to(self.device, non_blocking=True)
-
         t = stage_begin()
-        kh, hc, lc = dev(kh), dev(hc), dev(lc)
+        kh, hc, lc = [self.place.upload(a) for a in (kh, hc, lc)]
         stage_end("sketch.stage", call, t)
         t = stage_begin()
         self._advance_window(now)
@@ -410,31 +389,22 @@ class SketchBackend:
             [limits, np.zeros(pad, dtype=np.int64)]
         ).astype(np.int32).reshape(k, B)
         stage_end("sketch.prep", call, t)
-        with self._lock, self._on_stream():
+        with self._lock, self.place.on_stream():
             now = int(self.clock.millisecond_now())
             self._call = call
             packed = self._dispatch(kh, hc, lc, now)
             reset_val = self._win_start + self.cfg.window_ms
             t = stage_begin()
-            done = None
-            if packed.is_cuda:
-                # This merge's own responses, copied behind its own event.
-                host = torch.empty(packed.shape, dtype=packed.dtype,
-                                   pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.stream)
-            else:
-                host = packed
+            # This merge's own responses, copied behind its own event.
+            pending = self.place.fetch([packed])
             stage_end("sketch.stage", call, t)
 
         def fetch() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             t = stage_begin()
-            if done is not None:
-                done.synchronize()
+            pending.synchronize()
             stage_end("sketch.wait", call, t)
             t = stage_begin()
-            out = host.numpy()
+            (out,) = pending.wait()
             over = out[:, 0, :].reshape(-1)[:n]
             est = out[:, 1, :].reshape(-1)[:n].astype(np.int64)
             status = over.astype(np.int64)

@@ -6,12 +6,15 @@ sketch engine (`SketchBackend.check_cols_begin` and its fetch) log their
 five stages under one call number, on the profiler's clock and never as a
 profiler event; a new recording starts the log afresh; the lane counter;
 the stages as gubscope children of a bound span; the same answers armed or
-not; and the ring's device-step annotation entering no profiler range while
-no profiler records.
+not; the ring's device-step annotation entering no profiler range while
+no profiler records; and the crossings of one call of each engine (the
+GLOBAL engine's on a 4-shard mesh) through the device boundary
+(runtime/place.py `DevicePlace`).
 """
 from __future__ import annotations
 
 import tracemalloc
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -20,9 +23,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from gubernator_tpu_torch.core.clock import Clock
 from gubernator_tpu_torch.core.config import DeviceConfig, SketchTierConfig
-from gubernator_tpu_torch.ops.batch import empty_batch
+from gubernator_tpu_torch.core.hashing import key_hash64
+from gubernator_tpu_torch.core.types import Behavior, RateLimitReq
+from gubernator_tpu_torch.ops.batch import empty_batch, pack_requests_grid
+from gubernator_tpu_torch.parallel.global_sync import GlobalEngine, arrival_dev
+from gubernator_tpu_torch.parallel.sharded import MeshBackend
 from gubernator_tpu_torch.runtime import tracing
 from gubernator_tpu_torch.runtime.backend import TorchBackend
+from gubernator_tpu_torch.runtime.place import DevicePlace
 from gubernator_tpu_torch.runtime.sketch_backend import SketchBackend
 from gubernator_tpu_torch.testing.tracing import memory_tracing
 
@@ -272,3 +280,57 @@ def test_device_step_annotation_enters_a_range_only_while_recording(
             pass
     assert entered == ["ring.step"]
     assert "ring.step" in {e.name for e in prof.events()}
+
+
+def global_engine(n_shards=4, batch_size=64):
+    clock = Clock()
+    clock.freeze(T0_NS)
+    return GlobalEngine(MeshBackend(
+        DeviceConfig(num_slots=4096, ways=8, batch_size=batch_size,
+                     num_shards=n_shards, platform="cpu"), clock=clock))
+
+
+def global_call(eng, n=40):
+    """serve_packed of `n` GLOBAL keys in use_cached grid rounds routed by
+    arrival, as the fast lane packs them, and the fetch of its answers."""
+    route = lambda key: arrival_dev(key_hash64(key), eng.n)  # noqa: E731
+    reqs = [RateLimitReq(name="g", unique_key=f"k{i}", hits=1, limit=5,
+                         duration=60_000, behavior=int(Behavior.GLOBAL))
+            for i in range(n)]
+    packed = pack_requests_grid(reqs, eng.b.cfg.batch_size, eng.n, route,
+                                eng.clock)
+    for db in packed.rounds:
+        np.copyto(db.use_cached, db.active)
+    pend = [(r, r.hits, route(r.hash_key())) for r in reqs]
+    return eng.fetch_packed(eng.serve_packed(packed.rounds, pend)[0])
+
+
+@pytest.mark.parametrize("engine", ["exact", "sketch", "global"])
+def test_one_call_crosses_the_device_boundary_three_times_up_once_down(
+        engine, monkeypatch):
+    """Each place an engine call runs on takes three uploads (the request
+    block, the clock and the sequence word; the sketch's keys, hits and
+    limits) and one fetch of its answers: the exact engine's and the
+    sketch's one place, and each of the GLOBAL engine's four shards."""
+    if engine == "exact":
+        be = exact_engine()
+        places, call = [be.place], lambda: exact_call(be, exact_round(100))
+    elif engine == "sketch":
+        sb = sketch_engine()
+        places, call = [sb.place], lambda: sketch_call(sb, sketch_cols())
+    else:
+        eng = global_engine()
+        places, call = eng.b.shards, lambda: global_call(eng)
+    seen = {"upload": Counter(), "fetch": Counter()}
+    for name, count in seen.items():
+        real = getattr(DevicePlace, name)
+
+        def counted(self, *a, _real=real, _count=count):
+            _count[self] += 1
+            return _real(self, *a)
+
+        monkeypatch.setattr(DevicePlace, name, counted)
+    out = call()
+    assert len(out) >= 1
+    assert seen["upload"] == {p: 3 for p in places}
+    assert seen["fetch"] == {p: 1 for p in places}

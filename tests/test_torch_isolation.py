@@ -282,3 +282,22 @@ def test_port_state_plane_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "STATE-ISOLATED-OK" in proc.stdout
+
+
+def test_only_the_device_boundary_pins_memory_or_makes_events():
+    """Every crossing of the port's engines goes through runtime/place.py:
+    outside it (and the command-line tools in cli/), no module of the port
+    pins host memory or constructs a CUDA event."""
+    pkg = REPO / "gubernator_tpu_torch"
+    boundary = pkg / "runtime" / "place.py"
+    marks = ("pin_memory", "torch.cuda.Event(")
+    text = boundary.read_text()
+    assert all(m in text for m in marks)
+    found = [
+        f"{path.relative_to(REPO)}:{i}"
+        for path in sorted(pkg.rglob("*.py"))
+        if path != boundary and path.relative_to(pkg).parts[0] != "cli"
+        for i, line in enumerate(path.read_text().splitlines(), 1)
+        if any(m in line for m in marks)
+    ]
+    assert not found, found

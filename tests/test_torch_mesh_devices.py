@@ -31,10 +31,10 @@ from gubernator_tpu_torch.ops.kernels import serve_kernel
 from gubernator_tpu_torch.parallel.mesh import ShardedTensor, make_mesh
 from gubernator_tpu_torch.parallel.sharded import (
     MeshBackend,
-    carry,
     fetch_sharded,
     pack_requests_sharded,
 )
+from gubernator_tpu_torch.runtime.place import carry
 
 SLOTS, WAYS, B, N = 1 << 12, 8, 32, 4
 CPU = torch.device("cpu")
